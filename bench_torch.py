@@ -1,0 +1,213 @@
+#!/usr/bin/env python3
+"""Throughput of the PyTorch port (``localmd_tpu_torch``) on one NVIDIA GPU.
+
+bench.py's configuration (bench.py:66-85; its second leg, bench.py:365-390,
+for the 1024² cell) on bench.make_movie's movie (bench.py:23-63), made on
+the card from a seeded ``torch.Generator``: rank-16 white factors + N(0, 1)
+noise, uint16 as clip(40 x + 1000).
+
+    python3 bench_torch.py [--cell 512_f32|1024_u16|all] [--runs 10] [--profile]
+
+Per cell: one cold call of ``localmd_decomposition``, then ``--runs`` warm
+calls, each timed on the host clock around work that ends in
+``torch.cuda.synchronize()``. Prints one JSON line per cell: cold and warm
+seconds (median and quartiles), Mpf/s at the median, per-stage medians of
+``pipeline_timings``, peak allocated GiB, ranks, and the card's name and
+power limit. ``--profile`` adds one warm call under ``torch.profiler``:
+device busy ms (union of kernel intervals), idle share, and the kernels
+with the most device time.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+# bench.py:66-85
+MAIN_CONFIG = dict(
+    frame_range=1024, max_components=20, background_rank=15,
+    temporal_avg_factor=10, sim_iters=250, seed=0, rank_prune=True,
+)
+BLOCKS = (32, 32)
+
+# name -> (d1, d2, T, dtype, settings over MAIN_CONFIG and BLOCKS). The
+# second cell is bench.py's second leg (bench.py:365-390): blocks 40 and
+# frame_range 512. Its block_batch_size=64 only fitted a 16 GB TPU and is
+# left at the default.
+CELLS = {
+    "512_f32": (512, 512, 2048, "float32", {}),
+    "1024_u16": (1024, 1024, 4096, "uint16", dict(blocks=(40, 40), frame_range=512)),
+}
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def _smooth_unit(x, n_dims: int, width: int, passes: int = 3):
+    """Box-filter the trailing ``n_dims`` dims of (k, ...) ``x`` ``passes``
+    times (about a Gaussian of sigma width/2), then scale each row to unit
+    std."""
+    import torch.nn.functional as F
+
+    pool = F.avg_pool2d if n_dims == 2 else F.avg_pool1d
+    y = x.unsqueeze(1)
+    for _ in range(passes):
+        y = pool(y, width, stride=1, padding=width // 2, count_include_pad=False)
+    flat = y.squeeze(1).reshape(y.shape[0], -1)
+    return (flat - flat.mean(1, keepdim=True)) / flat.std(1, keepdim=True)
+
+
+def make_movie(dtype: str, d1=512, d2=512, t=2048, rank=16, seed=0, smooth=False,
+               device="cuda"):
+    """bench.make_movie's construction made on ``device``: spatial
+    (d1*d2, rank) and temporal (rank, t) factors of unit-variance normals,
+    movie = (spatial @ temporal).T + N(0, 1), uint16 as clip(40 x + 1000)
+    truncated. Filled 512 frames at a time.
+
+    ``smooth=True`` box-filters the factors (9 pixels, 9 frames, three
+    passes) so they are smoother than the noise, like footprints and
+    calcium traces. PMD keeps such components; white factors look like
+    noise to its roughness test. Returns (movie, clean_fn), clean_fn(frames)
+    giving the noiseless frames in movie units."""
+    import torch
+
+    dev = torch.device(device)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    spatial = torch.randn(d1 * d2, rank, generator=g, device=dev)
+    temporal = torch.randn(rank, t, generator=g, device=dev)
+    if smooth:
+        spatial = _smooth_unit(spatial.T.reshape(rank, d1, d2), 2, 9).T
+        temporal = _smooth_unit(temporal, 1, 9)
+    scale, offset = (1.0, 0.0) if dtype == "float32" else (40.0, 1000.0)
+    movie = torch.empty((t, d1, d2), dtype=getattr(torch, dtype), device=dev)
+    for s in range(0, t, 512):
+        chunk = (spatial @ temporal[:, s : s + 512]).T.reshape(-1, d1, d2)
+        chunk += torch.randn(chunk.shape, generator=g, device=dev)
+        if dtype == "uint16":
+            chunk = (chunk * scale + offset).clamp(0, 65535)
+        movie[s : s + 512] = chunk.to(movie.dtype)
+
+    def clean(frames):
+        return (spatial @ temporal[:, frames]).T.reshape(-1, d1, d2) * scale + offset
+
+    return movie, clean
+
+
+def timed_run(movie, blocks=BLOCKS, **settings):
+    """One ``localmd_decomposition`` call on the card with bench.py's
+    configuration, ``settings`` overriding it: (pmd, seconds, peak GiB)."""
+    import torch
+
+    from localmd_tpu_torch import localmd_decomposition
+
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pmd = localmd_decomposition(movie, blocks, device="cuda", **{**MAIN_CONFIG, **settings})
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return pmd, seconds, torch.cuda.max_memory_allocated() / 2**30
+
+
+def profile_run(movie, settings: dict, top: int = 12) -> dict:
+    """One warm call under torch.profiler: wall, device busy time (union of
+    kernel intervals), idle share and the kernels with most device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall, _ = timed_run(movie, **settings)
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+    busy_us, end = 0.0, -np.inf
+    for s, e in sorted(spans):
+        if e > end:
+            busy_us += e - max(s, end)
+            end = e
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return dict(
+        profiled_wall_ms=wall * 1e3, device_busy_ms=busy_us / 1e3,
+        idle_share_profiled=1.0 - busy_us / 1e3 / (wall * 1e3), n_kernels=len(spans),
+        top_kernels_ms=[[name[:90], us / 1e3] for name, us in ranked],
+    )
+
+
+def bench_cell(name: str, runs: int, with_profile: bool, card: str) -> dict:
+    import torch
+
+    d1, d2, t, dtype, settings = CELLS[name]
+    movie, _ = make_movie(dtype, d1, d2, t)
+    pmd, cold, _ = timed_run(movie, **settings)
+    walls, stages, peak = [], {}, 0.0
+    for _ in range(runs):
+        pmd, secs, peak_i = timed_run(movie, **settings)
+        walls.append(secs)
+        peak = max(peak, peak_i)
+        for k, v in pmd.pipeline_timings.items():
+            stages.setdefault(k, []).append(v)
+    q1, med, q3 = (float(x) for x in np.percentile(walls, [25, 50, 75]))
+    out = dict(
+        cell=name, shape=[t, d1, d2], dtype=dtype, settings=settings, card=card, cold_s=cold,
+        warm_s=walls, warm_median_s=med, warm_q1_s=q1, warm_q3_s=q3,
+        mpf_per_s=d1 * d2 * t / med / 1e6,
+        stage_median_s={k: float(np.median(v)) for k, v in stages.items()},
+        peak_gib=peak, ranks=pmd.pipeline_ranks,
+    )
+    if with_profile:
+        prof = profile_run(movie, settings)
+        prof["idle_share_at_median_wall"] = 1.0 - prof["device_busy_ms"] / (med * 1e3)
+        out["profile"] = prof
+    del movie, pmd
+    torch.cuda.empty_cache()
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--cell", default="all", choices=["all", *CELLS])
+    ap.add_argument("--runs", type=int, default=10, help="warm calls per cell")
+    ap.add_argument("--profile", action="store_true",
+                    help="add one warm call under torch.profiler")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("bench_torch: CUDA is not available; this benchmark needs one GPU",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    import logging
+
+    from localmd_tpu_torch import config
+    from localmd_tpu_torch.utils.logging import get_logger
+
+    config.apply()
+    get_logger().setLevel(logging.WARNING)
+    card = card_line()
+    for name in CELLS if args.cell == "all" else [args.cell]:
+        print(json.dumps(bench_cell(name, args.runs, args.profile, card)), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,413 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch port (``localmd_tpu_torch``) on one NVIDIA GPU.
+
+Phases (each prints one progress line; any failure raises, exit code != 0):
+
+0. device: require CUDA, print the card, power limit and versions; TF32 off.
+1. build: compile the three CUDA kernels from ``localmd_tpu_torch/csrc``.
+2. kernel vs plain: each kernel against its plain PyTorch version on the
+   card, at the main path's shapes plus edge cases, with CUDA-event times.
+3. golden: the port on the golden movie with the committed injected
+   sketches and pinned thresholds, against tests/golden/reference_golden.npz.
+4. main path: ``localmd_decomposition`` on bench.make_movie's 512 x 512 x
+   2048 float32 movie made on the card (bench.py's configuration), once
+   cold and twice warm, then ``reconstruct_frames`` on 512 frames; every
+   kernel must have run.
+5. the same movie as uint16, once.
+6. denoising: the same construction with smoothed factors, float32 and
+   uint16, once each; the reconstruction must be closer to the clean movie
+   than the raw frames.
+
+The last two lines are a JSON object with one entry per kernel and the
+result line ``{"ok": true, "device": {...}}``.
+
+Run from the repository root: ``python3 chip_smoke.py`` (one card).
+``--phases 0,1,2`` runs a subset (the result line needs all of them).
+Repeated warm timings and a profile: ``bench_torch.py``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+GOLDEN = os.path.join(HERE, "tests", "golden", "reference_golden.npz")
+GOLDEN_SKETCHES = os.path.join(HERE, "tests", "golden", "torch_port_sketches.npz")
+
+KERNELS = {
+    "movie_stats": ("localmd_tpu_torch/csrc/movie_stats.cu",
+                    "localmd_tpu/ops/pallas_kernels.py:120"),
+    "v_projection": ("localmd_tpu_torch/csrc/v_projection.cu",
+                     "localmd_tpu/ops/pallas_kernels.py:216"),
+    "block_reconstruct": ("localmd_tpu_torch/csrc/block_reconstruct.cu",
+                          "localmd_tpu/ops/pallas_kernels.py:332"),
+}
+ALL_PHASES = (0, 1, 2, 3, 4, 5, 6)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_ms(fn, reps: int = 5) -> float:
+    """Median CUDA-event time of ``fn`` over ``reps`` runs, after a warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+    return float(np.median(times))
+
+
+def rel_fro(a, b) -> float:
+    import torch
+
+    return float(torch.linalg.norm((a - b).double()) / torch.linalg.norm(b.double()))
+
+
+def max_abs(a, b) -> float:
+    return float((a.double() - b.double()).abs().max())
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise AssertionError(what)
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def phase_kernels(results: dict) -> None:
+    import torch
+
+    from localmd_tpu_torch.ops import kernels
+    from localmd_tpu_torch.ops.tiling import BlockGrid
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    # K1: mean max|d| / max|ref| <= 1e-5; sigma max relative error <= 1e-4
+    t, p = 1024, 262144
+    chunk_f32 = torch.randn(t, p, generator=g, device=dev) * 2.3 + 1.0
+    chunk_u16 = (torch.randn(t, p, generator=g, device=dev) * 40 + 1000).clamp(0, 65535).to(torch.uint16)
+    cases = [
+        ("f32 nperseg=256", chunk_f32, True, 256),
+        ("uint16 nperseg=256", chunk_u16, True, 256),
+        ("f32 nperseg=500", chunk_f32, True, 500),
+        ("f32 reference nperseg=T=1024", chunk_f32, True, 1024),
+        ("f32 mean only", chunk_f32, False, 256),
+        ("f32 P=262107 (ragged tile)", chunk_f32[:, : p - 37].contiguous(), True, 256),
+        ("f32 T=300 reference nperseg=300", chunk_f32[:300].contiguous(), True, 300),
+    ]
+    first_err = None
+    for name, x, noise, nper in cases:
+        m_k, s_k = kernels.movie_stats(x, 2048, compute_noise=noise, nperseg=nper)
+        m_p, s_p = kernels.movie_stats_plain(x, 2048, compute_noise=noise, nperseg=nper)
+        torch.cuda.synchronize()
+        mean_err = max_abs(m_k, m_p) / float(m_p.abs().max())
+        sig_err = float(((s_k - s_p).abs() / s_p.abs().clamp_min(1e-30)).max()) if noise else max_abs(s_k, s_p)
+        log(f"  K1 movie_stats {name}: mean err {mean_err:.3e}, sigma err {sig_err:.3e}")
+        check(mean_err <= 1e-5, f"K1 {name}: mean error {mean_err}")
+        check(sig_err <= 1e-4 if noise else sig_err == 0.0, f"K1 {name}: sigma error {sig_err}")
+        if first_err is None:
+            first_err = max(max_abs(m_k, m_p), max_abs(s_k, s_p))
+    ms = cuda_ms(lambda: kernels.movie_stats(chunk_f32, 2048))
+    plain_ms = cuda_ms(lambda: kernels.movie_stats_plain(chunk_f32, 2048))
+    log(f"  K1 (1024, 262144) f32: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    results["movie_stats"] = dict(max_abs_err=first_err, ms=ms, plain_ms=plain_ms)
+    del chunk_u16
+
+    # K2: relative Frobenius error <= 1e-5. Both sides sum d = 262144 fp32
+    # products in different orders; each split of K2 sums <= 4096 terms.
+    d, r = 262144, 300
+    a = torch.randn(d, r, generator=g, device=dev) * 0.01
+    c = torch.randn(r, generator=g, device=dev)
+    raw_u16 = (torch.randn(t, d, generator=g, device=dev) * 40 + 1000).clamp(0, 65535).to(torch.uint16)
+    cases = [("f32 (1024, 262144) r'=300", chunk_f32, a, c),
+             ("uint16 (1024, 262144) r'=300", raw_u16, a, c)]
+    a_big = torch.randn(16384, 2560, generator=g, device=dev) * 0.02
+    c_big = torch.randn(2560, generator=g, device=dev)
+    cases.append(("f32 (1024, 16384) r'=2560", chunk_f32[:, :16384].contiguous(), a_big, c_big))
+    cases.append(("uint16 (100, 701) r'=37 (scalar loads)", raw_u16[:100, :701].contiguous(),
+                  a[:701, :37].contiguous(), c[:37].contiguous()))
+    cases.append(("f32 (300, 4096) r'=64, base off 16-byte alignment",
+                  chunk_f32.reshape(-1)[1 : 1 + 300 * 4096].view(300, 4096),
+                  a[:4096, :64].contiguous(), c[:64].contiguous()))
+    first_err = None
+    for name, x, aa, cc in cases:
+        out_k = kernels.v_projection(x, aa, cc)
+        out_p = kernels.v_projection_plain(x, aa, cc)
+        torch.cuda.synchronize()
+        err = rel_fro(out_k, out_p)
+        log(f"  K2 v_projection {name}: rel Frobenius err {err:.3e}")
+        check(err <= 1e-5, f"K2 {name}: error {err}")
+        if first_err is None:
+            first_err = max_abs(out_k, out_p)
+    ms = cuda_ms(lambda: kernels.v_projection(chunk_f32, a, c))
+    plain_ms = cuda_ms(lambda: kernels.v_projection_plain(chunk_f32, a, c))
+    log(f"  K2 (1024, 262144) f32 r'=300: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    del raw_u16, chunk_f32, a, a_big
+    # the main path's call: the whole 2048-frame movie as one chunk, r' = 336
+    raw = torch.randn(2048, d, generator=g, device=dev)
+    a = torch.randn(d, 336, generator=g, device=dev) * 0.01
+    c = torch.randn(336, generator=g, device=dev)
+    out_k = kernels.v_projection(raw, a, c)
+    out_p = kernels.v_projection_plain(raw, a, c)
+    torch.cuda.synchronize()
+    err = rel_fro(out_k, out_p)
+    check(err <= 1e-5, f"K2 (2048, 262144): error {err}")
+    first_err = max_abs(out_k, out_p)
+    del out_k, out_p
+    ms = cuda_ms(lambda: kernels.v_projection(raw, a, c))
+    plain_ms = cuda_ms(lambda: kernels.v_projection_plain(raw, a, c))
+    log(f"  K2 (2048, 262144) f32 r'=336 (main path): rel Frobenius err {err:.3e}; "
+        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    results["v_projection"] = dict(max_abs_err=first_err, ms=ms, plain_ms=plain_ms)
+    del raw, a
+
+    # K3: relative Frobenius error <= 1e-5
+    first = None
+    for name, (d1, d2, b, s_slots, f) in [
+        ("961 blocks 32x32 on 512^2, S=20, f=512", (512, 512, 32, 20, 512)),
+        ("60x52 blocks 20 (snapped tail)", (60, 52, 20, 3, 40)),
+        ("60x52 blocks 15 (odd)", (60, 52, 15, 5, 70)),
+    ]:
+        grid = BlockGrid(d1, d2, (b, b))
+        n = grid.n_blocks
+        panels = torch.randn(n, b * b, s_slots, generator=g, device=dev)
+        temporal = torch.randn(n, s_slots, f, generator=g, device=dev)
+        starts = torch.as_tensor(grid.starts, device=dev)
+        cosets = tuple(ids for ids, _ in grid.cosets())
+        args = (panels, temporal, starts, cosets, (d1, d2), (b, b))
+        out_k = kernels.block_reconstruct(*args)
+        out_p = kernels.block_reconstruct_plain(*args)
+        torch.cuda.synchronize()
+        err = rel_fro(out_k, out_p)
+        log(f"  K3 block_reconstruct {name} ({len(cosets)} cosets): rel Frobenius err {err:.3e}")
+        check(err <= 1e-5, f"K3 {name}: error {err}")
+        if first is None:
+            first = (args, max_abs(out_k, out_p))
+    args, err0 = first
+    ms = cuda_ms(lambda: kernels.block_reconstruct(*args))
+    plain_ms = cuda_ms(lambda: kernels.block_reconstruct_plain(*args))
+    log(f"  K3 961 blocks f=512: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    results["block_reconstruct"] = dict(max_abs_err=err0, ms=ms, plain_ms=plain_ms)
+
+
+# ---------------------------------------------------------------------------
+# phase 3: golden fixture on the card
+# ---------------------------------------------------------------------------
+
+def golden_movie():
+    """MUST match tests/test_golden.py _make_movie()."""
+    rng = np.random.default_rng(55)
+    T, d1, d2, R = 500, 40, 36, 4
+    spatial = rng.random((d1 * d2, R)).astype(np.float32)
+    temporal = rng.standard_normal((R, T)).astype(np.float32)
+    temporal *= np.asarray([8.0, 6.0, 4.5, 3.0], np.float32)[:, None]
+    movie = (spatial @ temporal).T.reshape(T, d1, d2)
+    movie += 1e-4 * rng.standard_normal(movie.shape).astype(np.float32)
+    return movie.astype(np.float32), T, R
+
+
+def phase_golden() -> None:
+    import torch
+
+    import localmd_tpu_torch.pipeline as port_pipeline
+    from localmd_tpu_torch.ops import kernels
+    from localmd_tpu_torch.utils.random import sketch_override
+
+    golden = np.load(GOLDEN, allow_pickle=True)
+    sketches = np.load(GOLDEN_SKETCHES)
+
+    def fixed_sketch(shape):
+        return sketches["x".join(str(int(s)) for s in shape)]
+
+    movie, T, R = golden_movie()
+    before = kernels.launch_counts()
+    saved = port_pipeline.threshold_heuristic
+    port_pipeline.threshold_heuristic = lambda *a, **k: (1e9, 1e9)
+    try:
+        with sketch_override(fixed_sketch):
+            pmd = port_pipeline.localmd_decomposition(
+                torch.as_tensor(movie, device="cuda"), (16, 16), frame_range=T,
+                max_components=R, background_rank=2, temporal_avg_factor=4,
+                compute_normalizer=True, welch_compat="reference", seed=0,
+                final_rank_tol=0.0, device="cuda",
+            )
+    finally:
+        port_pipeline.threshold_heuristic = saved
+    recon_k3 = pmd.reconstruct_frames(np.arange(T)).cpu().numpy()
+    recon_host = pmd[:, :, :]
+    after = kernels.launch_counts()
+    ref = golden["recon"]
+    err_k3 = float(np.linalg.norm(recon_k3 - ref) / np.linalg.norm(ref))
+    err_host = float(np.linalg.norm(recon_host - ref) / np.linalg.norm(ref))
+    mean_err = float(np.max(np.abs(pmd.mean_img - golden["mean_img"])) / np.abs(golden["mean_img"]).max())
+    var_err = float(np.max(np.abs(pmd.var_img - golden["noise_var_img"]) / np.abs(golden["noise_var_img"])))
+    log(f"  golden: recon rel Frobenius {err_k3:.3e} (K3) / {err_host:.3e} (host CSR), "
+        f"mean max|d|/max|ref| {mean_err:.3e}, var rel {var_err:.3e}, ranks {pmd.pipeline_ranks}")
+    for k in before:
+        check(after[k] > before[k], f"golden run did not launch {k}")
+    check(err_k3 <= 1e-5 and err_host <= 1e-5, f"golden reconstruction error {err_k3} / {err_host}")
+    check(np.allclose(pmd.mean_img, golden["mean_img"], rtol=1e-4, atol=1e-5), "golden mean_img")
+    check(np.allclose(pmd.var_img, golden["noise_var_img"], rtol=1e-4, atol=0), "golden var_img")
+
+
+# ---------------------------------------------------------------------------
+# phases 4-6: the main path at 512 x 512 x 2048
+# ---------------------------------------------------------------------------
+
+def run_main(movie, runs: int, label: str):
+    """``runs`` calls of localmd_decomposition (the first cold); checks the
+    ranks and returns the last PMDArray."""
+    from bench_torch import timed_run
+
+    t, d1, d2 = movie.shape
+    pmd = None
+    for i in range(runs):
+        pmd, secs, peak = timed_run(movie)
+        kind = "cold" if i == 0 else "warm"
+        log(f"  {label} run {i} ({kind}): {secs:.4f} s = "
+            f"{d1 * d2 * t / secs / 1e6:.1f} Mpf/s; stages "
+            + json.dumps({k: round(v, 4) for k, v in pmd.pipeline_timings.items()})
+            + f"; peak {peak:.2f} GiB")
+    ranks = pmd.pipeline_ranks
+    log(f"  {label} ranks {ranks}")
+    check(0 < ranks["final"] <= ranks["reduced"], f"{label}: final rank {ranks}")
+    return pmd
+
+
+def check_recon(pmd, movie, clean_fn, label: str, denoised: bool) -> None:
+    """``reconstruct_frames`` on the first 512 frames: shape, finite values,
+    and -- with ``denoised`` -- closer to the clean movie than the raw
+    frames are."""
+    import torch
+
+    frames = np.arange(512)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    recon = pmd.reconstruct_frames(frames)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    check(tuple(recon.shape) == (512,) + tuple(movie.shape[1:]), f"{label}: recon shape")
+    check(bool(torch.isfinite(recon).all()), f"{label}: non-finite reconstruction")
+    clean = clean_fn(torch.as_tensor(frames, device=recon.device))
+    err_recon = float(torch.linalg.norm(recon - clean))
+    err_raw = float(torch.linalg.norm(movie[:512].to(torch.float32) - clean))
+    log(f"  {label} reconstruct_frames(512): {secs:.4f} s; "
+        f"||recon - clean|| {err_recon:.1f}, ||movie - clean|| {err_raw:.1f}")
+    if denoised:
+        check(err_recon < err_raw, f"{label}: reconstruction is not closer to the clean movie")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default=",".join(map(str, ALL_PHASES)),
+                    help="comma-separated phases to run (default: all)")
+    args = ap.parse_args(argv)
+    phases = {int(p) for p in args.phases.split(",")}
+
+    import torch
+
+    # phase 0
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this smoke test needs one GPU",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    from bench_torch import card_line, make_movie
+    from localmd_tpu_torch import config
+    from localmd_tpu_torch.ops import _build, kernels
+
+    config.apply()
+    card = card_line()
+    log(f"phase 0 device: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+
+    # phase 1
+    t0 = time.perf_counter()
+    _build.library()
+    path = _build.last_build["path"]
+    log(f"phase 1 build: {time.perf_counter() - t0:.2f} s ({path}, "
+        f"nvcc {_build.last_build.get('seconds', 0.0):.2f} s)")
+    for line in _build.last_build.get("log", "").splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            log(f"  ptxas: {line.strip()}")
+
+    results: dict = {}
+    if 2 in phases:
+        log("phase 2 kernels vs plain")
+        phase_kernels(results)
+    if 3 in phases:
+        log("phase 3 golden on the card")
+        phase_golden()
+    launches = None
+    if 4 in phases:
+        # bench.make_movie's white factors look like noise to PMD's roughness
+        # test (the JAX package ends at final rank 150-154 on this movie,
+        # BENCH_r0*.json), so this leg checks shape, ranks and finite values;
+        # phase 6 checks denoising
+        log("phase 4 main path 512x512x2048 float32 (bench.make_movie)")
+        movie, clean_fn = make_movie("float32")
+        kernels.reset_launch_counts()
+        pmd = run_main(movie, 3, "f32")
+        check_recon(pmd, movie, clean_fn, "f32", denoised=False)
+        launches = kernels.launch_counts()
+        log(f"  launches on the main path: {launches}")
+        for name, n in launches.items():
+            check(n > 0, f"main path never launched {name}")
+        del pmd, movie
+        torch.cuda.empty_cache()
+    if 5 in phases:
+        log("phase 5 main path 512x512x2048 uint16 (bench.make_movie)")
+        movie, clean_fn = make_movie("uint16")
+        before = kernels.launch_counts()
+        pmd = run_main(movie, 1, "u16")
+        check_recon(pmd, movie, clean_fn, "u16", denoised=False)
+        after = kernels.launch_counts()
+        for name in after:
+            check(after[name] > before[name], f"uint16 leg never launched {name}")
+        del pmd, movie
+        torch.cuda.empty_cache()
+    if 6 in phases:
+        log("phase 6 denoising 512x512x2048, smoothed factors")
+        for dtype, label in (("float32", "smooth f32"), ("uint16", "smooth u16")):
+            movie, clean_fn = make_movie(dtype, smooth=True)
+            pmd = run_main(movie, 1, label)
+            check_recon(pmd, movie, clean_fn, label, denoised=True)
+            del pmd, movie
+            torch.cuda.empty_cache()
+
+    if phases != set(ALL_PHASES):
+        log(f"partial run (phases {sorted(phases)}): no result line")
+        return 0
+    log(card)
+    log(json.dumps({"kernels": [
+        dict(name=name, route="cuda", source=KERNELS[name][0], replaces=KERNELS[name][1],
+             launches=launches[name], **results[name])
+        for name in KERNELS
+    ]}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,189 @@
+"""Batched per-block PMD decomposition (counterpart of localmd_tpu/engine.py,
+single-window path with identity denoisers).
+
+- ``single_block_md_batched``: the first-window decomposition of a batch of
+  blocks (engine.py:76-147).
+- ``_pack_components_route``: the failure filter plus one-hot routing of kept
+  components into per-block slots (engine.py:211-239).
+- ``window0_chunk_step``: gather -> decompose -> pack for one batch of
+  blocks (engine.py:250-301); the JAX package's CPU reference path.
+- ``threshold_heuristic``: the noise-null Monte-Carlo for the roughness
+  cutoffs (engine.py:911-1053); ``jnp.percentile`` becomes
+  ``torch.quantile`` with linear interpolation.
+
+``vmap`` is an explicit leading block axis throughout.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from localmd_tpu_torch.ops.linalg import (
+    DEFAULT_OVERSAMPLES,
+    _rsvd_core,
+    batched_truncated_random_svd,
+    cholesky_qr2,
+    svd_gram_left,
+)
+from localmd_tpu_torch.ops.pooling import downsample_average_pooling
+from localmd_tpu_torch.ops.roughness import (
+    evaluate_fitness,
+    filter_by_failures,
+    spatial_roughness_stat,
+    temporal_roughness_stat,
+)
+from localmd_tpu_torch.ops.tiling import extract_patches, flatten_fov, unflatten_fov
+from localmd_tpu_torch.utils.random import normal
+
+
+def _bin_consecutive(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """Average consecutive groups of ``factor`` frames: (..., t) -> (..., t//factor)."""
+    *lead, t = x.shape
+    return x.reshape(*lead, t // factor, factor).mean(dim=-1)
+
+
+def single_block_md_batched(
+    blocks: torch.Tensor,
+    sketches: torch.Tensor,
+    max_rank: int,
+    temporal_avg_factor: int,
+    spatial_avg_factor: int,
+    spatial_threshold,
+    temporal_threshold,
+):
+    """First-window decomposition of every block at once.
+
+    blocks: (n, b1, b2, t) standardized patches; sketches: (n, t', k) rSVD
+    sketches for the binned (t' = t // temporal_avg_factor) coarse problem.
+    Returns u (n, b1*b2, r) F-order orthonormal bases, decisions (n, r)
+    int32 and v (n, r, t) with the singular values folded in."""
+    _, b1, b2, _ = blocks.shape
+    down = downsample_average_pooling(blocks, spatial_avg_factor)
+    down_flat = flatten_fov(down)                                    # (n, p', t)
+    down_avg = _bin_consecutive(down_flat, temporal_avg_factor)
+    u_coarse = batched_truncated_random_svd(down_avg, max_rank, sketch=sketches)[0]
+    v_coarse = u_coarse.transpose(-1, -2) @ down_flat                # (n, r, t)
+    # any orthonormal basis of v_coarse's row space serves (engine.py:111-121)
+    v_basis = cholesky_qr2(v_coarse.transpose(-1, -2)).transpose(-1, -2)
+
+    blocks_flat = flatten_fov(blocks)                                # (n, p, t)
+    spatial_proj = blocks_flat @ v_basis.transpose(-1, -2)           # (n, p, r)
+    u_final = cholesky_qr2(spatial_proj)
+    v_new = u_final.transpose(-1, -2) @ blocks_flat                  # (n, r, t)
+    v_left, v_sing, v_right = svd_gram_left(v_new)
+    u_final = u_final @ v_left
+    v_final = v_sing[..., :, None] * v_right
+
+    u_img = unflatten_fov(u_final, b1, b2)                           # (n, b1, b2, r)
+    decisions = evaluate_fitness(
+        u_img.movedim(-1, 1), v_final, spatial_threshold, temporal_threshold
+    )
+    return u_final, decisions, v_final
+
+
+def _pack_components_route(
+    u_new: torch.Tensor,
+    v_new: Optional[torch.Tensor],
+    decisions: torch.Tensor,
+    acc: torch.Tensor,
+    counts: torch.Tensor,
+    max_consecutive_failures: int,
+):
+    """Write each kept component of block b into slot ``counts[b] + (rank
+    among kept)`` with a one-hot matmul, optionally routing the temporal
+    components through the same one-hot (then ``v_fit == acc^T @ X``)."""
+    slots = acc.shape[-1]
+    keep = filter_by_failures(decisions > 0, max_consecutive_failures)
+    target = counts[:, None] + torch.cumsum(keep.to(torch.int32), dim=-1) - 1
+    valid = keep & (target < slots)
+    onehot = (
+        valid[..., None]
+        & (target[..., None] == torch.arange(slots, device=acc.device)[None, None, :])
+    ).to(u_new.dtype)                                                # (n, r, S)
+    acc = acc + u_new @ onehot
+    counts = counts + valid.sum(dim=-1).to(counts.dtype)
+    v_fit = None
+    if v_new is not None:
+        v_fit = onehot.transpose(-1, -2) @ v_new                     # (n, S, t)
+    return acc, counts, v_fit
+
+
+def window0_chunk_step(
+    data: torch.Tensor,
+    starts,
+    sketches: torch.Tensor,
+    b1: int,
+    b2: int,
+    max_rank: int,
+    temporal_avg_factor: int,
+    spatial_avg_factor: int,
+    spatial_threshold,
+    temporal_threshold,
+    max_consecutive_failures: int,
+    t_used: int = 0,
+):
+    """One batch of blocks: patch gather -> decomposition -> failure filter
+    + packing. data (d1, d2, t); starts (n, 2); sketches (n, t', k).
+    Returns (acc (n, b1*b2, max_rank), counts (n,) int32, v_fit (n, max_rank, t))."""
+    patches = extract_patches(data, starts, b1, b2)
+    if t_used and t_used < patches.shape[-1]:
+        patches = patches[..., :t_used]
+    u, decisions, v = single_block_md_batched(
+        patches, sketches, max_rank, temporal_avg_factor, spatial_avg_factor,
+        spatial_threshold, temporal_threshold,
+    )
+    n = patches.shape[0]
+    acc = torch.zeros((n, b1 * b2, max_rank), dtype=patches.dtype, device=patches.device)
+    counts = torch.zeros((n,), dtype=torch.int32, device=patches.device)
+    return _pack_components_route(u, v, decisions, acc, counts, max_consecutive_failures)
+
+
+# ---------------------------------------------------------------------------
+# Threshold calibration (Monte-Carlo on pure noise)
+# ---------------------------------------------------------------------------
+
+def _rank_simulation_batch(
+    noise: torch.Tensor, sketches: torch.Tensor, num_comps: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Roughness stats of a rank-``num_comps`` rSVD of each noise block.
+
+    noise: (n, d1, d2, t) iid N(0, 1); sketches: (n, t, num_comps + 10).
+    Returns (spatial (n, num_comps), temporal (n, num_comps)) -- the
+    draws-as-inputs form of engine.py:910-934. The pixels are flattened in
+    C order (a free reshape) where the JAX package uses F: the rSVD is
+    row-permutation equivariant, so the images and statistics are the same."""
+    _, d1, d2, _ = noise.shape
+    u, s, vt = _rsvd_core(flatten_fov(noise, "C"), sketches, num_comps)
+    v = s[..., :, None] * vt
+    u_img = unflatten_fov(u, d1, d2, "C")
+    return spatial_roughness_stat(u_img.movedim(-1, 1)), temporal_roughness_stat(v)
+
+
+def threshold_heuristic(
+    dimensions: Tuple[int, int, int],
+    num_comps: int = 1,
+    iters: int = 250,
+    percentile_threshold: float = 5.0,
+    generator: Optional[torch.Generator] = None,
+    sim_batch: int = 32,
+    device="cpu",
+) -> Tuple[float, float]:
+    """Spatial/temporal roughness cutoffs from a noise-null Monte-Carlo:
+    whole ``sim_batch`` batches of simulated blocks, the percentile taken
+    over exactly the first ``iters`` draws (engine.py:937-967)."""
+    d1, d2, t = dimensions
+    n_batches = max(1, -(-iters // sim_batch))
+    sps, tps = [], []
+    for _ in range(n_batches):
+        noise = normal((d1, d2, t), generator, device, batch=(sim_batch,))
+        sketch = normal((t, num_comps + DEFAULT_OVERSAMPLES), generator, device, batch=(sim_batch,))
+        sp, tp = _rank_simulation_batch(noise, sketch, num_comps)
+        sps.append(sp)
+        tps.append(tp)
+    n_used = iters if iters else n_batches * sim_batch
+    sp_all = torch.cat(sps).reshape(-1)[:n_used]
+    tp_all = torch.cat(tps).reshape(-1)[:n_used]
+    q = percentile_threshold / 100.0
+    return float(torch.quantile(sp_all, q)), float(torch.quantile(tp_all, q))

@@ -1,0 +1,104 @@
+"""Build and load the hand-written CUDA kernels (``localmd_tpu_torch/csrc``).
+
+All ``.cu`` sources compile with ``nvcc`` for ``sm_90a`` into one shared
+library with a plain C interface, loaded with ``ctypes``. The build runs at
+first use, into ``localmd_tpu_torch/_build/`` (git-ignored), keyed on a
+hash of the sources and flags, so a fresh checkout builds once and later
+processes reuse the library. ``torch.utils.cpp_extension`` is not used:
+including PyTorch's headers makes a build take minutes instead of seconds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import Optional
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+SOURCES = ("movie_stats.cu", "v_projection.cu", "block_reconstruct.cu")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# every entry point returns cudaGetLastError() as an int
+SIGNATURES = {
+    # x, dtype, t, P, cos_m, sin_m, cos1, sin1, nperseg, n_segs, divisor,
+    # scale, mean, sigma, stream
+    "lmd_movie_stats": (_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _F, _F, _P, _P, _P),
+    # raw, dtype, t, d, a, r, c, splits, k_chunk, ws, out, stream
+    "lmd_v_projection": (_P, _I, _I, _I, _P, _I, _P, _I, _I, _P, _P, _P),
+    # panels, temporal, starts, ids, coset_offsets (host), n_cosets, p, S,
+    # f, b2, d2, out, stream
+    "lmd_block_reconstruct": (
+        _P, _P, _P, _P, ctypes.POINTER(ctypes.c_int), _I, _I, _I, _I, _I, _I, _P, _P,
+    ),
+}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+last_build: dict = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    return os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        with open(os.path.join(CSRC_DIR, name), "rb") as fh:
+            h.update(name.encode() + b"\0" + fh.read())
+    return h.hexdigest()[:16]
+
+
+def build() -> str:
+    """Compile the kernels if the library for the current sources is
+    missing; return its path. ``last_build`` records the seconds spent and
+    the compiler's output (``-Xptxas -v``: registers, shared memory,
+    spills per kernel)."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    path = os.path.join(BUILD_DIR, f"liblocalmd_kernels_{_digest()}.so")
+    if os.path.exists(path):
+        last_build.update(path=path, seconds=0.0, cached=True)
+        return path
+    tmp = f"{path}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp] + [os.path.join(CSRC_DIR, s) for s in SOURCES]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
+        )
+    os.replace(tmp, path)
+    last_build.update(path=path, seconds=seconds, cached=False, log=proc.stdout + proc.stderr)
+    return path
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use), with every entry
+    point's ``argtypes`` and ``restype`` declared."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            for name, args in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(args)
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib

@@ -1,0 +1,343 @@
+"""The three kernels of the main path, each beside its plain PyTorch version.
+
+Counterpart of localmd_tpu/ops/pallas_kernels.py. Every wrapper takes its
+plain version only because the tensor it was given lies on the CPU; for a
+CUDA tensor it launches the hand-written CUDA kernel (``csrc/``, built by
+``ops._build``) or raises. There is no fallback and no switch. Each wrapper
+carries ``launches``, a plain int counting the calls that launched its CUDA
+kernel, so a run can show that the main path went through it.
+
+- K1 ``movie_stats``: per-pixel mean + Welch sigma of a raw chunk
+  (``csrc/movie_stats.cu``; plain twin: ``ops.noise``).
+- K2 ``v_projection``: ``(raw @ A - c)^T`` over a raw chunk in its native
+  dtype (``csrc/v_projection.cu``; plain twin: loader.py:365-372).
+- K3 ``block_reconstruct``: overlap-add of per-block ``U_b @ V_b`` into a
+  (d1, d2, f) canvas, one launch per disjoint coset
+  (``csrc/block_reconstruct.cu``; plain twin: a scatter-add).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+from localmd_tpu_torch.ops.noise import (
+    NOVERLAP,
+    NPERSEG,
+    _BAND_END,
+    _band_dft_matrices,
+    welch_scale,
+    welch_sigma,
+)
+
+_DTYPE_CODES = {torch.float32: 0, torch.uint16: 1}
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _stream(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _library():
+    from localmd_tpu_torch.ops._build import library
+
+    return library()
+
+
+def _require_cuda(name: str, *tensors: torch.Tensor) -> None:
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: expected CPU or CUDA tensors, got {t.device}")
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on different devices ({dev}, {t.device})")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+
+
+def _check_status(name: str, code: int) -> None:
+    if code != 0:
+        raise RuntimeError(f"{name}: CUDA kernel launch failed with cudaError {code}")
+
+
+# ---------------------------------------------------------------------------
+# K1: fused movie statistics
+# ---------------------------------------------------------------------------
+
+_DFT_CACHE: dict = {}
+
+
+def _dft_constants(nperseg: int, device: torch.device):
+    """Windowed band-DFT matrices (nperseg, 64), their column sums and the
+    density scale, built on the CPU with the f32 arithmetic of
+    ops/noise.py:55-61 and cached per device."""
+    key = (nperseg, str(device))
+    got = _DFT_CACHE.get(key)
+    if got is None:
+        cos_m, sin_m, cos_1, sin_1 = _band_dft_matrices(nperseg, "cpu")
+        scale = float(welch_scale(nperseg, "cpu"))
+        got = tuple(x.contiguous().to(device) for x in (cos_m, sin_m, cos_1, sin_1)) + (scale,)
+        _DFT_CACHE[key] = got
+    return got
+
+
+def _stats_segments(t: int, compute_noise: bool, nperseg: int) -> int:
+    if not compute_noise:
+        return 0
+    if t < nperseg:
+        raise ValueError(f"need at least {nperseg} frames for the noise estimate, got {t}")
+    if nperseg < 2 * (_BAND_END - 1):
+        raise ValueError(f"nperseg must be >= {2 * (_BAND_END - 1)}, got {nperseg}")
+    return (t - nperseg) // (nperseg - NOVERLAP) + 1
+
+
+def movie_stats_plain(
+    chunk2d: torch.Tensor, mean_divisor, compute_noise: bool = True, nperseg: int = NPERSEG
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of K1: (T, P) chunk -> (mean (P,), sigma (P,)) f32."""
+    _stats_segments(chunk2d.shape[0], compute_noise, nperseg)
+    x = chunk2d.to(torch.float32)
+    mean = x.sum(dim=0) / mean_divisor
+    if not compute_noise:
+        return mean, torch.zeros_like(mean)
+    return mean, welch_sigma(x.T, nperseg)
+
+
+def movie_stats(
+    chunk2d: torch.Tensor, mean_divisor, compute_noise: bool = True, nperseg: int = NPERSEG
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1: per-pixel mean + Welch sigma of a (T, P) raw chunk (float32 or
+    uint16), one pass over the chunk in its native dtype.
+
+    ``mean_divisor`` is the whole movie's frame count; ``nperseg`` is 256
+    (scipy semantics) or T (the reference's effective single periodogram);
+    ``compute_noise=False`` gives sigma = 0."""
+    if chunk2d.device.type == "cpu":
+        return movie_stats_plain(chunk2d, mean_divisor, compute_noise, nperseg)
+    _require_cuda("movie_stats", chunk2d)
+    if chunk2d.dim() != 2 or chunk2d.dtype not in _DTYPE_CODES:
+        raise ValueError(
+            f"movie_stats: expected a 2-D float32/uint16 chunk, got "
+            f"{tuple(chunk2d.shape)} {chunk2d.dtype}"
+        )
+    t, p = chunk2d.shape
+    n_segs = _stats_segments(t, compute_noise, nperseg)
+    dev = chunk2d.device
+    cos_m, sin_m, cos_1, sin_1, scale = _dft_constants(nperseg, dev)
+    mean = torch.empty(p, dtype=torch.float32, device=dev)
+    sigma = torch.empty(p, dtype=torch.float32, device=dev)
+    code = _library().lmd_movie_stats(
+        _ptr(chunk2d), _DTYPE_CODES[chunk2d.dtype], t, p,
+        _ptr(cos_m), _ptr(sin_m), _ptr(cos_1), _ptr(sin_1),
+        nperseg, n_segs, float(mean_divisor), scale,
+        _ptr(mean), _ptr(sigma), _stream(chunk2d),
+    )
+    _check_status("movie_stats", code)
+    movie_stats.launches += 1
+    return mean, sigma
+
+
+movie_stats.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K2: fused V projection
+# ---------------------------------------------------------------------------
+
+_VP_BM, _VP_BN, _VP_BK = 128, 128, 16
+_VP_MIN_K_CHUNK = 256
+# each CTA's fp32 sum runs over at most this many pixels (accuracy bound)
+_VP_MAX_K_CHUNK = 4096
+
+
+def v_projection_plain(raw2d: torch.Tensor, a_cols: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Plain twin of K2 (loader.py:365-372): (raw.f32 @ A - c)^T."""
+    return (raw2d.to(torch.float32) @ a_cols - c[None, :]).T
+
+
+def _vp_split(t: int, d: int, r: int, n_sm: int) -> Tuple[int, int]:
+    """(splits, k_chunk): split the d axis until the grid holds at least two
+    waves of CTAs (two CTAs fit on an SM) and no split sums more than
+    4096 pixels, keeping each split at least 256 deep and a multiple of 16."""
+    tiles = -(-t // _VP_BM) * -(-r // _VP_BN)
+    want = max(-(-4 * n_sm // tiles), -(-d // _VP_MAX_K_CHUNK))
+    splits = max(1, min(want, -(-d // _VP_MIN_K_CHUNK)))
+    per_split = -(-d // splits)
+    k_chunk = -(-per_split // _VP_BK) * _VP_BK
+    return -(-d // k_chunk), k_chunk
+
+
+def v_projection(raw2d: torch.Tensor, a_cols: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """K2: (t, d) raw chunk (float32/uint16, C-order pixels) x (d, r')
+    projector -> (r', t), in one pass over the raw chunk with no f32 copy.
+    ``a_cols`` rows must follow raw2d's C-order pixel flattening."""
+    if raw2d.device.type == "cpu":
+        return v_projection_plain(raw2d, a_cols, c)
+    _require_cuda("v_projection", raw2d, a_cols, c)
+    t, d = raw2d.shape
+    if raw2d.dtype not in _DTYPE_CODES:
+        raise ValueError(f"v_projection: raw dtype {raw2d.dtype} is not float32/uint16")
+    if a_cols.dtype != torch.float32 or c.dtype != torch.float32:
+        raise ValueError("v_projection: projector and constant must be float32")
+    if a_cols.dim() != 2 or a_cols.shape[0] != d or c.shape != (a_cols.shape[1],):
+        raise ValueError(
+            f"v_projection: shapes raw {tuple(raw2d.shape)}, A {tuple(a_cols.shape)}, "
+            f"c {tuple(c.shape)} do not agree"
+        )
+    r = a_cols.shape[1]
+    dev = raw2d.device
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits, k_chunk = _vp_split(t, d, r, n_sm)
+    ws = torch.empty((splits, t, r), dtype=torch.float32, device=dev)
+    out = torch.empty((r, t), dtype=torch.float32, device=dev)
+    code = _library().lmd_v_projection(
+        _ptr(raw2d), _DTYPE_CODES[raw2d.dtype], t, d, _ptr(a_cols), r, _ptr(c),
+        splits, k_chunk, _ptr(ws), _ptr(out), _stream(raw2d),
+    )
+    _check_status("v_projection", code)
+    v_projection.launches += 1
+    return out
+
+
+v_projection.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K3: blocked reconstruction
+# ---------------------------------------------------------------------------
+
+def panels_f_to_c(panels: torch.Tensor, b1: int, b2: int) -> torch.Tensor:
+    """Reorder (N, b1*b2, S) panel rows from F-order (i + j*b1) to C-order
+    (i*b2 + j) local pixel ids (pallas_kernels.py:418)."""
+    n, p, s = panels.shape
+    return panels.reshape(n, b2, b1, s).transpose(1, 2).reshape(n, p, s).contiguous()
+
+
+def check_cosets(starts: np.ndarray, cosets: Sequence[np.ndarray], fov, block_shape) -> None:
+    """Raise unless ``cosets`` partition the blocks into groups whose
+    rectangles are pairwise disjoint and inside the FOV -- what lets K3
+    write each coset without atomics."""
+    d1, d2 = fov
+    b1, b2 = block_shape
+    starts = np.asarray(starts)
+    ids = np.concatenate([np.asarray(c) for c in cosets]) if len(cosets) else np.zeros(0, int)
+    if sorted(ids.tolist()) != list(range(len(starts))):
+        raise ValueError("cosets must hold every block id exactly once")
+    if starts.size and (
+        starts.min() < 0 or (starts[:, 0] + b1).max() > d1 or (starts[:, 1] + b2).max() > d2
+    ):
+        raise ValueError("a block lies outside the FOV")
+    for c in cosets:
+        cover = np.zeros((d1, d2), np.int32)
+        for k, j in starts[np.asarray(c)]:
+            cover[k : k + b1, j : j + b2] += 1
+        if cover.max(initial=0) > 1:
+            raise ValueError("blocks within a coset overlap")
+
+
+def block_reconstruct_plain(
+    panels_c: torch.Tensor,
+    temporal: torch.Tensor,
+    starts: torch.Tensor,
+    cosets: Sequence[np.ndarray],
+    fov: Tuple[int, int],
+    block_shape: Tuple[int, int],
+) -> torch.Tensor:
+    """Plain twin of K3: batched panel product + scatter-add (the
+    ``BlockSparseMatrix.matmul`` + ``unflatten_fov`` of pmd_array.py:336-338,
+    in C-order rows)."""
+    d1, d2 = fov
+    b1, b2 = block_shape
+    check_cosets(starts.cpu().numpy(), cosets, fov, block_shape)
+    f = temporal.shape[-1]
+    contrib = panels_c @ temporal                                  # (N, p, f)
+    st = starts.to(torch.long)
+    dev = panels_c.device
+    rows = (st[:, 0, None, None] + torch.arange(b1, device=dev)[None, :, None]) * d2 + (
+        st[:, 1, None, None] + torch.arange(b2, device=dev)[None, None, :]
+    )
+    out = torch.zeros((d1 * d2, f), dtype=torch.float32, device=dev)
+    out.index_add_(0, rows.reshape(-1), contrib.reshape(-1, f))
+    return out.reshape(d1, d2, f)
+
+
+def block_reconstruct(
+    panels_c: torch.Tensor,
+    temporal: torch.Tensor,
+    starts: torch.Tensor,
+    cosets: Sequence[np.ndarray],
+    fov: Tuple[int, int],
+    block_shape: Tuple[int, int],
+) -> torch.Tensor:
+    """K3: ``sum_b panels_c[b] @ temporal[b]`` overlap-added into a
+    (d1, d2, f) canvas at each block's start.
+
+    panels_c (N, b1*b2, S) f32 with C-order local rows; temporal (N, S, f)
+    f32; starts (N, 2) int32; ``cosets`` a partition of the block ids into
+    groups of pairwise-disjoint blocks (``BlockGrid.cosets``), launched in
+    order so the sums are deterministic."""
+    if panels_c.device.type == "cpu":
+        return block_reconstruct_plain(panels_c, temporal, starts, cosets, fov, block_shape)
+    _require_cuda("block_reconstruct", panels_c, temporal, starts)
+    d1, d2 = fov
+    b1, b2 = block_shape
+    n, p, s = panels_c.shape
+    if panels_c.dtype != torch.float32 or temporal.dtype != torch.float32:
+        raise ValueError("block_reconstruct: panels and temporal must be float32")
+    if starts.dtype != torch.int32 or starts.shape != (n, 2):
+        raise ValueError("block_reconstruct: starts must be (N, 2) int32")
+    if p != b1 * b2 or temporal.dim() != 3 or temporal.shape[:2] != (n, s):
+        raise ValueError(
+            f"block_reconstruct: panels {tuple(panels_c.shape)} / temporal "
+            f"{tuple(temporal.shape)} do not match blocks {block_shape}"
+        )
+    f = temporal.shape[2]
+    if s * 64 * 4 > 227 * 1024:
+        raise ValueError(f"block_reconstruct: {s} slots exceed the shared-memory tile")
+    dev = panels_c.device
+    host_ids = [np.asarray(c, dtype=np.int32) for c in cosets]
+    all_ids = np.concatenate(host_ids)
+    if all_ids.size and (all_ids.min() < 0 or all_ids.max() >= n):
+        raise ValueError("block_reconstruct: a coset names a block id out of range")
+    # every write lands inside the canvas (one small sync); disjointness
+    # within a coset is the caller's contract (BlockGrid.cosets), which the
+    # plain twin checks
+    lo, hi1, hi2 = torch.stack(
+        [starts.min(), starts[:, 0].max(), starts[:, 1].max()]
+    ).tolist() if n else (0, 0, 0)
+    if lo < 0 or hi1 + b1 > d1 or hi2 + b2 > d2:
+        raise ValueError("block_reconstruct: a block lies outside the FOV")
+    offsets = np.concatenate([[0], np.cumsum([len(c) for c in host_ids])]).astype(np.int32)
+    ids = torch.from_numpy(all_ids).to(dev)
+    c_offsets = (ctypes.c_int * len(offsets))(*offsets.tolist())
+    out = torch.zeros((d1, d2, f), dtype=torch.float32, device=dev)
+    code = _library().lmd_block_reconstruct(
+        _ptr(panels_c), _ptr(temporal), _ptr(starts), _ptr(ids),
+        c_offsets, len(host_ids), p, s, f, b2, d2, _ptr(out), _stream(panels_c),
+    )
+    _check_status("block_reconstruct", code)
+    block_reconstruct.launches += 1
+    return out
+
+
+block_reconstruct.launches = 0
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel's launch count to 0."""
+    for fn in (movie_stats, v_projection, block_reconstruct):
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {
+        "movie_stats": movie_stats.launches,
+        "v_projection": v_projection.launches,
+        "block_reconstruct": block_reconstruct.launches,
+    }

@@ -1,0 +1,225 @@
+"""FOV tiling: overlapping block grid, pyramid blend weights, patch gather,
+overlap-add scatter, and explicit F/C-order flattening.
+
+Counterpart of localmd_tpu/ops/tiling.py. torch reshapes in C order, so the
+F-order pixel id ``i + j*d1`` is encoded here once as explicit transposes.
+The grid itself (``BlockGrid``) is host-side numpy metadata, copied from
+ops/tiling.py:92-303.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from functools import lru_cache
+from typing import List, Tuple
+
+import numpy as np
+import torch
+
+
+# ---------------------------------------------------------------------------
+# F/C-order flatten helpers (single source of truth for pixel ordering)
+# ---------------------------------------------------------------------------
+
+def flatten_fov(x: torch.Tensor, order: str = "F") -> torch.Tensor:
+    """(..., d1, d2, T) -> (..., d1*d2, T); F-order pixel id = i + j*d1."""
+    *batch, d1, d2, t = x.shape
+    if order == "F":
+        x = x.transpose(-3, -2)
+    return x.reshape(*batch, d1 * d2, t)
+
+
+def unflatten_fov(x: torch.Tensor, d1: int, d2: int, order: str = "F") -> torch.Tensor:
+    """Inverse of :func:`flatten_fov`: (..., d1*d2, T) -> (..., d1, d2, T)."""
+    *batch, _, t = x.shape
+    if order == "F":
+        return x.reshape(*batch, d2, d1, t).transpose(-3, -2)
+    return x.reshape(*batch, d1, d2, t)
+
+
+def flatten_image(x: torch.Tensor, order: str = "F") -> torch.Tensor:
+    """(..., d1, d2) -> (..., d1*d2) with the given pixel order."""
+    *batch, d1, d2 = x.shape
+    if order == "F":
+        x = x.transpose(-2, -1)
+    return x.reshape(*batch, d1 * d2)
+
+
+def unflatten_image(x: torch.Tensor, d1: int, d2: int, order: str = "F") -> torch.Tensor:
+    *batch, _ = x.shape
+    if order == "F":
+        return x.reshape(*batch, d2, d1).transpose(-2, -1)
+    return x.reshape(*batch, d1, d2)
+
+
+# ---------------------------------------------------------------------------
+# Grid construction (numpy; copied from ops/tiling.py:92-134)
+# ---------------------------------------------------------------------------
+
+def _dim_starts(extent: int, block: int, overlap: int) -> List[int]:
+    """Start offsets along one dim: stride (block - overlap) plus a tail block
+    flush with the edge."""
+    starts = list(range(0, extent - block + 1, block - overlap))
+    if starts[-1] != extent - block and extent - block != 0:
+        starts.append(extent - block)
+    return starts
+
+
+def update_block_sizes(
+    blocks: Tuple[int, int], fov_shape: Tuple[int, int], min_block_value: int = 10
+) -> List[int]:
+    """Clamp user block sizes to the FOV."""
+    if blocks[0] < min_block_value or blocks[1] < min_block_value:
+        raise ValueError(
+            f"Block dimensions must be at least {min_block_value}, got {blocks}"
+        )
+    return [min(blocks[0], fov_shape[0]), min(blocks[1], fov_shape[1])]
+
+
+def check_fov_size(fov_dims: Tuple[int, int], min_allowed_value: int = 10) -> None:
+    for k in fov_dims:
+        if k < min_allowed_value:
+            raise ValueError(
+                f"FOV dimension {k} is below the minimum of {min_allowed_value}"
+            )
+
+
+def pyramid_weights(b1: int, b2: int, dtype=np.float32) -> np.ndarray:
+    """Center-weighted blending pyramid: w[i, j] = 1 + min(i, b1-1-i, j, b2-1-j)."""
+    i = np.arange(b1)[:, None]
+    j = np.arange(b2)[None, :]
+    ramp = np.minimum(np.minimum(i, b1 - 1 - i), np.minimum(j, b2 - 1 - j))
+    return (1.0 + ramp).astype(dtype)
+
+
+@dataclass(frozen=True)
+class BlockGrid:
+    """Static description of the overlapping patch tiling of one FOV
+    (ops/tiling.py:137-303)."""
+
+    d1: int
+    d2: int
+    block_sizes: Tuple[int, int]
+    order: str = "F"
+    starts: np.ndarray = field(init=False)        # (n_blocks, 2) int32
+    rows: np.ndarray = field(init=False)          # (n_blocks, b1*b2) int32 global ids
+    weights: np.ndarray = field(init=False)       # (b1, b2) pyramid weights
+    cumulative_weights: np.ndarray = field(init=False)  # (d1, d2)
+
+    def __post_init__(self):
+        b1, b2 = self.block_sizes
+        overlap = (int(np.ceil(b1 / 2)), int(np.ceil(b2 / 2)))
+        s1 = _dim_starts(self.d1, b1, overlap[0])
+        s2 = _dim_starts(self.d2, b2, overlap[1])
+        starts = np.array([(k, j) for k in s1 for j in s2], dtype=np.int32)
+        object.__setattr__(self, "starts", starts)
+
+        # Global ids follow ``order``; the flatten WITHIN a block is always F
+        # (panel row m holds local pixel (m % b1, m // b1)).
+        m = np.arange(b1 * b2, dtype=np.int64)
+        i_loc = m % b1
+        j_loc = m // b1
+        gi = starts[:, 0:1].astype(np.int64) + i_loc[None, :]
+        gj = starts[:, 1:2].astype(np.int64) + j_loc[None, :]
+        rows = gi + gj * self.d1 if self.order == "F" else gi * self.d2 + gj
+        object.__setattr__(self, "rows", rows.astype(np.int32))
+
+        w = pyramid_weights(b1, b2)
+        object.__setattr__(self, "weights", w)
+        cum = np.zeros((self.d1, self.d2), dtype=np.float64)
+        for (k, j) in starts:
+            cum[k : k + b1, j : j + b2] += w
+        object.__setattr__(self, "cumulative_weights", cum.astype(np.float32))
+
+    @property
+    def n_blocks(self) -> int:
+        return len(self.starts)
+
+    @property
+    def pixels_per_block(self) -> int:
+        return self.block_sizes[0] * self.block_sizes[1]
+
+    def cosets(self):
+        """Partition the blocks into groups whose rectangles are pairwise
+        disjoint (ops/tiling.py:250-303).
+
+        Along one dim starts advance by ``stride = floor(b/2)``; every
+        ``k_c = ceil(b/stride)``-th start forms a uniform sub-grid of disjoint
+        blocks, and a snapped tail start forms its own singleton group. The
+        2-D cosets are the cross products (<= (k_c+1)^2 of them).
+
+        Returns a cached tuple of ``(block_ids (nc1*nc2,) int32,
+        (nc1, nc2, st1, st2, a1, a2))``.
+        """
+        cached = getattr(self, "_cosets", None)
+        if cached is not None:
+            return cached
+        b1, b2 = self.block_sizes
+
+        def dim_groups(extent, b):
+            o = int(np.ceil(b / 2))
+            s = _dim_starts(extent, b, o)
+            stride = b - o
+            n_reg = len(s)
+            if len(s) >= 2 and s[-1] - s[-2] != stride:
+                n_reg -= 1
+            k_c = 1 if stride <= 0 else -(-b // stride)
+            groups = []
+            for r in range(min(k_c, n_reg)):
+                idx = list(range(r, n_reg, k_c))
+                st = max(stride * k_c, b)
+                groups.append((idx, s[idx[0]], st, len(idx)))
+            if n_reg != len(s):
+                groups.append(([len(s) - 1], s[-1], b, 1))
+            return groups, len(s)
+
+        g1, _ = dim_groups(self.d1, b1)
+        g2, n2 = dim_groups(self.d2, b2)
+        out = []
+        for idx1, a1, st1, nc1 in g1:
+            for idx2, a2, st2, nc2 in g2:
+                ids = np.array(
+                    [i1 * n2 + i2 for i1 in idx1 for i2 in idx2], np.int32
+                )
+                out.append((ids, (nc1, nc2, st1, st2, a1, a2)))
+        cached = tuple(out)
+        object.__setattr__(self, "_cosets", cached)
+        return cached
+
+
+@lru_cache(maxsize=8)
+def block_grid(d1: int, d2: int, block_sizes: Tuple[int, int], order: str = "F") -> BlockGrid:
+    """Memoized :class:`BlockGrid` (pure host metadata)."""
+    return BlockGrid(d1, d2, tuple(block_sizes), order)
+
+
+# ---------------------------------------------------------------------------
+# Patch gather / overlap-add scatter
+# ---------------------------------------------------------------------------
+
+def extract_patches(data: torch.Tensor, starts, b1: int, b2: int) -> torch.Tensor:
+    """data (d1, d2, T) + starts (n, 2) -> (n, b1, b2, T), one row gather
+    over the C-order-flattened FOV.
+
+    The rows are gathered j-major, so the result is a transposed view of a
+    contiguous (n, b2, b1, T) buffer: the engine's F-order flatten within
+    a block (``flatten_fov(patches)``) is then a free reshape, not a copy
+    of the whole patch batch."""
+    d1, d2, t = data.shape
+    starts = torch.as_tensor(np.asarray(starts), device=data.device).long()
+    n = starts.shape[0]
+    ar1 = torch.arange(b1, device=data.device)
+    ar2 = torch.arange(b2, device=data.device)
+    rows = (starts[:, 0, None, None] + ar1[None, None, :]) * d2 + (
+        starts[:, 1, None, None] + ar2[None, :, None]
+    )                                                          # (n, b2, b1)
+    flat = data.reshape(d1 * d2, t)
+    return flat.index_select(0, rows.reshape(-1)).reshape(n, b2, b1, t).transpose(1, 2)
+
+
+def overlap_add(panels: torch.Tensor, rows, n_pixels: int) -> torch.Tensor:
+    """Scatter-add (n_blocks, p, k) panels into (n_pixels, k) by global ids."""
+    k = panels.shape[-1]
+    rows = torch.as_tensor(np.asarray(rows), device=panels.device).long()
+    out = torch.zeros((n_pixels, k), dtype=panels.dtype, device=panels.device)
+    return out.index_add_(0, rows.reshape(-1), panels.reshape(-1, k))

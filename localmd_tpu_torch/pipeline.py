@@ -1,0 +1,331 @@
+"""End-to-end PMD pipeline on one device: ``localmd_decomposition``
+(counterpart of localmd_tpu/pipeline.py, single init window).
+
+  stats (K1) -> background rSVD -> frame sampling -> threshold Monte-Carlo
+  -> standardize + background-filter the init frames
+  -> batched window-0 block decomposition over the whole patch grid
+  -> pyramid-weighted overlap normalization (blocked-sparse U)
+  -> factorized SVD (only_left) -> streamed V regression (K2)
+  -> final SVD reformat -> PMDArray (frames through K3).
+
+The device is explicit: ``device="cuda"`` (the default) raises when CUDA
+is absent. Options the port does not run yet raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from typing import Callable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from localmd_tpu_torch import config
+from localmd_tpu_torch.blocksparse import BlockSparseMatrix
+from localmd_tpu_torch.dataset import as_dataset
+from localmd_tpu_torch.engine import threshold_heuristic, window0_chunk_step
+from localmd_tpu_torch.factorization import (
+    compute_lowrank_factorized_svd,
+    final_svd_reformat,
+)
+from localmd_tpu_torch.loader import PMDLoader
+from localmd_tpu_torch.ops.linalg import DEFAULT_OVERSAMPLES
+from localmd_tpu_torch.ops.tiling import (
+    block_grid,
+    check_fov_size,
+    flatten_image,
+    update_block_sizes,
+)
+from localmd_tpu_torch.pmd_array import PMDArray
+from localmd_tpu_torch.utils import display, free_bytes, make_generator, normal
+from localmd_tpu_torch.utils.device import TRANSIENT_FLOOR_BYTES
+
+
+def identify_window_chunks(
+    frame_range: int, total_frames: int, window_chunks: int, np_rng=None
+) -> list:
+    """Sample non-overlapping contiguous chunks of frames for initialization
+    (pipeline.py:50-77)."""
+    if frame_range > total_frames:
+        raise ValueError("Requested more frames than available")
+    if window_chunks > frame_range:
+        raise ValueError("The size of each temporal chunk is bigger than frame range")
+    num_intervals = math.ceil(frame_range / window_chunks)
+    available = np.arange(0, total_frames, window_chunks)
+    if available[-1] > total_frames - window_chunks:
+        available[-1] = total_frames - window_chunks
+    if np_rng is None:
+        np_rng = np.random
+    starts = np.sort(np_rng.choice(available, size=num_intervals, replace=False))
+    display(f"sampled from the following regions: {starts}")
+    net_frames: list = []
+    for k in starts:
+        net_frames.extend(range(int(k), int(min(k + window_chunks, total_frames))))
+    return net_frames
+
+
+def _unsupported(**kwargs) -> None:
+    for name, bad in kwargs.items():
+        if bad:
+            raise NotImplementedError(
+                f"localmd_tpu_torch does not support {name} yet; see ROADMAP.md "
+                "(use the JAX package localmd_tpu for it)"
+            )
+
+
+def localmd_decomposition(
+    dataset_obj,
+    block_sizes: Tuple[int, int],
+    frame_range: int,
+    max_components: int = 50,
+    background_rank: int = 15,
+    sim_conf: float = 5,
+    frame_batch_size: int = 10000,
+    dtype: str = "float32",
+    num_workers: int = 0,
+    pixel_batch_size: int = 5000,
+    max_consecutive_failures: int = 1,
+    rank_prune: bool = False,
+    rank_prune_factor: float = 0.33,
+    temporal_avg_factor: int = 10,
+    spatial_avg_factor: int = 2,
+    order: str = "F",
+    window_chunks: Optional[int] = None,
+    compute_normalizer: bool = True,
+    pixel_weighting: Optional[np.ndarray] = None,
+    spatial_denoiser: Optional[Callable] = None,
+    temporal_denoiser: Optional[Callable] = None,
+    seed: Optional[int] = None,
+    block_batch_size: int = 256,
+    sim_iters: int = 250,
+    final_rank_tol: float = 1e-3,
+    mesh=None,
+    checkpoint_path: Optional[str] = None,
+    matmul_precision: Optional[str] = None,
+    profile_dir: Optional[str] = None,
+    welch_compat: str = "scipy",
+    cache_movie="auto",
+    aot_warm="auto",
+    device="cuda",
+) -> PMDArray:
+    """Run the PMD compression/denoising pipeline on ``device``.
+
+    The signature is the JAX package's (pipeline.py:139-172) plus
+    ``device``. ``dtype``, ``num_workers``, ``pixel_batch_size`` and
+    ``cache_movie`` are accepted and inert (in-memory sources only);
+    ``mesh``, ``checkpoint_path``, ``profile_dir``, ``aot_warm=True``,
+    denoisers, ``matmul_precision`` other than "highest" and
+    ``window_chunks`` below ``frame_range`` raise ``NotImplementedError``.
+
+    The result carries ``pipeline_timings`` (seconds per stage, each stage
+    fenced with ``torch.cuda.synchronize`` on the card) and
+    ``pipeline_ranks``.
+    """
+    dev = config.resolve_device(device)
+    config.apply()
+    _unsupported(
+        mesh=mesh is not None,
+        checkpoint_path=checkpoint_path is not None,
+        profile_dir=profile_dir is not None,
+        aot_warm=aot_warm is True,
+        spatial_denoiser=spatial_denoiser is not None,
+        temporal_denoiser=temporal_denoiser is not None,
+        matmul_precision=matmul_precision not in (None, "highest"),
+    )
+    dataset = as_dataset(dataset_obj)
+    t_total, d1, d2 = (int(s) for s in dataset.shape)
+    _unsupported(
+        multi_window_init=window_chunks is not None and window_chunks < min(frame_range, t_total)
+    )
+    check_fov_size((d1, d2))
+    if order not in ("F", "C"):
+        raise ValueError(f"order must be 'F' or 'C', got {order!r}")
+    if rank_prune and (rank_prune_factor <= 0 or rank_prune_factor > 1):
+        raise ValueError("rank_prune_factor must be in (0, 1]")
+
+    timings: dict = {}
+    t0 = [time.perf_counter()]
+
+    def _mark(stage):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        now = time.perf_counter()
+        timings[stage] = now - t0[0]
+        t0[0] = now
+
+    np_rng = np.random.RandomState(seed) if seed is not None else np.random
+    gen = make_generator(seed, dev)
+
+    load_obj = PMDLoader(
+        dataset,
+        device=dev,
+        background_rank=background_rank,
+        batch_size=frame_batch_size,
+        order=order,
+        compute_normalizer=compute_normalizer,
+        seed=seed,
+        welch_compat=welch_compat,
+        np_rng=np_rng,
+    )
+    _mark("stats_and_background")
+
+    if window_chunks is None:
+        window_chunks = frame_range
+    if t_total < frame_range:
+        display("WARNING: requested more frames than the dataset has")
+        frame_range = t_total
+        frames = list(range(t_total))
+        window_chunks = min(window_chunks, frame_range)
+    else:
+        window_chunks = min(window_chunks, frame_range)
+        frames = identify_window_chunks(frame_range, t_total, window_chunks, np_rng)
+    display(f"Initializing on a total of {len(frames)} frames")
+
+    b1, b2 = update_block_sizes(tuple(block_sizes), (d1, d2))
+
+    display(f"Running threshold simulations for blocks {b1} x {b2} x {window_chunks}")
+    # as many simulated noise blocks per batch as 1 GiB holds: few, large
+    # batches keep the Monte-Carlo from being launch-bound
+    sim_batch = max(1, min(sim_iters, TRANSIENT_FLOOR_BYTES // (b1 * b2 * window_chunks * 4)))
+    spatial_threshold, temporal_threshold = threshold_heuristic(
+        (b1, b2, window_chunks),
+        num_comps=1,
+        iters=sim_iters,
+        percentile_threshold=sim_conf,
+        generator=gen,
+        sim_batch=sim_batch,
+        device=dev,
+    )
+    _mark("thresholds")
+
+    t_init = len(frames)
+    if temporal_avg_factor >= t_init:
+        raise ValueError(f"Need at least {temporal_avg_factor} frames")
+    if t_init // temporal_avg_factor <= max_components:
+        max_components = int(t_init // temporal_avg_factor)
+        display(f"WARNING: max rank per block adjusted to {max_components}")
+    sketch_limit = min(
+        t_init // temporal_avg_factor,
+        (b1 // spatial_avg_factor + (b1 % spatial_avg_factor > 0))
+        * (b2 // spatial_avg_factor + (b2 % spatial_avg_factor > 0)),
+    ) - DEFAULT_OVERSAMPLES
+    if max_components > sketch_limit:
+        max_components = int(sketch_limit)
+        display(f"WARNING: max rank clamped to {max_components} for the rSVD sketch")
+    if max_components <= 0:
+        raise ValueError(
+            "Configuration leaves no room for the rSVD sketch "
+            f"(max_components clamped to {max_components}): increase "
+            "frame_range, or decrease temporal_avg_factor/spatial_avg_factor, "
+            "or use larger blocks"
+        )
+    crop_avg_constant = (t_init // temporal_avg_factor) * temporal_avg_factor
+
+    # Standardize + filter only the frames the block stage reads (each
+    # frame's result is independent of the others, so this equals the JAX
+    # package's load-then-crop).
+    display("Loading and filtering initialization frames")
+    data, temporal_basis_crop = load_obj.temporal_crop_with_filter(frames[:crop_avg_constant])
+    if pixel_weighting is not None:
+        data = data * torch.as_tensor(
+            np.asarray(pixel_weighting, dtype=np.float32), device=dev
+        )[:, :, None]
+
+    # -- batched window-0 block decomposition --------------------------------
+    grid = block_grid(d1, d2, (b1, b2), order)
+    n_blocks = grid.n_blocks
+    # every block's sketch is drawn up front, so results do not depend on
+    # the batch size below
+    sketches = normal(
+        (crop_avg_constant // temporal_avg_factor, max_components + DEFAULT_OVERSAMPLES),
+        gen, dev, batch=(n_blocks,),
+    )
+    per_block_bytes = b1 * b2 * crop_avg_constant * 4 * 4
+    free = free_bytes(dev)
+    budget = max(int(1e9), int(0.4 * free)) if free is not None else int(1e9)
+    bb = max(1, min(block_batch_size, n_blocks, max(16, budget // per_block_bytes)))
+    display(
+        f"Decomposing {n_blocks} overlapping blocks ({b1}x{b2}, max "
+        f"{max_components} comps/block) in batches of {bb}"
+    )
+    panels_parts, counts_parts, temporal_parts = [], [], []
+    for s in range(0, n_blocks, bb):
+        sl = slice(s, min(s + bb, n_blocks))
+        acc, cnt, v_fit = window0_chunk_step(
+            data, grid.starts[sl], sketches[sl], b1, b2, max_components,
+            temporal_avg_factor, spatial_avg_factor,
+            spatial_threshold, temporal_threshold,
+            max_consecutive_failures,
+        )
+        panels_parts.append(acc)
+        counts_parts.append(cnt)
+        temporal_parts.append(v_fit)
+    del data  # movie-sized; everything below works from the block fits
+    panels = torch.cat(panels_parts, dim=0)
+    counts = torch.cat(counts_parts).cpu().numpy()
+    v_blocks = torch.cat(temporal_parts, dim=0)
+    del panels_parts, temporal_parts
+
+    # -- pyramid-weight + normalize + assemble U -----------------------------
+    weights_flat = flatten_image(torch.as_tensor(grid.weights), "F").to(dev)
+    cum_flat = flatten_image(torch.as_tensor(grid.cumulative_weights), order).to(dev)
+    rows = torch.as_tensor(grid.rows, dtype=torch.long, device=dev)
+    panels = panels * weights_flat[None, :, None]
+    panels = panels / cum_flat[rows][:, :, None]
+    u = BlockSparseMatrix(
+        panels=panels,
+        rows=rows,
+        n_pixels=d1 * d2,
+        dense_basis=load_obj.spatial_basis,
+        starts=grid.starts,
+        block_shape=(b1, b2),
+        cosets=tuple(ids for ids, _ in grid.cosets()),
+    )
+    v_cropped = torch.cat(
+        [v_blocks.reshape(n_blocks * max_components, -1), temporal_basis_crop], dim=0
+    )
+    del v_blocks
+    total_rank = int(counts.sum())
+    _mark("block_decomposition")
+    display(f"Total blockwise rank (pre-background): {total_rank}")
+
+    # -- factorized SVD / rank prune ----------------------------------------
+    k_bg = u.dense_basis.shape[1]
+    if rank_prune:
+        min_dim = min(total_rank + k_bg, v_cropped.shape[1])
+        random_mat = normal(
+            (v_cropped.shape[1], int(min_dim * rank_prune_factor)), gen, dev
+        )
+        target_v = v_cropped @ random_mat
+    else:
+        target_v = v_cropped
+    p = compute_lowrank_factorized_svd(
+        u, target_v, only_left=True, expected_rank=total_rank + k_bg
+    )
+    del v_cropped, target_v
+    display(f"Rank after reduction: <= {p.shape[1]}")
+    _mark("factorized_svd")
+
+    display("Running streaming V regression over the full movie")
+    v = load_obj.v_projection(u, p)
+    _mark("v_regression")
+
+    display("Final SVD reformat")
+    r, s_vals, vt, s_keep = final_svd_reformat(p, v, rel_tol=final_rank_tol)
+    _mark("final_reformat")
+    display(f"Matrix decomposition completed (final rank {int(s_keep.sum())})")
+
+    out = PMDArray(
+        u, r, s_vals, vt, load_obj.shape, order,
+        load_obj.mean_img, load_obj.std_img,
+        counts=counts, k2_keep=s_keep,
+    )
+    out.pipeline_timings = timings
+    out.pipeline_ranks = {
+        "blockwise": int(total_rank),
+        "pre_reduction": int(total_rank + k_bg),
+        "reduced": int(p.shape[1]),
+        "final": int(s_keep.sum()),
+    }
+    return out

@@ -1,0 +1,12 @@
+from localmd_tpu_torch.utils.device import free_bytes
+from localmd_tpu_torch.utils.logging import display, get_logger
+from localmd_tpu_torch.utils.random import make_generator, normal, sketch_override
+
+__all__ = [
+    "display",
+    "get_logger",
+    "free_bytes",
+    "make_generator",
+    "normal",
+    "sketch_override",
+]

@@ -5,6 +5,7 @@ setup(
     version="0.3.0",
     description="TPU-native localized Penalized Matrix Decomposition for functional imaging",
     packages=find_packages(exclude=("tests",)),
+    package_data={"localmd_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=[
         "numpy",
@@ -12,4 +13,5 @@ setup(
         "jax",
         "jaxlib",
     ],
+    extras_require={"torch": ["torch"]},
 )

@@ -1,0 +1,131 @@
+"""The three CUDA kernels against their plain PyTorch versions on the card.
+
+Marked ``gpu``; each test skips (in a fixture, not at import) unless
+``torch.cuda.is_available()``. Run on a machine with the card:
+``python -m pytest -m gpu --noconftest tests/test_torch_kernels_gpu.py``
+(the shared conftest imports jax). Tolerances:
+K1 mean max|d|/max|ref| 1e-5, sigma rtol 1e-4; K2 and K3 1e-5 relative
+Frobenius."""
+
+import numpy as np
+import pytest
+import torch
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _rel_fro(a, b):
+    return float(torch.linalg.norm((a - b).double()) / torch.linalg.norm(b.double()))
+
+
+@pytest.mark.parametrize("dtype,t,p,nperseg,noise", [
+    ("float32", 1024, 5000, 256, True),
+    ("uint16", 1024, 4097, 256, True),
+    ("float32", 500, 700, 500, True),
+    ("float32", 300, 64, 256, False),
+])
+def test_movie_stats_matches_plain(cuda, dtype, t, p, nperseg, noise):
+    from localmd_tpu_torch.ops import kernels
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(t, p, generator=g, device=cuda) * 40 + 1000
+    x = x.to(getattr(torch, dtype))
+    m_k, s_k = kernels.movie_stats(x, t, compute_noise=noise, nperseg=nperseg)
+    m_p, s_p = kernels.movie_stats_plain(x, t, compute_noise=noise, nperseg=nperseg)
+    assert float((m_k - m_p).abs().max() / m_p.abs().max()) <= 1e-5
+    if noise:
+        torch.testing.assert_close(s_k, s_p, rtol=1e-4, atol=0)
+    else:
+        assert bool((s_k == 0).all())
+
+
+@pytest.mark.parametrize("dtype,t,d,r", [("uint16", 300, 20000, 77), ("float32", 64, 1024, 2560)])
+def test_v_projection_matches_plain(cuda, dtype, t, d, r):
+    from localmd_tpu_torch.ops import kernels
+
+    g = torch.Generator(device=cuda).manual_seed(1)
+    raw = (torch.randn(t, d, generator=g, device=cuda) * 40 + 1000).to(getattr(torch, dtype))
+    a = torch.randn(d, r, generator=g, device=cuda) * 0.01
+    c = torch.randn(r, generator=g, device=cuda)
+    assert _rel_fro(kernels.v_projection(raw, a, c), kernels.v_projection_plain(raw, a, c)) <= 1e-5
+
+
+@pytest.mark.parametrize("d1,d2,b,s,f", [(128, 96, 32, 20, 130), (60, 52, 15, 5, 7)])
+def test_block_reconstruct_matches_plain(cuda, d1, d2, b, s, f):
+    from localmd_tpu_torch.ops import kernels
+    from localmd_tpu_torch.ops.tiling import BlockGrid
+
+    grid = BlockGrid(d1, d2, (b, b))
+    g = torch.Generator(device=cuda).manual_seed(2)
+    panels = torch.randn(grid.n_blocks, b * b, s, generator=g, device=cuda)
+    temporal = torch.randn(grid.n_blocks, s, f, generator=g, device=cuda)
+    args = (panels, temporal, torch.as_tensor(grid.starts, device=cuda),
+            [ids for ids, _ in grid.cosets()], (d1, d2), (b, b))
+    assert _rel_fro(kernels.block_reconstruct(*args), kernels.block_reconstruct_plain(*args)) <= 1e-5
+
+
+def _smooth_movie(t, d1, d2, rank=4, seed=3, noise=1e-4):
+    """Smooth low-rank movie (numpy only: the card's machine has no jax)."""
+    rng = np.random.default_rng(seed)
+    spatial = rng.random((d1, d2, rank))
+    for _ in range(4):
+        spatial = 0.2 * (spatial + np.roll(spatial, 1, 0) + np.roll(spatial, -1, 0)
+                         + np.roll(spatial, 1, 1) + np.roll(spatial, -1, 1))
+    temporal = rng.random((rank, t))
+    for _ in range(3):
+        temporal = 0.5 * temporal + 0.25 * (np.roll(temporal, 1, 1) + np.roll(temporal, -1, 1))
+    movie = (spatial.reshape(d1 * d2, rank) @ temporal).T.reshape(t, d1, d2)
+    return (movie + noise * rng.standard_normal(movie.shape)).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["order_c", "uint16_numpy", "tail_1100"])
+def test_pipeline_on_card_matches_cpu(cuda, case, monkeypatch):
+    """The whole port on the card (all three kernels, the cuSOLVER/cuBLAS
+    paths, numpy sources crossing to the device chunk by chunk) against the
+    port on the CPU with the same injected draws: reconstruction 1e-4
+    relative Frobenius, std image rtol 1e-4, equal final rank."""
+    import localmd_tpu_torch.pipeline as port_pipeline
+    from localmd_tpu_torch.utils.random import sketch_override
+
+    t, order, frame_range = (1100, "F", 500) if case == "tail_1100" else (600, "F", 600)
+    if case == "order_c":
+        order = "C"
+    movie = _smooth_movie(t, 40, 36)
+    if case == "uint16_numpy":
+        movie = np.clip(np.rint(movie * 2000.0 + 500.0), 0, 65535).astype(np.uint16)
+    monkeypatch.setattr(port_pipeline, "threshold_heuristic", lambda *a, **k: (1e9, 1e9))
+    runs = {}
+    with sketch_override(lambda shape: np.random.default_rng(1234).standard_normal(shape)):
+        for dev in ("cpu", "cuda"):
+            runs[dev] = port_pipeline.localmd_decomposition(
+                movie, (16, 16), frame_range=frame_range, order=order, max_components=6,
+                background_rank=2, temporal_avg_factor=5, seed=0, device=dev,
+            )
+    frames = np.arange(t)
+    ref = runs["cpu"].reconstruct_frames(frames)
+    ours = runs["cuda"].reconstruct_frames(frames).cpu()
+    assert _rel_fro(ours, ref) <= 1e-4
+    np.testing.assert_allclose(runs["cuda"].var_img, runs["cpu"].var_img, rtol=1e-4)
+    assert runs["cuda"].rank == runs["cpu"].rank
+
+
+def test_block_reconstruct_rejects_out_of_canvas_blocks(cuda):
+    from localmd_tpu_torch.ops import kernels
+    from localmd_tpu_torch.ops.tiling import BlockGrid
+
+    grid = BlockGrid(60, 52, (20, 20))
+    n = grid.n_blocks
+    starts = torch.as_tensor(grid.starts, device=cuda)
+    starts[-1, 1] += 1                       # one block past the right edge
+    with pytest.raises(ValueError, match="outside the FOV"):
+        kernels.block_reconstruct(
+            torch.zeros(n, 400, 2, device=cuda), torch.zeros(n, 2, 3, device=cuda),
+            starts, [ids for ids, _ in grid.cosets()], (60, 52), (20, 20),
+        )

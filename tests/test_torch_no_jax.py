@@ -1,0 +1,109 @@
+"""The port stands alone: no module under localmd_tpu_torch/ imports jax or
+the localmd_tpu package (checked on the source, since sys.modules proves
+nothing where jax is pre-imported), and the CUDA wrappers raise on a
+non-CPU tensor they cannot launch on rather than falling back."""
+
+import ast
+import os
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "localmd_tpu_torch")
+# the scripts that drive the port on the card, where jax is not installed
+SCRIPTS = ("chip_smoke.py", "bench_torch.py")
+FORBIDDEN = ("jax", "jaxlib", "localmd_tpu")
+
+
+def _py_files():
+    for root, _, files in os.walk(PKG):
+        for name in files:
+            if name.endswith(".py"):
+                yield os.path.join(root, name)
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+        elif isinstance(node, ast.Call) and getattr(node.func, "attr", None) == "import_module":
+            if node.args and isinstance(node.args[0], ast.Constant):
+                yield str(node.args[0].value).split(".")[0]
+
+
+def test_package_has_the_ported_modules():
+    names = {os.path.relpath(p, PKG) for p in _py_files()}
+    for mod in [
+        "__init__.py", "config.py", "utils/random.py", "ops/tiling.py", "ops/pooling.py",
+        "ops/roughness.py", "ops/noise.py", "ops/linalg.py", "ops/kernels.py", "ops/_build.py",
+        "dataset.py", "loader.py", "engine.py", "blocksparse.py", "factorization.py",
+        "pipeline.py", "pmd_array.py", "serialization.py",
+    ]:
+        assert mod in names, mod
+    for src in ("movie_stats.cu", "v_projection.cu", "block_reconstruct.cu"):
+        assert os.path.exists(os.path.join(PKG, "csrc", src)), src
+
+
+@pytest.mark.parametrize(
+    "path", sorted(_py_files()) + [os.path.join(ROOT, s) for s in SCRIPTS],
+    ids=lambda p: os.path.relpath(p, PKG if p.startswith(PKG + os.sep) else ROOT),
+)
+def test_module_imports_no_jax(path):
+    bad = [m for m in _imported_roots(path) if m in FORBIDDEN]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_kernel_build_targets_sm90a():
+    from localmd_tpu_torch.ops import _build
+
+    flags = " ".join(_build.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in flags and "-O3" in flags
+    assert set(_build.SOURCES) == {"movie_stats.cu", "v_projection.cu", "block_reconstruct.cu"}
+
+
+@pytest.mark.parametrize("call", ["movie_stats", "v_projection", "block_reconstruct"])
+def test_wrappers_raise_on_non_cpu_tensors_without_cuda(call):
+    """A tensor off the CPU goes to the CUDA kernel or raises; the plain
+    version is never taken for it (meta tensors stand in for a device
+    here that has no card)."""
+    from localmd_tpu_torch.ops import kernels
+
+    meta = dict(device="meta")
+    before = kernels.launch_counts()
+    with pytest.raises(ValueError, match="expected CPU or CUDA"):
+        if call == "movie_stats":
+            kernels.movie_stats(torch.empty(300, 64, **meta), 300)
+        elif call == "v_projection":
+            kernels.v_projection(torch.empty(8, 16, **meta), torch.empty(16, 4, **meta),
+                                 torch.empty(4, **meta))
+        else:
+            kernels.block_reconstruct(
+                torch.empty(1, 100, 2, **meta), torch.empty(1, 2, 5, **meta),
+                torch.zeros(1, 2, dtype=torch.int32, **meta), [np.array([0])], (10, 10), (10, 10),
+            )
+    assert kernels.launch_counts() == before
+
+
+def test_pipeline_device_is_explicit(monkeypatch):
+    from localmd_tpu_torch import localmd_decomposition
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    movie = np.zeros((300, 20, 20), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        localmd_decomposition(movie, (10, 10), frame_range=300)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        localmd_decomposition(movie, (10, 10), frame_range=300, device="cuda")
+
+
+def test_numerics_policy_has_tf32_off():
+    import localmd_tpu_torch  # noqa: F401  (applies the policy)
+
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+    assert torch.get_float32_matmul_precision() == "highest"

@@ -1,0 +1,205 @@
+"""The port's ``localmd_decomposition`` against the live JAX pipeline on the
+same movie, with the same injected sketch and pinned thresholds: (a) order
+C, (b) a uint16 movie, (c) T = 1100, whose statistics pass ends in a
+76-frame tail below MIN_NOISE_FRAMES (mean only), (d) ``rank_prune`` with
+odd 15x15 blocks, the rank-prune matrix taken from the JAX key tree (the
+third split of ``PRNGKey(seed)``, pipeline.py:552-1288). Plus the state carried
+across: ``PMDArray.from_reference_state`` and .npz files in both directions.
+Tolerance: reconstruction 1e-4 relative Frobenius, std image rtol 1e-4,
+final rank equal; identical factors reconstruct to 1e-5."""
+
+import numpy as np
+import pytest
+import torch
+
+from _torch_util import rel_fro, to_np
+
+from conftest import make_low_rank_movie
+
+CASES = {
+    "order_c": dict(shape=(600, 60, 52), dtype="float32", order="C", frame_range=600, blocks=(20, 20)),
+    "uint16": dict(shape=(600, 60, 52), dtype="uint16", order="F", frame_range=600, blocks=(20, 20)),
+    "tail_1100": dict(shape=(1100, 40, 36), dtype="float32", order="F", frame_range=500, blocks=(16, 16)),
+    "rank_prune": dict(shape=(700, 60, 52), dtype="float32", order="F", frame_range=500,
+                       blocks=(15, 15), rank_prune=True),
+}
+SETTINGS = dict(max_components=6, background_rank=2, temporal_avg_factor=5, seed=0)
+
+
+def _movie(case):
+    movie = make_low_rank_movie(4, case["shape"], rng=np.random.default_rng(3), noise=1e-4)
+    if case["dtype"] == "uint16":
+        movie = np.clip(np.rint(movie * 2000.0 + 500.0), 0, 65535).astype(np.uint16)
+    return movie
+
+
+def _sketch(shape):
+    return np.random.default_rng(1234).standard_normal(shape).astype(np.float32)
+
+
+def _port_draws(case):
+    """The port's draws: the fixed sketch, and for ``rank_prune`` the JAX
+    package's rank-prune matrix, recognized by its (crop frames, m) shape."""
+    if not case.get("rank_prune"):
+        return _sketch
+    import jax
+
+    key = jax.random.PRNGKey(SETTINGS["seed"])
+    for _ in range(3):
+        key, sub = jax.random.split(key)
+    crop = case["frame_range"] // SETTINGS["temporal_avg_factor"] * SETTINGS["temporal_avg_factor"]
+
+    def draw(shape):
+        if len(shape) == 2 and shape[0] == crop:
+            return np.asarray(jax.random.normal(sub, tuple(shape)))
+        return _sketch(shape)
+
+    return draw
+
+
+def _run_jax(movie, case, monkeypatch):
+    import jax.numpy as jnp
+
+    import localmd_tpu.pipeline as jax_pipeline
+    from localmd_tpu.ops.linalg import sketch_override
+
+    monkeypatch.setattr(jax_pipeline, "threshold_heuristic", lambda *a, **k: (1e9, 1e9))
+    with sketch_override(lambda shape: jnp.asarray(_sketch(shape))):
+        return jax_pipeline.localmd_decomposition(
+            movie, case["blocks"], frame_range=case["frame_range"], order=case["order"],
+            rank_prune=case.get("rank_prune", False), **SETTINGS
+        )
+
+
+def _run_port(movie, case, monkeypatch):
+    import localmd_tpu_torch.pipeline as port_pipeline
+    from localmd_tpu_torch.utils.random import sketch_override
+
+    monkeypatch.setattr(port_pipeline, "threshold_heuristic", lambda *a, **k: (1e9, 1e9))
+    with sketch_override(_port_draws(case)):
+        return port_pipeline.localmd_decomposition(
+            movie, case["blocks"], frame_range=case["frame_range"], order=case["order"],
+            rank_prune=case.get("rank_prune", False), device="cpu", **SETTINGS
+        )
+
+
+@pytest.fixture(scope="module")
+def runs():
+    """Each case run once through both packages, shared by the tests."""
+    mp = pytest.MonkeyPatch()
+    out = {}
+    try:
+        for name, case in CASES.items():
+            movie = _movie(case)
+            jax_pmd = _run_jax(movie, case, mp)
+            port_pmd = _run_port(movie, case, mp)
+            out[name] = (movie, jax_pmd, port_pmd)
+    finally:
+        mp.undo()
+    return out
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_port_matches_live_jax_pipeline(name, runs):
+    _, jax_pmd, port_pmd = runs[name]
+    ref = jax_pmd[:, :, :]
+    ours = port_pmd[:, :, :]
+    assert ours.shape == ref.shape
+    assert rel_fro(ours, ref) <= 1e-4
+    np.testing.assert_allclose(port_pmd.var_img, jax_pmd.var_img, rtol=1e-4)
+    np.testing.assert_allclose(
+        port_pmd.mean_img, jax_pmd.mean_img, rtol=1e-4,
+        atol=1e-5 * float(np.abs(jax_pmd.mean_img).max()),
+    )
+    assert port_pmd.rank == jax_pmd.rank
+    assert port_pmd.pipeline_ranks["blockwise"] == jax_pmd.pipeline_ranks["blockwise"]
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_reconstruct_frames_matches_slicing(name, runs):
+    movie, _, port_pmd = runs[name]
+    frames = [0, 5, movie.shape[0] - 1]
+    dev = to_np(port_pmd.reconstruct_frames(frames))
+    host = port_pmd[frames, :, :]
+    np.testing.assert_allclose(dev, host, rtol=1e-4, atol=1e-4 * float(np.abs(host).max()))
+    assert set(port_pmd.pipeline_timings) == {
+        "stats_and_background", "thresholds", "block_decomposition",
+        "factorized_svd", "v_regression", "final_reformat",
+    }
+
+
+def test_stats_tail_below_min_noise_frames_is_mean_only(runs):
+    """T = 1100: the 76-frame tail adds to the mean but not to sigma."""
+    from localmd_tpu_torch.loader import MIN_NOISE_FRAMES, _chunk_ranges
+
+    movie, jax_pmd, port_pmd = runs["tail_1100"]
+    assert _chunk_ranges(1100, 1024, merge_tail=False)[-1] == (1024, 1100)
+    assert 1100 - 1024 < MIN_NOISE_FRAMES
+    np.testing.assert_allclose(
+        port_pmd.mean_img, movie.mean(axis=0, dtype=np.float64), rtol=1e-4, atol=1e-6
+    )
+    np.testing.assert_allclose(port_pmd.var_img, jax_pmd.var_img, rtol=1e-4)
+
+
+def _reference_state(pmd):
+    u = pmd._blocksparse
+    return dict(
+        panels=np.asarray(u.panels), rows=np.asarray(u.rows),
+        dense_basis=np.asarray(u.dense_basis), starts=np.asarray(u.starts),
+        block_shape=u.block_shape, counts=np.asarray(pmd._counts),
+        r=np.asarray(pmd._r_padded), s=np.asarray(pmd._s_src), v=np.asarray(pmd._v_src),
+        k2_keep=pmd._k2_keep, mean_img=pmd.mean_img, std_img=pmd.var_img, order=pmd.order,
+    )
+
+
+@pytest.mark.parametrize("name", ["order_c", "uint16"])
+def test_from_reference_state_reconstructs_identical_factors(name, runs):
+    from localmd_tpu_torch import PMDArray
+
+    _, jax_pmd, _ = runs[name]
+    port = PMDArray.from_reference_state(_reference_state(jax_pmd))
+    ref = np.asarray(jax_pmd.reconstruct_frames(np.arange(jax_pmd.shape[0])))
+    assert rel_fro(to_np(port.reconstruct_frames(np.arange(port.shape[0]))), ref) <= 1e-5
+    assert rel_fro(port[:, :, :], jax_pmd[:, :, :]) <= 1e-5
+    assert rel_fro(port[10:20, 3:40, 5], jax_pmd[10:20, 3:40, 5]) <= 1e-5
+    assert port.rank == jax_pmd.rank
+
+
+def test_npz_round_trips_between_packages(runs, tmp_path):
+    from localmd_tpu import load_decomposition as jax_load
+    from localmd_tpu_torch import load_decomposition as port_load
+
+    _, jax_pmd, port_pmd = runs["order_c"]
+    jax_file = str(tmp_path / "jax.npz")
+    jax_pmd.to_npz(jax_file)
+    from_jax = port_load(jax_file)
+    assert rel_fro(from_jax[:, :, :], jax_pmd[:, :, :]) <= 1e-5
+    port_file = str(tmp_path / "port.npz")
+    port_pmd.to_npz(port_file)
+    assert rel_fro(jax_load(port_file)[:, :, :], port_pmd[:, :, :]) <= 1e-5
+    assert rel_fro(port_load(port_file)[:, :, :], port_pmd[:, :, :]) <= 1e-5
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(mesh=object()), dict(checkpoint_path="x"), dict(aot_warm=True),
+    dict(profile_dir="x"), dict(spatial_denoiser=lambda x: x),
+    dict(temporal_denoiser=lambda x: x), dict(window_chunks=100),
+    dict(matmul_precision="bfloat16"),
+])
+def test_unsupported_options_raise(kwargs):
+    from localmd_tpu_torch import localmd_decomposition
+
+    movie = np.zeros((300, 20, 20), np.float32)
+    with pytest.raises(NotImplementedError):
+        localmd_decomposition(movie, (10, 10), frame_range=300, device="cpu", **kwargs)
+
+
+def test_tensor_input_matches_numpy_input(runs):
+    movie, _, port_pmd = runs["uint16"]
+    case = CASES["uint16"]
+    mp = pytest.MonkeyPatch()
+    try:
+        again = _run_port(torch.from_numpy(movie), case, mp)
+    finally:
+        mp.undo()
+    assert rel_fro(again[:, :, :], port_pmd[:, :, :]) <= 1e-6

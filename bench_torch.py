@@ -2,20 +2,27 @@
 """Throughput of the PyTorch port (``localmd_tpu_torch``) on one NVIDIA GPU.
 
 bench.py's configuration (bench.py:66-85; its second leg, bench.py:365-390,
-for the 1024² cell) on bench.make_movie's movie (bench.py:23-63), made on
-the card from a seeded ``torch.Generator``: rank-16 white factors + N(0, 1)
-noise, uint16 as clip(40 x + 1000).
+for the 1024² cell; the JAX package's voltage workload,
+scripts/bench_workloads.py:34-42, for the multi-window cell) on
+bench.make_movie's movie (bench.py:23-63), made on the card from a seeded
+``torch.Generator``: rank-16 white factors + N(0, 1) noise, uint16 as
+clip(40 x + 1000).
 
-    python3 bench_torch.py [--cell 512_f32|1024_u16|all] [--runs 10] [--profile]
+    python3 bench_torch.py [--cell 512_f32|1024_u16|voltage_f32|all] [--runs 10] [--profile]
+                           [--small-eigh k4|cusolver]
 
 Per cell: one cold call of ``localmd_decomposition``, then ``--runs`` warm
 calls, each timed on the host clock around work that ends in
 ``torch.cuda.synchronize()``. Prints one JSON line per cell: cold and warm
 seconds (median and quartiles), Mpf/s at the median, per-stage medians of
-``pipeline_timings``, peak allocated GiB, ranks, and the card's name and
-power limit. ``--profile`` adds one warm call under ``torch.profiler``:
+``pipeline_timings``, peak allocated GiB, ``pipeline_ranks`` with the kept
+rank beside them, the windows each block batch ran (an early stop shows as
+fewer than ``n_windows``), and the card's name and power limit.
+``--profile`` adds one warm call under ``torch.profiler``:
 device busy ms (union of kernel intervals), idle share, and the kernels
-with the most device time.
+with the most device time. ``--small-eigh cusolver`` sends the small
+eighs that go to K4 (k <= 64) to ``torch.linalg.eigh`` instead, to set the
+two side by side in one call.
 """
 
 from __future__ import annotations
@@ -41,10 +48,14 @@ BLOCKS = (32, 32)
 # name -> (d1, d2, T, dtype, settings over MAIN_CONFIG and BLOCKS). The
 # second cell is bench.py's second leg (bench.py:365-390): blocks 40 and
 # frame_range 512. Its block_batch_size=64 only fitted a 16 GB TPU and is
-# left at the default.
+# left at the default. The third is the JAX package's voltage workload
+# (scripts/bench_workloads.py:34-42): 4000 init frames in two 2000-frame
+# windows, so the block stage runs the multi-window loop; no rank_prune.
 CELLS = {
     "512_f32": (512, 512, 2048, "float32", {}),
     "1024_u16": (1024, 1024, 4096, "uint16", dict(blocks=(40, 40), frame_range=512)),
+    "voltage_f32": (256, 256, 20000, "float32",
+                    dict(frame_range=4000, window_chunks=2000, rank_prune=False)),
 }
 
 
@@ -170,7 +181,8 @@ def bench_cell(name: str, runs: int, with_profile: bool, card: str) -> dict:
         warm_s=walls, warm_median_s=med, warm_q1_s=q1, warm_q3_s=q3,
         mpf_per_s=d1 * d2 * t / med / 1e6,
         stage_median_s={k: float(np.median(v)) for k, v in stages.items()},
-        peak_gib=peak, ranks=pmd.pipeline_ranks,
+        peak_gib=peak, ranks=pmd.pipeline_ranks, kept_rank=pmd.rank,
+        windows=pmd.pipeline_windows,
     )
     if with_profile:
         prof = profile_run(movie, settings)
@@ -187,6 +199,8 @@ def main(argv=None) -> int:
     ap.add_argument("--runs", type=int, default=10, help="warm calls per cell")
     ap.add_argument("--profile", action="store_true",
                     help="add one warm call under torch.profiler")
+    ap.add_argument("--small-eigh", default="k4", choices=["k4", "cusolver"],
+                    help="route of the eighs with k <= 64 (default: K4, as the package does)")
     args = ap.parse_args(argv)
 
     import torch
@@ -203,9 +217,15 @@ def main(argv=None) -> int:
 
     config.apply()
     get_logger().setLevel(logging.WARNING)
+    if args.small_eigh == "cusolver":
+        from localmd_tpu_torch.ops import linalg
+
+        linalg.uses_jacobi = lambda device, k: False
     card = card_line()
     for name in CELLS if args.cell == "all" else [args.cell]:
-        print(json.dumps(bench_cell(name, args.runs, args.profile, card)), flush=True)
+        out = bench_cell(name, args.runs, args.profile, card)
+        out["small_eigh"] = args.small_eigh
+        print(json.dumps(out), flush=True)
     return 0
 
 

@@ -4,11 +4,15 @@
 Phases (each prints one progress line; any failure raises, exit code != 0):
 
 0. device: require CUDA, print the card, power limit and versions; TF32 off.
-1. build: compile the three CUDA kernels from ``localmd_tpu_torch/csrc``.
+1. build: compile the four CUDA kernels from ``localmd_tpu_torch/csrc``
+   (one nvcc per source, all at once).
 2. kernel vs plain: each kernel against its plain PyTorch version on the
-   card, at the main path's shapes plus edge cases, with CUDA-event times.
+   card, at the paths' shapes plus edge cases, with CUDA-event times; K4
+   also against cuSOLVER (``torch.linalg.eigh`` in float64) and timed
+   beside it.
 3. golden: the port on the golden movie with the committed injected
-   sketches and pinned thresholds, against tests/golden/reference_golden.npz.
+   sketches and pinned thresholds, against tests/golden/reference_golden.npz
+   (K4 on the path: every small eigh).
 4. main path: ``localmd_decomposition`` on bench.make_movie's 512 x 512 x
    2048 float32 movie made on the card (bench.py's configuration), once
    cold and twice warm, then ``reconstruct_frames`` on 512 frames; every
@@ -17,9 +21,15 @@ Phases (each prints one progress line; any failure raises, exit code != 0):
 6. denoising: the same construction with smoothed factors, float32 and
    uint16, once each; the reconstruction must be closer to the clean movie
    than the raw frames.
+7. the multi-window path: the JAX package's voltage workload
+   (scripts/bench_workloads.py:34-42) on bench.make_movie's construction at
+   256 x 256 x 20000 float32, once cold and once warm, then with smoothed
+   factors once: shape, ranks, at least one residual window, finite frames
+   through K3, every kernel launched, and denoising on the smoothed movie.
 
-The last two lines are a JSON object with one entry per kernel and the
-result line ``{"ok": true, "device": {...}}``.
+The last two lines are a JSON object with one entry per kernel (its
+launches summed over the runs of phases 4 and 7, each counted from 0) and
+the result line ``{"ok": true, "device": {...}}``.
 
 Run from the repository root: ``python3 chip_smoke.py`` (one card).
 ``--phases 0,1,2`` runs a subset (the result line needs all of them).
@@ -47,8 +57,15 @@ KERNELS = {
                      "localmd_tpu/ops/pallas_kernels.py:216"),
     "block_reconstruct": ("localmd_tpu_torch/csrc/block_reconstruct.cu",
                           "localmd_tpu/ops/pallas_kernels.py:332"),
+    "jacobi_eigh": ("localmd_tpu_torch/csrc/jacobi_eigh.cu",
+                    "scripts/ablate_jacobi_kernel.py:103"),
 }
-ALL_PHASES = (0, 1, 2, 3, 4, 5, 6)
+ALL_PHASES = (0, 1, 2, 3, 4, 5, 6, 7)
+# K4's cases: the shapes the paths give it -- the rSVD Gram (256 and 225
+# blocks, k = 30), svd_gram_left (k = 20), the threshold Monte-Carlo (131
+# simulations, k = 11, odd), the background rSVD (k = 25) -- and k = 64
+K4_SHAPES = ((256, 30), (256, 20), (131, 11), (225, 30), (1, 25), (64, 64))
+K4_KINDS = ("random_psd", "rank_deficient", "repeated", "diagonal")
 
 
 def log(msg: str) -> None:
@@ -208,6 +225,61 @@ def phase_kernels(results: dict) -> None:
     log(f"  K3 961 blocks f=512: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
     results["block_reconstruct"] = dict(max_abs_err=err0, ms=ms, plain_ms=plain_ms)
 
+    # K4: eigenvalues within 1e-5 |lambda_max| of the plain twin's and of
+    # torch.linalg.eigh's (cuSOLVER) on the same input in float64; V diag(lambda)
+    # V^T within 1e-5 relative Frobenius of the input; max|V^T V - I| <= 1e-5.
+    # cuSOLVER's float32 eigenvalues are printed beside, measured against the
+    # same float64 reference.
+    from localmd_tpu_torch.ops import linalg
+
+    first = None
+    for (n, k) in K4_SHAPES:
+        for kind in K4_KINDS:
+            sym = k4_matrices(kind, n, k, g)
+            vals_k, vecs_k = kernels.jacobi_eigh(sym)
+            vals_p, _ = linalg.jacobi_eigh_plain(sym)
+            vals_64 = torch.linalg.eigvalsh(sym.double()).flip(-1)
+            vals_32 = torch.linalg.eigvalsh(sym).flip(-1)
+            torch.cuda.synchronize()
+            lam = float(vals_64.abs().max())
+            err_p = max_abs(vals_k, vals_p) / lam
+            err_c = max_abs(vals_k, vals_64) / lam
+            err_32 = max_abs(vals_32, vals_64) / lam
+            v64 = vecs_k.double()
+            recon = rel_fro((v64 * vals_k.double()[:, None, :]) @ v64.transpose(1, 2), sym)
+            orth = float((v64.transpose(1, 2) @ v64 - torch.eye(k, device=dev, dtype=torch.float64)).abs().max())
+            log(f"  K4 jacobi_eigh ({n}, {k}, {k}) {kind}: eigenvalues vs plain {err_p:.2e}, "
+                f"vs cuSOLVER f64 {err_c:.2e} (cuSOLVER f32 {err_32:.2e}) x |lambda_max|; "
+                f"recon {recon:.2e}; orth {orth:.2e}")
+            check(max(err_p, err_c) <= 1e-5, f"K4 ({n}, {k}) {kind}: eigenvalue error {err_p} / {err_c}")
+            check(recon <= 1e-5 and orth <= 1e-5, f"K4 ({n}, {k}) {kind}: recon {recon}, orth {orth}")
+            if first is None:
+                first = (sym, max_abs(vals_k, vals_p))
+    sym, err0 = first
+    ms = cuda_ms(lambda: kernels.jacobi_eigh(sym))
+    plain_ms = cuda_ms(lambda: linalg.jacobi_eigh_plain(sym))
+    cusolver_ms = cuda_ms(lambda: torch.linalg.eigh(sym))
+    log(f"  K4 (256, 30, 30): kernel {ms:.3f} ms, plain twin {plain_ms:.3f} ms, "
+        f"cuSOLVER (torch.linalg.eigh) {cusolver_ms:.3f} ms")
+    results["jacobi_eigh"] = dict(max_abs_err=err0, ms=ms, plain_ms=plain_ms)
+
+
+def k4_matrices(kind: str, n: int, k: int, g):
+    """(n, k, k) symmetric float32 test matrices on the card."""
+    import torch
+
+    dev = torch.device("cuda")
+    if kind == "diagonal":
+        return torch.diag_embed(torch.rand(n, k, generator=g, device=dev) * 5)
+    if kind == "repeated":
+        q, _ = torch.linalg.qr(torch.randn(n, k, k, generator=g, device=dev, dtype=torch.float64))
+        lam = torch.tensor([9.0, 4.0, 1.0, 0.25], device=dev, dtype=torch.float64)
+        lam = lam.repeat_interleave(-(-k // 4))[:k]
+        return ((q * lam) @ q.transpose(1, 2)).float().contiguous()
+    width = k + 3 if kind == "random_psd" else 10       # rank-deficient: a k x 10 Gram
+    a = torch.randn(n, k, width, generator=g, device=dev)
+    return (a @ a.transpose(1, 2)).contiguous()
+
 
 # ---------------------------------------------------------------------------
 # phase 3: golden fixture on the card
@@ -270,26 +342,27 @@ def phase_golden() -> None:
 
 
 # ---------------------------------------------------------------------------
-# phases 4-6: the main path at 512 x 512 x 2048
+# phases 4-7: the main path at 512 x 512 x 2048, the multi-window path
 # ---------------------------------------------------------------------------
 
-def run_main(movie, runs: int, label: str):
-    """``runs`` calls of localmd_decomposition (the first cold); checks the
-    ranks and returns the last PMDArray."""
+def run_main(movie, runs: int, label: str, **settings):
+    """``runs`` calls of localmd_decomposition (the first cold) with
+    bench.py's configuration, ``settings`` over it; checks the ranks and
+    returns the last PMDArray."""
     from bench_torch import timed_run
 
     t, d1, d2 = movie.shape
     pmd = None
     for i in range(runs):
-        pmd, secs, peak = timed_run(movie)
+        pmd, secs, peak = timed_run(movie, **settings)
         kind = "cold" if i == 0 else "warm"
         log(f"  {label} run {i} ({kind}): {secs:.4f} s = "
             f"{d1 * d2 * t / secs / 1e6:.1f} Mpf/s; stages "
             + json.dumps({k: round(v, 4) for k, v in pmd.pipeline_timings.items()})
             + f"; peak {peak:.2f} GiB")
     ranks = pmd.pipeline_ranks
-    log(f"  {label} ranks {ranks}")
-    check(0 < ranks["final"] <= ranks["reduced"], f"{label}: final rank {ranks}")
+    log(f"  {label} ranks {ranks}, kept rank {pmd.rank}, windows {pmd.pipeline_windows}")
+    check(0 < pmd.rank <= ranks["final"] <= ranks["reduced"], f"{label}: ranks {ranks}, {pmd.rank}")
     return pmd
 
 
@@ -314,6 +387,52 @@ def check_recon(pmd, movie, clean_fn, label: str, denoised: bool) -> None:
         f"||recon - clean|| {err_recon:.1f}, ||movie - clean|| {err_raw:.1f}")
     if denoised:
         check(err_recon < err_raw, f"{label}: reconstruction is not closer to the clean movie")
+
+
+def phase_voltage() -> dict:
+    """Phase 7: the multi-window path at the voltage workload. Returns the
+    launch counts of its white-movie runs (counted from 0)."""
+    import torch
+
+    from bench_torch import CELLS, make_movie
+    from localmd_tpu_torch import engine
+    from localmd_tpu_torch.ops import kernels
+
+    d1, d2, t, dtype, settings = CELLS["voltage_f32"]
+    log(f"phase 7 multi-window {d1}x{d2}x{t} {dtype} (voltage workload) {settings}")
+    calls = []
+    residual = engine.single_residual_block_md_batched
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return residual(*args, **kwargs)
+
+    engine.single_residual_block_md_batched = counted
+    try:
+        movie, clean_fn = make_movie(dtype, d1, d2, t)
+        kernels.reset_launch_counts()
+        pmd = run_main(movie, 2, "voltage f32", **settings)
+        check(tuple(pmd.shape) == (t, d1, d2), f"voltage: shape {pmd.shape}")
+        windows = pmd.pipeline_windows
+        check(windows["n_windows"] == 2, f"voltage: {windows}")
+        check_recon(pmd, movie, clean_fn, "voltage f32", denoised=False)
+        launches = kernels.launch_counts()
+        log(f"  launches on the multi-window path: {launches}; residual-window calls {len(calls)}")
+        check(len(calls) >= 1, "voltage: no residual window ran")
+        for name, n in launches.items():
+            check(n > 0, f"multi-window path never launched {name}")
+        del pmd, movie
+        torch.cuda.empty_cache()
+        before = len(calls)
+        movie, clean_fn = make_movie(dtype, d1, d2, t, smooth=True)
+        pmd = run_main(movie, 1, "voltage smooth f32", **settings)
+        log(f"  residual-window calls on the smoothed movie: {len(calls) - before}")
+        check_recon(pmd, movie, clean_fn, "voltage smooth f32", denoised=True)
+        del pmd, movie
+        torch.cuda.empty_cache()
+    finally:
+        engine.single_residual_block_md_batched = residual
+    return launches
 
 
 def main(argv=None) -> int:
@@ -393,6 +512,10 @@ def main(argv=None) -> int:
             check_recon(pmd, movie, clean_fn, label, denoised=True)
             del pmd, movie
             torch.cuda.empty_cache()
+    if 7 in phases:
+        launches_7 = phase_voltage()
+        if launches is not None:
+            launches = {name: launches[name] + launches_7[name] for name in launches}
 
     if phases != set(ALL_PHASES):
         log(f"partial run (phases {sorted(phases)}): no result line")

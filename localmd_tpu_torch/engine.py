@@ -1,12 +1,18 @@
 """Batched per-block PMD decomposition (counterpart of localmd_tpu/engine.py,
-single-window path with identity denoisers).
+gather path with identity denoisers).
 
 - ``single_block_md_batched``: the first-window decomposition of a batch of
   blocks (engine.py:76-147).
-- ``_pack_components_route``: the failure filter plus one-hot routing of kept
-  components into per-block slots (engine.py:211-239).
+- ``single_residual_block_md_batched``: further components orthogonal to
+  each block's accumulated basis (engine.py:151-178).
+- ``_pack_components_route`` / ``pack_components``: the failure filter plus
+  one-hot routing of kept components into per-block slots
+  (engine.py:182-239).
 - ``window0_chunk_step``: gather -> decompose -> pack for one batch of
   blocks (engine.py:250-301); the JAX package's CPU reference path.
+- ``windowed_pmd_batched``: the multi-window block stage (engine.py:593-903)
+  as a Python loop over windows, with the host reading two scalars per
+  window (early stop, fallback tier) where JAX keeps them on the device.
 - ``threshold_heuristic``: the noise-null Monte-Carlo for the roughness
   cutoffs (engine.py:911-1053); ``jnp.percentile`` becomes
   ``torch.quantile`` with linear interpolation.
@@ -16,7 +22,7 @@ single-window path with identity denoisers).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -83,6 +89,33 @@ def single_block_md_batched(
     return u_final, decisions, v_final
 
 
+def single_residual_block_md_batched(
+    blocks: torch.Tensor,
+    existing: torch.Tensor,
+    sketches: torch.Tensor,
+    max_rank: int,
+    temporal_avg_factor: int,
+    spatial_threshold,
+    temporal_threshold,
+):
+    """Further components of each block orthogonal to its accumulated basis.
+
+    existing: (n, b1*b2, S) zero-padded bases (zero slots project out
+    nothing); sketches: (n, t', k) for the binned residual. Returns
+    (u (n, p, r), decisions (n, r), v (n, r, t))."""
+    _, b1, b2, _ = blocks.shape
+    blocks_flat = flatten_fov(blocks)
+    coeff = existing.transpose(-1, -2) @ blocks_flat                 # (n, S, t)
+    resid = blocks_flat - existing @ coeff
+    resid_avg = _bin_consecutive(resid, temporal_avg_factor)
+    u = batched_truncated_random_svd(resid_avg, max_rank, sketch=sketches)[0]
+    v = u.transpose(-1, -2) @ resid
+    decisions = evaluate_fitness(
+        unflatten_fov(u, b1, b2).movedim(-1, 1), v, spatial_threshold, temporal_threshold
+    )
+    return u, decisions, v
+
+
 def _pack_components_route(
     u_new: torch.Tensor,
     v_new: Optional[torch.Tensor],
@@ -108,6 +141,19 @@ def _pack_components_route(
     if v_new is not None:
         v_fit = onehot.transpose(-1, -2) @ v_new                     # (n, S, t)
     return acc, counts, v_fit
+
+
+def pack_components(u_new, decisions, acc, counts, max_consecutive_failures: int):
+    """Route kept components into the accumulator: (acc, counts)."""
+    acc, counts, _ = _pack_components_route(
+        u_new, None, decisions, acc, counts, max_consecutive_failures
+    )
+    return acc, counts
+
+
+def temporal_projector_batched(spatial: torch.Tensor, blocks_flat: torch.Tensor) -> torch.Tensor:
+    """(n, p, S)^T @ (n, p, t) -> (n, S, t)."""
+    return spatial.transpose(-1, -2) @ blocks_flat
 
 
 def window0_chunk_step(
@@ -138,6 +184,148 @@ def window0_chunk_step(
     acc = torch.zeros((n, b1 * b2, max_rank), dtype=patches.dtype, device=patches.device)
     counts = torch.zeros((n,), dtype=torch.int32, device=patches.device)
     return _pack_components_route(u, v, decisions, acc, counts, max_consecutive_failures)
+
+
+# ---------------------------------------------------------------------------
+# Multi-window block stage
+# ---------------------------------------------------------------------------
+
+def _md_pack_step(
+    window, sketches, acc, counts, max_rank, temporal_avg_factor, spatial_avg_factor,
+    spatial_threshold, temporal_threshold, max_consecutive_failures,
+):
+    """Window-0 decomposition + failure filter + packing: (acc, counts)."""
+    u, decisions, _ = single_block_md_batched(
+        window, sketches, max_rank, temporal_avg_factor, spatial_avg_factor,
+        spatial_threshold, temporal_threshold,
+    )
+    return pack_components(u, decisions, acc, counts, max_consecutive_failures)
+
+
+def _fallback_rerun(
+    window: torch.Tensor,
+    sketches: torch.Tensor,
+    u_r: torch.Tensor,
+    dec_r: torch.Tensor,
+    is_zero: torch.Tensor,
+    n_zero: int,
+    fallback_cap: int,
+    *,
+    max_rank: int,
+    temporal_avg_factor: int,
+    spatial_avg_factor: int,
+    spatial_threshold,
+    temporal_threshold,
+):
+    """Replace the residual results of blocks that still hold no component
+    with the full two-stage kernel's (reference decomposition.py:476-488).
+
+    Tiers, chosen from the host count ``n_zero``: none; up to
+    ``fallback_cap`` zero blocks -> the full kernel on a cap-sized gather
+    (zero blocks first, in index order), scattered back; more -> the full
+    kernel on every block with a per-block selection. The gathered tier
+    gives the full tier's output."""
+    n = window.shape[0]
+    if n_zero == 0:
+        return u_r, dec_r
+    kw = dict(
+        max_rank=max_rank, temporal_avg_factor=temporal_avg_factor,
+        spatial_avg_factor=spatial_avg_factor, spatial_threshold=spatial_threshold,
+        temporal_threshold=temporal_threshold,
+    )
+    if fallback_cap < n and n_zero <= fallback_cap:
+        idx = torch.argsort((~is_zero).to(torch.int8), stable=True)[:fallback_cap]
+        u_f, dec_f, _ = single_block_md_batched(window[idx], sketches[idx], **kw)
+        sel = is_zero[idx]
+        u_new, dec_new = u_r.clone(), dec_r.clone()
+        u_new[idx] = torch.where(sel[:, None, None], u_f, u_r[idx])
+        dec_new[idx] = torch.where(sel[:, None], dec_f, dec_r[idx])
+        return u_new, dec_new
+    u_f, dec_f, _ = single_block_md_batched(window, sketches, **kw)
+    return (
+        torch.where(is_zero[:, None, None], u_f, u_r),
+        torch.where(is_zero[:, None], dec_f, dec_r),
+    )
+
+
+class WindowedPMDResult(NamedTuple):
+    spatial: torch.Tensor    # (n, p, max_rank) zero-padded accumulated bases
+    counts: torch.Tensor     # (n,) kept components per block
+    temporal: torch.Tensor   # (n, max_rank, t) projection of the whole block
+    windows_run: int         # windows decomposed before the early stop
+
+
+def effective_window_length(window_length: int, t: int, temporal_avg_factor: int) -> int:
+    """The window length the loop uses: clamped to the movie, rounded down
+    to a multiple of the binning factor (engine.py:820-829)."""
+    window_length = min(window_length, t)
+    return max(temporal_avg_factor, (window_length // temporal_avg_factor) * temporal_avg_factor)
+
+
+def window_count(t: int, window_length: int) -> int:
+    return len(range(0, t, window_length))
+
+
+def windowed_pmd_batched(
+    blocks: torch.Tensor,
+    sketches: torch.Tensor,
+    window_length: int,
+    max_rank: int,
+    spatial_threshold,
+    temporal_threshold,
+    max_consecutive_failures: int,
+    temporal_avg_factor: int,
+    spatial_avg_factor: int,
+    mesh=None,
+) -> WindowedPMDResult:
+    """Windowed blockwise PMD over a batch of blocks (engine.py:843-903).
+
+    blocks: (n, b1, b2, t) patches; sketches: (n_windows, n, wl / f, k), one
+    per (window, block), drawn by the caller over the global block grid.
+    Window 0 runs the two-stage kernel; window w >= 1 starts at
+    ``min(w * wl, t - wl)`` and extracts residual components against the
+    accumulated basis, blocks still at zero components re-running the full
+    kernel on that window's sketch; the loop stops once every block is full.
+    The temporal components are the whole crop projected on the bases."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "localmd_tpu_torch does not support mesh yet; see ROADMAP.md "
+            "(use the JAX package localmd_tpu for it)"
+        )
+    n, b1, b2, t = blocks.shape
+    wl = effective_window_length(window_length, t, temporal_avg_factor)
+    n_windows = window_count(t, wl)
+    if tuple(sketches.shape[:2]) != (n_windows, n):
+        raise ValueError(f"sketches shape {tuple(sketches.shape[:2])} != {(n_windows, n)}")
+    kw = dict(
+        max_rank=max_rank, temporal_avg_factor=temporal_avg_factor,
+        spatial_avg_factor=spatial_avg_factor, spatial_threshold=spatial_threshold,
+        temporal_threshold=temporal_threshold,
+    )
+    acc = torch.zeros((n, b1 * b2, max_rank), dtype=blocks.dtype, device=blocks.device)
+    counts = torch.zeros((n,), dtype=torch.int32, device=blocks.device)
+    acc, counts = _md_pack_step(
+        blocks[..., :wl], sketches[0], acc, counts, max_rank, temporal_avg_factor,
+        spatial_avg_factor, spatial_threshold, temporal_threshold, max_consecutive_failures,
+    )
+    fallback_cap = max(1, n // 8)
+    w = 1
+    while w < n_windows:
+        is_zero = counts == 0
+        least, n_zero = torch.stack([counts.min(), is_zero.sum().to(counts.dtype)]).tolist()
+        if least >= max_rank:
+            break
+        start = min(w * wl, t - wl)
+        window = blocks[..., start : start + wl]
+        u, dec, _ = single_residual_block_md_batched(
+            window, acc, sketches[w], max_rank, temporal_avg_factor,
+            spatial_threshold, temporal_threshold,
+        )
+        u, dec = _fallback_rerun(window, sketches[w], u, dec, is_zero, n_zero, fallback_cap, **kw)
+        acc, counts = pack_components(u, dec, acc, counts, max_consecutive_failures)
+        w += 1
+    temporal = temporal_projector_batched(acc, flatten_fov(blocks))
+    return WindowedPMDResult(acc, counts, temporal, w)
 
 
 # ---------------------------------------------------------------------------

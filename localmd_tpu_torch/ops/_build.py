@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (``localmd_tpu_torch/csrc``).
 
-All ``.cu`` sources compile with ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, loaded with ``ctypes``. The build runs at
+Each ``.cu`` source compiles with its own ``nvcc`` for ``sm_90a`` (all
+started together), and the objects link into one shared library with a
+plain C interface, loaded with ``ctypes``. The build runs at
 first use, into ``localmd_tpu_torch/_build/`` (git-ignored), keyed on a
 hash of the sources and flags, so a fresh checkout builds once and later
 processes reuse the library. ``torch.utils.cpp_extension`` is not used:
@@ -22,10 +23,10 @@ from typing import Optional
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SOURCES = ("movie_stats.cu", "v_projection.cu", "block_reconstruct.cu")
+SOURCES = ("movie_stats.cu", "v_projection.cu", "block_reconstruct.cu", "jacobi_eigh.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -43,6 +44,8 @@ SIGNATURES = {
     "lmd_block_reconstruct": (
         _P, _P, _P, _P, ctypes.POINTER(ctypes.c_int), _I, _I, _I, _I, _I, _I, _P, _P,
     ),
+    # sym, n, k, sched, sweeps, vals, vecs, stream
+    "lmd_jacobi_eigh": (_P, _I, _I, _P, _I, _P, _P, _P),
 }
 
 _lock = threading.Lock()
@@ -76,16 +79,35 @@ def build() -> str:
         last_build.update(path=path, seconds=0.0, cached=True)
         return path
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp] + [os.path.join(CSRC_DIR, s) for s in SOURCES]
+    objs = [f"{tmp}.{os.path.splitext(name)[0]}.o" for name in SOURCES]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
+    compiles = [
+        (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for cmd in (
+            [_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, os.path.join(CSRC_DIR, name)]
+            for name, obj in zip(SOURCES, objs)
         )
+    ]
+    logs, failed = [], []
+    for cmd, proc in compiles:
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+    if not failed:
+        link = [_nvcc(), "-shared", "-o", tmp, *objs]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        logs.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link failed ({proc.returncode}):\n{' '.join(link)}\n{logs[-1]}")
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    seconds = time.perf_counter() - t0
     os.replace(tmp, path)
-    last_build.update(path=path, seconds=seconds, cached=False, log=proc.stdout + proc.stderr)
+    last_build.update(path=path, seconds=seconds, cached=False, log="".join(logs))
     return path
 
 

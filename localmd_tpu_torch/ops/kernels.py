@@ -1,4 +1,4 @@
-"""The three kernels of the main path, each beside its plain PyTorch version.
+"""The four kernels of the port, each beside its plain PyTorch version.
 
 Counterpart of localmd_tpu/ops/pallas_kernels.py. Every wrapper takes its
 plain version only because the tensor it was given lies on the CPU; for a
@@ -14,6 +14,10 @@ kernel, so a run can show that the main path went through it.
 - K3 ``block_reconstruct``: overlap-add of per-block ``U_b @ V_b`` into a
   (d1, d2, f) canvas, one launch per disjoint coset
   (``csrc/block_reconstruct.cu``; plain twin: a scatter-add).
+- K4 ``jacobi_eigh``: batched cyclic-Jacobi eigh of (n, k, k) symmetric
+  matrices, k <= 64 (``csrc/jacobi_eigh.cu``; plain twin:
+  ``ops.linalg.jacobi_eigh_plain``). ``linalg.eigh_descending`` sends every
+  small eigh on the card here.
 """
 
 from __future__ import annotations
@@ -24,6 +28,12 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from localmd_tpu_torch.ops.linalg import (
+    JACOBI_MAX_DIM,
+    _jacobi_tables,
+    jacobi_eigh_plain,
+    jacobi_sweeps,
+)
 from localmd_tpu_torch.ops.noise import (
     NOVERLAP,
     NPERSEG,
@@ -329,15 +339,63 @@ def block_reconstruct(
 block_reconstruct.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# K4: batched cyclic-Jacobi eigh
+# ---------------------------------------------------------------------------
+
+_SCHED_CACHE: dict = {}
+
+
+def _jacobi_schedule(k: int, device: torch.device) -> torch.Tensor:
+    """The plain twin's (k - 1, k/2, 2) int32 schedule on ``device``, so the
+    kernel rotates the same pairs at the same steps."""
+    key = (k, str(device))
+    got = _SCHED_CACHE.get(key)
+    if got is None:
+        got = torch.from_numpy(_jacobi_tables(k)).to(device)
+        _SCHED_CACHE[key] = got
+    return got
+
+
+def jacobi_eigh(sym: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4: eigendecomposition of a batch of symmetric (n, k, k) float32
+    matrices, k <= 64, by cyclic Jacobi with the JAX package's sweep count.
+    Returns (vals (n, k) descending, vecs (n, k, k)), vectors as columns."""
+    if sym.dim() != 3 or sym.shape[-1] != sym.shape[-2] or sym.dtype != torch.float32:
+        raise ValueError(
+            f"jacobi_eigh: expected (n, k, k) float32, got {tuple(sym.shape)} {sym.dtype}"
+        )
+    n, k, _ = sym.shape
+    if not 1 <= k <= JACOBI_MAX_DIM:
+        raise ValueError(f"jacobi_eigh: k = {k} is outside 1..{JACOBI_MAX_DIM}")
+    if sym.device.type == "cpu":
+        return jacobi_eigh_plain(sym)
+    _require_cuda("jacobi_eigh", sym)
+    dev = sym.device
+    vals = torch.empty((n, k), dtype=torch.float32, device=dev)
+    vecs = torch.empty((n, k, k), dtype=torch.float32, device=dev)
+    if n == 0:
+        return vals, vecs
+    k_even = k + (k % 2)
+    code = _library().lmd_jacobi_eigh(
+        _ptr(sym), n, k, _ptr(_jacobi_schedule(k_even, dev)), jacobi_sweeps(k),
+        _ptr(vals), _ptr(vecs), _stream(sym),
+    )
+    _check_status("jacobi_eigh", code)
+    jacobi_eigh.launches += 1
+    return vals, vecs
+
+
+jacobi_eigh.launches = 0
+
+KERNELS = (movie_stats, v_projection, block_reconstruct, jacobi_eigh)
+
+
 def reset_launch_counts() -> None:
     """Set every kernel's launch count to 0."""
-    for fn in (movie_stats, v_projection, block_reconstruct):
+    for fn in KERNELS:
         fn.launches = 0
 
 
 def launch_counts() -> dict:
-    return {
-        "movie_stats": movie_stats.launches,
-        "v_projection": v_projection.launches,
-        "block_reconstruct": block_reconstruct.launches,
-    }
+    return {fn.__name__: fn.launches for fn in KERNELS}

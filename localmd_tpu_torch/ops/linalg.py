@@ -1,21 +1,26 @@
 """Linear-algebra primitives for PMD (counterpart of ops/linalg.py).
 
 Batch-first like the JAX package: every routine accepts a leading ``...``
-batch. Small SVDs go through symmetric Gram + ``torch.linalg.eigh``
-(LAPACK on the CPU, cuSOLVER on the card); the JAX package's Jacobi eigh is
-a TPU workaround and is not carried over. Random sketches are drawn through
-``utils.random.normal`` so tests can inject the JAX package's draws.
+batch. Small SVDs go through a symmetric Gram + ``eigh_descending``, which
+routes as the JAX package does (ops/linalg.py:208-221): on the card every
+eigh with k <= 64 goes to K4, the batched cyclic-Jacobi kernel
+(``ops.kernels.jacobi_eigh``); larger ones and every CPU eigh go to
+``torch.linalg.eigh`` (cuSOLVER / LAPACK). ``jacobi_eigh_plain`` is K4's
+plain twin. Random sketches are drawn through ``utils.random.normal`` so
+tests can inject the JAX package's draws.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from localmd_tpu_torch.utils.random import make_generator, normal
 
 DEFAULT_OVERSAMPLES = 10
+JACOBI_MAX_DIM = 64
 
 
 def cholesky_qr2(y: torch.Tensor) -> torch.Tensor:
@@ -41,8 +46,105 @@ def cholesky_qr2(y: torch.Tensor) -> torch.Tensor:
     return _one_pass(_one_pass(y))
 
 
+def jacobi_sweeps(k: int) -> int:
+    """The JAX package's fixed sweep count (ops/linalg.py:217)."""
+    return 10 if k <= 32 else 12
+
+
+def _jacobi_tables(k: int) -> np.ndarray:
+    """Round-robin (circle method) schedule for even ``k``: (k - 1, k/2, 2)
+    int32 pairs (p < q), every unordered pair once per sweep, the k/2 pairs
+    of a step disjoint (ops/linalg.py:111-144)."""
+    arr = list(range(k))
+    steps = []
+    for _ in range(k - 1):
+        steps.append([
+            (min(arr[i], arr[k - 1 - i]), max(arr[i], arr[k - 1 - i])) for i in range(k // 2)
+        ])
+        arr = [arr[0], arr[-1]] + arr[1:-1]
+    return np.array(steps, dtype=np.int32).reshape(k - 1, k // 2, 2)
+
+
+def _rotation(app: torch.Tensor, aqq: torch.Tensor, apq: torch.Tensor):
+    """(c, s) of the inner Jacobi rotation (|theta| <= pi/4) that zeroes a_pq:
+    ``theta = 0.5 atan2(2 a_pq sign(d), |d|)`` with d = a_qq - a_pp (sign(0)
+    = 1), no rotation where a_pq == 0. tan(2 theta) is the JAX package's
+    ``2 a_pq / d``, but its ``0.5 atan2(2 a_pq, d)`` takes the outer angle
+    whenever d < 0; K4's Pallas body takes the inner one, as here."""
+    d = aqq - app
+    sgn = torch.where(d >= 0.0, torch.ones_like(d), -torch.ones_like(d))
+    theta = 0.5 * torch.atan2(2.0 * apq * sgn, d.abs())
+    theta = torch.where(apq == 0.0, torch.zeros_like(theta), theta)
+    return torch.cos(theta), torch.sin(theta)
+
+
+def jacobi_eigh_plain(sym: torch.Tensor, sweeps: Optional[int] = None):
+    """Plain twin of K4: batched cyclic-Jacobi eigh of symmetric (..., k, k)
+    float32, eigenvalues descending (ops/linalg.py:147-205).
+
+    Each step rotates the k/2 disjoint pairs of the schedule by the inner
+    angle of ``_rotation``: rows first, then columns, then the columns of
+    V. Odd k is zero-padded; the padded dimension never mixes. Returns
+    ((..., k), (..., k, k))."""
+    k0 = sym.shape[-1]
+    if sweeps is None:
+        sweeps = jacobi_sweeps(k0)
+    k = k0 + (k0 % 2)
+    a = torch.nn.functional.pad(sym, (0, k - k0, 0, k - k0)) if k != k0 else sym.clone()
+    v = torch.eye(k, dtype=sym.dtype, device=sym.device).expand(a.shape).clone()
+    sched = _jacobi_tables(k)
+    partner = np.empty((k - 1, k), np.int64)
+    slot = np.empty((k - 1, k), np.int64)
+    sign = np.empty((k - 1, k), np.float32)
+    for t, pairs in enumerate(sched):
+        for i, (p, q) in enumerate(pairs):
+            partner[t, p], partner[t, q] = q, p
+            slot[t, p] = slot[t, q] = i
+            sign[t, p], sign[t, q] = -1.0, 1.0   # row p mixes in -s row q
+    dev = sym.device
+    sched_t = torch.as_tensor(sched, dtype=torch.long, device=dev)
+    partner_t = torch.as_tensor(partner, device=dev)
+    slot_t = torch.as_tensor(slot, device=dev)
+    sign_t = torch.as_tensor(sign, device=dev)
+    for _ in range(sweeps):
+        for t in range(k - 1):
+            pi, qi = sched_t[t, :, 0], sched_t[t, :, 1]
+            apq = a[..., pi, qi]
+            c, s = _rotation(a[..., pi, pi], a[..., qi, qi], apq)
+            cf = c[..., slot_t[t]]                                   # (..., k)
+            sf = s[..., slot_t[t]] * sign_t[t]
+            pr = partner_t[t]
+            a = cf[..., :, None] * a + sf[..., :, None] * a[..., pr, :]
+            a = cf[..., None, :] * a + sf[..., None, :] * a[..., :, pr]
+            v = cf[..., None, :] * v + sf[..., None, :] * v[..., :, pr]
+    vals = torch.diagonal(a, dim1=-2, dim2=-1)[..., :k0]
+    v = v[..., :k0, :k0]
+    order = torch.argsort(-vals, dim=-1, stable=True)
+    vals = torch.take_along_dim(vals, order, dim=-1)
+    v = torch.take_along_dim(v, order[..., None, :], dim=-1)
+    return vals, v
+
+
+def uses_jacobi(device, k: int) -> bool:
+    """Whether ``eigh_descending`` sends a (..., k, k) matrix on ``device``
+    to K4: on the card with k <= 64, as the JAX package sends small eighs
+    off the CPU to its Jacobi (ops/linalg.py:216)."""
+    return torch.device(device).type == "cuda" and k <= JACOBI_MAX_DIM
+
+
 def eigh_descending(sym: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Eigendecomposition of symmetric (..., k, k), eigenvalues descending."""
+    """Eigendecomposition of symmetric (..., k, k), eigenvalues descending.
+
+    On the card with k <= 64: K4 (``kernels.jacobi_eigh``). Otherwise
+    ``torch.linalg.eigh`` -- on the CPU that is the JAX package's CPU
+    reference (LAPACK), on the card cuSOLVER for k > 64."""
+    if uses_jacobi(sym.device, sym.shape[-1]):
+        from localmd_tpu_torch.ops import kernels
+
+        lead = sym.shape[:-2]
+        k = sym.shape[-1]
+        vals, vecs = kernels.jacobi_eigh(sym.reshape(-1, k, k).contiguous())
+        return vals.reshape(*lead, k), vecs.reshape(*lead, k, k)
     vals, vecs = torch.linalg.eigh(sym)
     return vals.flip(-1), vecs.flip(-1)
 

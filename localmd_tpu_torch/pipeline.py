@@ -1,9 +1,11 @@
 """End-to-end PMD pipeline on one device: ``localmd_decomposition``
-(counterpart of localmd_tpu/pipeline.py, single init window).
+(counterpart of localmd_tpu/pipeline.py).
 
   stats (K1) -> background rSVD -> frame sampling -> threshold Monte-Carlo
   -> standardize + background-filter the init frames
-  -> batched window-0 block decomposition over the whole patch grid
+  -> batched block decomposition over the whole patch grid: one init
+     window, or (``window_chunks`` below the init length) the multi-window
+     loop of ``engine.windowed_pmd_batched``
   -> pyramid-weighted overlap normalization (blocked-sparse U)
   -> factorized SVD (only_left) -> streamed V regression (K2)
   -> final SVD reformat -> PMDArray (frames through K3).
@@ -24,7 +26,13 @@ import torch
 from localmd_tpu_torch import config
 from localmd_tpu_torch.blocksparse import BlockSparseMatrix
 from localmd_tpu_torch.dataset import as_dataset
-from localmd_tpu_torch.engine import threshold_heuristic, window0_chunk_step
+from localmd_tpu_torch.engine import (
+    effective_window_length,
+    threshold_heuristic,
+    window0_chunk_step,
+    window_count,
+    windowed_pmd_batched,
+)
 from localmd_tpu_torch.factorization import (
     compute_lowrank_factorized_svd,
     final_svd_reformat,
@@ -34,6 +42,7 @@ from localmd_tpu_torch.ops.linalg import DEFAULT_OVERSAMPLES
 from localmd_tpu_torch.ops.tiling import (
     block_grid,
     check_fov_size,
+    extract_patches,
     flatten_image,
     update_block_sizes,
 )
@@ -115,12 +124,14 @@ def localmd_decomposition(
     ``device``. ``dtype``, ``num_workers``, ``pixel_batch_size`` and
     ``cache_movie`` are accepted and inert (in-memory sources only);
     ``mesh``, ``checkpoint_path``, ``profile_dir``, ``aot_warm=True``,
-    denoisers, ``matmul_precision`` other than "highest" and
-    ``window_chunks`` below ``frame_range`` raise ``NotImplementedError``.
+    denoisers and ``matmul_precision`` other than "highest" raise
+    ``NotImplementedError``.
 
     The result carries ``pipeline_timings`` (seconds per stage, each stage
-    fenced with ``torch.cuda.synchronize`` on the card) and
-    ``pipeline_ranks``.
+    fenced with ``torch.cuda.synchronize`` on the card),
+    ``pipeline_ranks`` (the JAX package's: ``final`` is the width of ``s``,
+    the kept count is ``rank``) and ``pipeline_windows`` (init windows
+    and, per block batch, the windows run before the early stop).
     """
     dev = config.resolve_device(device)
     config.apply()
@@ -135,9 +146,6 @@ def localmd_decomposition(
     )
     dataset = as_dataset(dataset_obj)
     t_total, d1, d2 = (int(s) for s in dataset.shape)
-    _unsupported(
-        multi_window_init=window_chunks is not None and window_chunks < min(frame_range, t_total)
-    )
     check_fov_size((d1, d2))
     if order not in ("F", "C"):
         raise ValueError(f"order must be 'F' or 'C', got {order!r}")
@@ -232,14 +240,21 @@ def localmd_decomposition(
             np.asarray(pixel_weighting, dtype=np.float32), device=dev
         )[:, :, None]
 
-    # -- batched window-0 block decomposition --------------------------------
+    # -- batched block decomposition -----------------------------------------
     grid = block_grid(d1, d2, (b1, b2), order)
     n_blocks = grid.n_blocks
-    # every block's sketch is drawn up front, so results do not depend on
-    # the batch size below
+    window_len = min(window_chunks, crop_avg_constant)
+    single_window = window_len >= crop_avg_constant
+    # every (window,) block's sketch is drawn up front over the global grid,
+    # so results do not depend on the batch size below
+    if single_window:
+        n_windows, sketch_frames = 1, crop_avg_constant
+    else:
+        wl_eff = effective_window_length(window_len, crop_avg_constant, temporal_avg_factor)
+        n_windows, sketch_frames = window_count(crop_avg_constant, wl_eff), wl_eff
     sketches = normal(
-        (crop_avg_constant // temporal_avg_factor, max_components + DEFAULT_OVERSAMPLES),
-        gen, dev, batch=(n_blocks,),
+        (sketch_frames // temporal_avg_factor, max_components + DEFAULT_OVERSAMPLES),
+        gen, dev, batch=(n_windows, n_blocks),
     )
     per_block_bytes = b1 * b2 * crop_avg_constant * 4 * 4
     free = free_bytes(dev)
@@ -247,17 +262,26 @@ def localmd_decomposition(
     bb = max(1, min(block_batch_size, n_blocks, max(16, budget // per_block_bytes)))
     display(
         f"Decomposing {n_blocks} overlapping blocks ({b1}x{b2}, max "
-        f"{max_components} comps/block) in batches of {bb}"
+        f"{max_components} comps/block, {n_windows} window(s)) in batches of {bb}"
     )
-    panels_parts, counts_parts, temporal_parts = [], [], []
+    panels_parts, counts_parts, temporal_parts, windows_run = [], [], [], []
     for s in range(0, n_blocks, bb):
         sl = slice(s, min(s + bb, n_blocks))
-        acc, cnt, v_fit = window0_chunk_step(
-            data, grid.starts[sl], sketches[sl], b1, b2, max_components,
-            temporal_avg_factor, spatial_avg_factor,
-            spatial_threshold, temporal_threshold,
-            max_consecutive_failures,
-        )
+        if single_window:
+            acc, cnt, v_fit = window0_chunk_step(
+                data, grid.starts[sl], sketches[0, sl], b1, b2, max_components,
+                temporal_avg_factor, spatial_avg_factor,
+                spatial_threshold, temporal_threshold,
+                max_consecutive_failures,
+            )
+            windows_run.append(1)
+        else:
+            acc, cnt, v_fit, ran = windowed_pmd_batched(
+                extract_patches(data, grid.starts[sl], b1, b2), sketches[:, sl],
+                window_len, max_components, spatial_threshold, temporal_threshold,
+                max_consecutive_failures, temporal_avg_factor, spatial_avg_factor,
+            )
+            windows_run.append(ran)
         panels_parts.append(acc)
         counts_parts.append(cnt)
         temporal_parts.append(v_fit)
@@ -326,6 +350,7 @@ def localmd_decomposition(
         "blockwise": int(total_rank),
         "pre_reduction": int(total_rank + k_bg),
         "reduced": int(p.shape[1]),
-        "final": int(s_keep.sum()),
+        "final": int(s_vals.shape[0]),
     }
+    out.pipeline_windows = {"n_windows": n_windows, "run_per_batch": windows_run}
     return out

@@ -1,11 +1,13 @@
-"""The three CUDA kernels against their plain PyTorch versions on the card.
+"""The four CUDA kernels against their plain PyTorch versions on the card.
 
 Marked ``gpu``; each test skips (in a fixture, not at import) unless
 ``torch.cuda.is_available()``. Run on a machine with the card:
 ``python -m pytest -m gpu --noconftest tests/test_torch_kernels_gpu.py``
 (the shared conftest imports jax). Tolerances:
 K1 mean max|d|/max|ref| 1e-5, sigma rtol 1e-4; K2 and K3 1e-5 relative
-Frobenius."""
+Frobenius; K4 eigenvalues 1e-5 * |lambda_max| of the plain twin's,
+``V diag(lambda) V^T`` 1e-5 relative Frobenius of the input, and
+``max|V^T V - I|`` 1e-5."""
 
 import numpy as np
 import pytest
@@ -71,6 +73,30 @@ def test_block_reconstruct_matches_plain(cuda, d1, d2, b, s, f):
     assert _rel_fro(kernels.block_reconstruct(*args), kernels.block_reconstruct_plain(*args)) <= 1e-5
 
 
+@pytest.mark.parametrize("n,k", [(256, 30), (131, 11), (1, 25), (64, 64), (3, 1)])
+def test_jacobi_eigh_matches_plain(cuda, n, k):
+    from localmd_tpu_torch.ops import kernels, linalg
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    a = torch.randn(n, k, k + 3, generator=g, device=cuda)
+    sym = (a @ a.transpose(1, 2)).contiguous()
+    before = kernels.jacobi_eigh.launches
+    vals, vecs = kernels.jacobi_eigh(sym)
+    vals_p, _ = linalg.jacobi_eigh_plain(sym)
+    assert kernels.jacobi_eigh.launches == before + 1
+    lam = float(vals_p.abs().max())
+    assert float((vals - vals_p).abs().max()) <= 1e-5 * lam
+    assert bool((vals[:, 1:] <= vals[:, :-1]).all())
+    v64 = vecs.double()
+    recon = (v64 * vals.double()[:, None, :]) @ v64.transpose(1, 2)
+    assert _rel_fro(recon, sym) <= 1e-5
+    eye = torch.eye(k, device=cuda, dtype=torch.float64)
+    assert float((v64.transpose(1, 2) @ v64 - eye).abs().max()) <= 1e-5
+    # eigh_descending sends every small eigh on the card to K4
+    linalg.eigh_descending(sym)
+    assert kernels.jacobi_eigh.launches == before + 2
+
+
 def _smooth_movie(t, d1, d2, rank=4, seed=3, noise=1e-4):
     """Smooth low-rank movie (numpy only: the card's machine has no jax)."""
     rng = np.random.default_rng(seed)
@@ -85,9 +111,9 @@ def _smooth_movie(t, d1, d2, rank=4, seed=3, noise=1e-4):
     return (movie + noise * rng.standard_normal(movie.shape)).astype(np.float32)
 
 
-@pytest.mark.parametrize("case", ["order_c", "uint16_numpy", "tail_1100"])
+@pytest.mark.parametrize("case", ["order_c", "uint16_numpy", "tail_1100", "multi_window"])
 def test_pipeline_on_card_matches_cpu(cuda, case, monkeypatch):
-    """The whole port on the card (all three kernels, the cuSOLVER/cuBLAS
+    """The whole port on the card (all four kernels, the cuSOLVER/cuBLAS
     paths, numpy sources crossing to the device chunk by chunk) against the
     port on the CPU with the same injected draws: reconstruction 1e-4
     relative Frobenius, std image rtol 1e-4, equal final rank."""
@@ -95,6 +121,7 @@ def test_pipeline_on_card_matches_cpu(cuda, case, monkeypatch):
     from localmd_tpu_torch.utils.random import sketch_override
 
     t, order, frame_range = (1100, "F", 500) if case == "tail_1100" else (600, "F", 600)
+    window_chunks = 150 if case == "multi_window" else None
     if case == "order_c":
         order = "C"
     movie = _smooth_movie(t, 40, 36)
@@ -107,6 +134,7 @@ def test_pipeline_on_card_matches_cpu(cuda, case, monkeypatch):
             runs[dev] = port_pipeline.localmd_decomposition(
                 movie, (16, 16), frame_range=frame_range, order=order, max_components=6,
                 background_rank=2, temporal_avg_factor=5, seed=0, device=dev,
+                window_chunks=window_chunks,
             )
     frames = np.arange(t)
     ref = runs["cpu"].reconstruct_frames(frames)

@@ -46,7 +46,7 @@ def test_package_has_the_ported_modules():
         "pipeline.py", "pmd_array.py", "serialization.py",
     ]:
         assert mod in names, mod
-    for src in ("movie_stats.cu", "v_projection.cu", "block_reconstruct.cu"):
+    for src in ("movie_stats.cu", "v_projection.cu", "block_reconstruct.cu", "jacobi_eigh.cu"):
         assert os.path.exists(os.path.join(PKG, "csrc", src)), src
 
 
@@ -64,10 +64,37 @@ def test_kernel_build_targets_sm90a():
 
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags and "-O3" in flags
-    assert set(_build.SOURCES) == {"movie_stats.cu", "v_projection.cu", "block_reconstruct.cu"}
+    assert set(_build.SOURCES) == {
+        "movie_stats.cu", "v_projection.cu", "block_reconstruct.cu", "jacobi_eigh.cu",
+    }
 
 
-@pytest.mark.parametrize("call", ["movie_stats", "v_projection", "block_reconstruct"])
+def test_build_compiles_each_source_at_once_then_links(tmp_path, monkeypatch):
+    """One nvcc per source, all started before any is waited on, then one
+    link into the shared library (a stand-in nvcc records the calls)."""
+    from localmd_tpu_torch.ops import _build
+
+    log = tmp_path / "calls.txt"
+    fake = tmp_path / "nvcc"
+    fake.write_text(
+        "#!/bin/sh\n"
+        f'echo "$@" >> {log}\n'
+        'while [ "$#" -gt 0 ]; do if [ "$1" = "-o" ]; then touch "$2"; fi; shift; done\n'
+    )
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    path = _build.build()
+    calls = log.read_text().splitlines()
+    compiles = [c for c in calls if " -c " in f" {c} "]
+    assert len(compiles) == len(_build.SOURCES) == 4
+    assert all("arch=compute_90a,code=sm_90a" in c for c in compiles)
+    assert calls[-1].startswith("-shared -o ") and os.path.exists(path)
+    assert sorted(os.listdir(tmp_path / "build")) == [os.path.basename(path)]
+    assert _build.build() == path and _build.last_build["cached"]
+
+
+@pytest.mark.parametrize("call", ["movie_stats", "v_projection", "block_reconstruct", "jacobi_eigh"])
 def test_wrappers_raise_on_non_cpu_tensors_without_cuda(call):
     """A tensor off the CPU goes to the CUDA kernel or raises; the plain
     version is never taken for it (meta tensors stand in for a device
@@ -79,6 +106,8 @@ def test_wrappers_raise_on_non_cpu_tensors_without_cuda(call):
     with pytest.raises(ValueError, match="expected CPU or CUDA"):
         if call == "movie_stats":
             kernels.movie_stats(torch.empty(300, 64, **meta), 300)
+        elif call == "jacobi_eigh":
+            kernels.jacobi_eigh(torch.empty(4, 30, 30, **meta))
         elif call == "v_projection":
             kernels.v_projection(torch.empty(8, 16, **meta), torch.empty(16, 4, **meta),
                                  torch.empty(4, **meta))

@@ -3,10 +3,14 @@ same movie, with the same injected sketch and pinned thresholds: (a) order
 C, (b) a uint16 movie, (c) T = 1100, whose statistics pass ends in a
 76-frame tail below MIN_NOISE_FRAMES (mean only), (d) ``rank_prune`` with
 odd 15x15 blocks, the rank-prune matrix taken from the JAX key tree (the
-third split of ``PRNGKey(seed)``, pipeline.py:552-1288). Plus the state carried
-across: ``PMDArray.from_reference_state`` and .npz files in both directions.
-Tolerance: reconstruction 1e-4 relative Frobenius, std image rtol 1e-4,
-final rank equal; identical factors reconstruct to 1e-5."""
+third split of ``PRNGKey(seed)``, pipeline.py:552-1288), (e) the
+multi-window block stage (``window_chunks`` 100 of ``frame_range`` 400:
+four windows) in float32 and uint16, with the thresholds pinned to the JAX
+package's ``threshold_heuristic`` so that blocks do not fill in window 0.
+Plus the state carried across: ``PMDArray.from_reference_state`` and .npz
+files in both directions. Tolerance: reconstruction 1e-4 relative
+Frobenius, std image rtol 1e-4, ``pipeline_ranks`` and kept rank equal;
+identical factors reconstruct to 1e-5."""
 
 import numpy as np
 import pytest
@@ -22,12 +26,19 @@ CASES = {
     "tail_1100": dict(shape=(1100, 40, 36), dtype="float32", order="F", frame_range=500, blocks=(16, 16)),
     "rank_prune": dict(shape=(700, 60, 52), dtype="float32", order="F", frame_range=500,
                        blocks=(15, 15), rank_prune=True),
+    "multi_window_f32": dict(shape=(800, 48, 40), dtype="float32", order="F", frame_range=400,
+                             blocks=(16, 16), window_chunks=100, noise=0.3),
+    "multi_window_u16": dict(shape=(800, 48, 40), dtype="uint16", order="F", frame_range=400,
+                             blocks=(16, 16), window_chunks=100, noise=0.3),
 }
+MULTI_WINDOW = [name for name, case in CASES.items() if "window_chunks" in case]
 SETTINGS = dict(max_components=6, background_rank=2, temporal_avg_factor=5, seed=0)
 
 
 def _movie(case):
-    movie = make_low_rank_movie(4, case["shape"], rng=np.random.default_rng(3), noise=1e-4)
+    movie = make_low_rank_movie(
+        4, case["shape"], rng=np.random.default_rng(3), noise=case.get("noise", 1e-4)
+    )
     if case["dtype"] == "uint16":
         movie = np.clip(np.rint(movie * 2000.0 + 500.0), 0, 65535).astype(np.uint16)
     return movie
@@ -57,29 +68,50 @@ def _port_draws(case):
     return draw
 
 
-def _run_jax(movie, case, monkeypatch):
+def _options(case):
+    return dict(
+        frame_range=case["frame_range"], order=case["order"],
+        rank_prune=case.get("rank_prune", False), window_chunks=case.get("window_chunks"),
+        **SETTINGS,
+    )
+
+
+def _jax_thresholds(case):
+    """The JAX package's Monte-Carlo thresholds for the case's blocks and
+    window (its own key tree: the first split of PRNGKey(seed))."""
+    import jax
+
+    from localmd_tpu.engine import threshold_heuristic
+
+    _, sub = jax.random.split(jax.random.PRNGKey(SETTINGS["seed"]))
+    dims = (*case["blocks"], case["window_chunks"])
+    return tuple(float(x) for x in threshold_heuristic(dims, iters=250, key=sub))
+
+
+def _run_jax(movie, case, monkeypatch, thresholds=(1e9, 1e9)):
     import jax.numpy as jnp
 
     import localmd_tpu.pipeline as jax_pipeline
     from localmd_tpu.ops.linalg import sketch_override
 
-    monkeypatch.setattr(jax_pipeline, "threshold_heuristic", lambda *a, **k: (1e9, 1e9))
+    monkeypatch.setattr(jax_pipeline, "threshold_heuristic", lambda *a, **k: thresholds)
     with sketch_override(lambda shape: jnp.asarray(_sketch(shape))):
-        return jax_pipeline.localmd_decomposition(
-            movie, case["blocks"], frame_range=case["frame_range"], order=case["order"],
-            rank_prune=case.get("rank_prune", False), **SETTINGS
-        )
+        return jax_pipeline.localmd_decomposition(movie, case["blocks"], **_options(case))
 
 
-def _run_port(movie, case, monkeypatch):
+def _run_port(movie, case, monkeypatch, thresholds=(1e9, 1e9), residual_calls=None):
+    import localmd_tpu_torch.engine as port_engine
     import localmd_tpu_torch.pipeline as port_pipeline
     from localmd_tpu_torch.utils.random import sketch_override
 
-    monkeypatch.setattr(port_pipeline, "threshold_heuristic", lambda *a, **k: (1e9, 1e9))
+    monkeypatch.setattr(port_pipeline, "threshold_heuristic", lambda *a, **k: thresholds)
+    if residual_calls is not None:
+        residual = port_engine.single_residual_block_md_batched
+        monkeypatch.setattr(port_engine, "single_residual_block_md_batched",
+                            lambda *a, **k: residual_calls.append(1) or residual(*a, **k))
     with sketch_override(_port_draws(case)):
         return port_pipeline.localmd_decomposition(
-            movie, case["blocks"], frame_range=case["frame_range"], order=case["order"],
-            rank_prune=case.get("rank_prune", False), device="cpu", **SETTINGS
+            movie, case["blocks"], device="cpu", **_options(case)
         )
 
 
@@ -91,9 +123,13 @@ def runs():
     try:
         for name, case in CASES.items():
             movie = _movie(case)
-            jax_pmd = _run_jax(movie, case, mp)
-            port_pmd = _run_port(movie, case, mp)
+            thr = _jax_thresholds(case) if name in MULTI_WINDOW else (1e9, 1e9)
+            calls = []
+            jax_pmd = _run_jax(movie, case, mp, thr)
+            port_pmd = _run_port(movie, case, mp, thr, calls)
+            port_pmd.residual_calls = len(calls)
             out[name] = (movie, jax_pmd, port_pmd)
+            mp.undo()
     finally:
         mp.undo()
     return out
@@ -112,7 +148,21 @@ def test_port_matches_live_jax_pipeline(name, runs):
         atol=1e-5 * float(np.abs(jax_pmd.mean_img).max()),
     )
     assert port_pmd.rank == jax_pmd.rank
-    assert port_pmd.pipeline_ranks["blockwise"] == jax_pmd.pipeline_ranks["blockwise"]
+    assert port_pmd.pipeline_ranks == jax_pmd.pipeline_ranks
+
+
+@pytest.mark.parametrize("name", MULTI_WINDOW)
+def test_multi_window_runs_residual_windows(name, runs):
+    """The multi-window cases are not decided in window 0: residual windows
+    run (at least one), and the loop stops at the last window or once every
+    block is full."""
+    _, _, port_pmd = runs[name]
+    windows = port_pmd.pipeline_windows
+    assert windows["n_windows"] == 4
+    assert port_pmd.residual_calls >= 1
+    assert port_pmd.residual_calls == sum(r - 1 for r in windows["run_per_batch"])
+    if max(windows["run_per_batch"]) < windows["n_windows"]:     # stopped early
+        assert port_pmd.pipeline_ranks["blockwise"] == SETTINGS["max_components"] * 20
 
 
 @pytest.mark.parametrize("name", list(CASES))
@@ -183,8 +233,7 @@ def test_npz_round_trips_between_packages(runs, tmp_path):
 @pytest.mark.parametrize("kwargs", [
     dict(mesh=object()), dict(checkpoint_path="x"), dict(aot_warm=True),
     dict(profile_dir="x"), dict(spatial_denoiser=lambda x: x),
-    dict(temporal_denoiser=lambda x: x), dict(window_chunks=100),
-    dict(matmul_precision="bfloat16"),
+    dict(temporal_denoiser=lambda x: x), dict(matmul_precision="bfloat16"),
 ])
 def test_unsupported_options_raise(kwargs):
     from localmd_tpu_torch import localmd_decomposition

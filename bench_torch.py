@@ -17,7 +17,8 @@ calls, each timed on the host clock around work that ends in
 seconds (median and quartiles), Mpf/s at the median, per-stage medians of
 ``pipeline_timings``, peak allocated GiB, ``pipeline_ranks`` with the kept
 rank beside them, the windows each block batch ran (an early stop shows as
-fewer than ``n_windows``), and the card's name and power limit.
+fewer than ``n_windows``), each kernel's launches per warm call, and the
+card's name and power limit.
 ``--profile`` adds one warm call under ``torch.profiler``:
 device busy ms (union of kernel intervals), idle share, and the kernels
 with the most device time. ``--small-eigh cusolver`` sends the small
@@ -165,10 +166,13 @@ def profile_run(movie, settings: dict, top: int = 12) -> dict:
 def bench_cell(name: str, runs: int, with_profile: bool, card: str) -> dict:
     import torch
 
+    from localmd_tpu_torch.ops import kernels
+
     d1, d2, t, dtype, settings = CELLS[name]
     movie, _ = make_movie(dtype, d1, d2, t)
     pmd, cold, _ = timed_run(movie, **settings)
     walls, stages, peak = [], {}, 0.0
+    kernels.reset_launch_counts()
     for _ in range(runs):
         pmd, secs, peak_i = timed_run(movie, **settings)
         walls.append(secs)
@@ -183,6 +187,7 @@ def bench_cell(name: str, runs: int, with_profile: bool, card: str) -> dict:
         stage_median_s={k: float(np.median(v)) for k, v in stages.items()},
         peak_gib=peak, ranks=pmd.pipeline_ranks, kept_rank=pmd.rank,
         windows=pmd.pipeline_windows,
+        launches_per_call={k: n / runs for k, n in kernels.launch_counts().items()},
     )
     if with_profile:
         prof = profile_run(movie, settings)

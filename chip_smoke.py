@@ -7,9 +7,12 @@ Phases (each prints one progress line; any failure raises, exit code != 0):
 1. build: compile the four CUDA kernels from ``localmd_tpu_torch/csrc``
    (one nvcc per source, all at once).
 2. kernel vs plain: each kernel against its plain PyTorch version on the
-   card, at the paths' shapes plus edge cases, with CUDA-event times; K4
-   also against cuSOLVER (``torch.linalg.eigh`` in float64) and timed
-   beside it.
+   card, at the paths' shapes plus edge cases (offset uint16 inputs for the
+   3xTF32 kernels K1 and K2), with CUDA-event times, each beside its bound
+   on this card and, where one PyTorch call computes the same function,
+   that call's time (K2: ``torch.matmul``; K4: cuSOLVER's
+   ``torch.linalg.eigh``, timed in alternation with K4, and also its
+   float64 eigenvalues as K4's reference).
 3. golden: the port on the golden movie with the committed injected
    sketches and pinned thresholds, against tests/golden/reference_golden.npz
    (K4 on the path: every small eigh).
@@ -109,6 +112,31 @@ def check(ok: bool, what: str) -> None:
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+# Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet,
+# dense): fp32 on the CUDA cores, TF32 on the tensor cores, HBM3.
+PEAK_FP32 = 67e12
+PEAK_TF32 = 495e12
+PEAK_BYTES = 3.35e12
+
+
+def bound(flops: float, nbytes: float, tensor_3xtf32: bool) -> dict:
+    """The least time for ``flops`` fp32-accurate operations over ``nbytes``
+    moved (inputs read once, outputs written once): on the tensor cores as
+    the three TF32 products of 3xTF32, or on the CUDA cores in fp32."""
+    fp32_ms = flops / PEAK_FP32 * 1e3
+    x3_ms = 3 * flops / PEAK_TF32 * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    ops_ms = x3_ms if tensor_3xtf32 else fp32_ms
+    return dict(fp32_ms=fp32_ms, x3_ms=x3_ms, bytes_ms=bytes_ms, bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def log_bound(label: str, ms: float, b: dict) -> None:
+    log(f"  {label} bound: fp32 {b['fp32_ms']:.3f} ms, 3xTF32 {b['x3_ms']:.3f} ms, "
+        f"bytes {b['bytes_ms']:.3f} ms -> {b['bound_ms']:.3f} ms ({b['bound_by']}); "
+        f"kernel {ms:.3f} ms = {b['bound_ms'] / ms:.1%} of the bound")
+
+
 def phase_kernels(results: dict) -> None:
     import torch
 
@@ -118,13 +146,18 @@ def phase_kernels(results: dict) -> None:
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
 
-    # K1: mean max|d| / max|ref| <= 1e-5; sigma max relative error <= 1e-4
+    # K1: mean max|d| / max|ref| <= 1e-5; sigma max relative error <= 1e-4.
+    # A baseline of 1000 under small noise is the input a careless tf32
+    # split fails on.
     t, p = 1024, 262144
     chunk_f32 = torch.randn(t, p, generator=g, device=dev) * 2.3 + 1.0
     chunk_u16 = (torch.randn(t, p, generator=g, device=dev) * 40 + 1000).clamp(0, 65535).to(torch.uint16)
+    chunk_u16_3 = (torch.randn(t, p, generator=g, device=dev) * 3 + 1000).clamp(0, 65535).to(torch.uint16)
     cases = [
         ("f32 nperseg=256", chunk_f32, True, 256),
         ("uint16 nperseg=256", chunk_u16, True, 256),
+        ("uint16 clip(3 N + 1000) nperseg=256", chunk_u16_3, True, 256),
+        ("uint16 clip(3 N + 1000) reference nperseg=T=1024", chunk_u16_3, True, 1024),
         ("f32 nperseg=500", chunk_f32, True, 500),
         ("f32 reference nperseg=T=1024", chunk_f32, True, 1024),
         ("f32 mean only", chunk_f32, False, 256),
@@ -143,29 +176,35 @@ def phase_kernels(results: dict) -> None:
         check(sig_err <= 1e-4 if noise else sig_err == 0.0, f"K1 {name}: sigma error {sig_err}")
         if first_err is None:
             first_err = max(max_abs(m_k, m_p), max_abs(s_k, s_p))
-    ms = cuda_ms(lambda: kernels.movie_stats(chunk_f32, 2048))
-    plain_ms = cuda_ms(lambda: kernels.movie_stats_plain(chunk_f32, 2048))
-    log(f"  K1 (1024, 262144) f32: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    results["movie_stats"] = dict(max_abs_err=first_err, ms=ms, plain_ms=plain_ms)
-    del chunk_u16
+    del chunk_u16, chunk_u16_3
+    ms = cuda_ms(lambda: kernels.movie_stats(chunk_f32, 2048), reps=10)
+    plain_ms = cuda_ms(lambda: kernels.movie_stats_plain(chunk_f32, 2048), reps=10)
+    n_segs = (t - 256) // 128 + 1
+    b = bound(2.0 * 128 * 256 * n_segs * p, t * p * 4 + 2 * p * 4, tensor_3xtf32=True)
+    log(f"  K1 (1024, 262144) f32 nperseg 256: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    log_bound("K1 (1024, 262144) f32", ms, b)
+    results["movie_stats"] = dict(max_abs_err=first_err, ms=ms, plain_ms=plain_ms,
+                                  bound_ms=b["bound_ms"], bound_by=b["bound_by"], library_ms=None)
 
-    # K2: relative Frobenius error <= 1e-5. Both sides sum d = 262144 fp32
-    # products in different orders; each split of K2 sums <= 4096 terms.
+    # K2: relative Frobenius error <= 1e-5. Both sides sum d fp32 products
+    # in different orders; each split of K2 sums <= 4096 pixels.
     d, r = 262144, 300
     a = torch.randn(d, r, generator=g, device=dev) * 0.01
     c = torch.randn(r, generator=g, device=dev)
     raw_u16 = (torch.randn(t, d, generator=g, device=dev) * 40 + 1000).clamp(0, 65535).to(torch.uint16)
+    a465 = torch.randn(d, 465, generator=g, device=dev) * 0.01
+    c465 = torch.randn(465, generator=g, device=dev)
     cases = [("f32 (1024, 262144) r'=300", chunk_f32, a, c),
-             ("uint16 (1024, 262144) r'=300", raw_u16, a, c)]
+             ("uint16 (1024, 262144) r'=300", raw_u16, a, c),
+             ("f32 (1024, 262144) r'=465", chunk_f32, a465, c465)]
     a_big = torch.randn(16384, 2560, generator=g, device=dev) * 0.02
     c_big = torch.randn(2560, generator=g, device=dev)
     cases.append(("f32 (1024, 16384) r'=2560", chunk_f32[:, :16384].contiguous(), a_big, c_big))
-    cases.append(("uint16 (100, 701) r'=37 (scalar loads)", raw_u16[:100, :701].contiguous(),
+    cases.append(("uint16 (100, 701) r'=37 (unaligned rows)", raw_u16[:100, :701].contiguous(),
                   a[:701, :37].contiguous(), c[:37].contiguous()))
     cases.append(("f32 (300, 4096) r'=64, base off 16-byte alignment",
                   chunk_f32.reshape(-1)[1 : 1 + 300 * 4096].view(300, 4096),
                   a[:4096, :64].contiguous(), c[:64].contiguous()))
-    first_err = None
     for name, x, aa, cc in cases:
         out_k = kernels.v_projection(x, aa, cc)
         out_p = kernels.v_projection_plain(x, aa, cc)
@@ -173,12 +212,22 @@ def phase_kernels(results: dict) -> None:
         err = rel_fro(out_k, out_p)
         log(f"  K2 v_projection {name}: rel Frobenius err {err:.3e}")
         check(err <= 1e-5, f"K2 {name}: error {err}")
-        if first_err is None:
-            first_err = max_abs(out_k, out_p)
-    ms = cuda_ms(lambda: kernels.v_projection(chunk_f32, a, c))
-    plain_ms = cuda_ms(lambda: kernels.v_projection_plain(chunk_f32, a, c))
-    log(f"  K2 (1024, 262144) f32 r'=300: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    del raw_u16, chunk_f32, a, a_big
+    del raw_u16, chunk_f32, a, a_big, a465
+    # the 1024^2 uint16 cell's call: 256-frame chunks of 1048576 pixels, r' = 168
+    raw = (torch.randn(256, 1 << 20, generator=g, device=dev) * 40 + 1000).clamp(0, 65535).to(torch.uint16)
+    a = torch.randn(1 << 20, 168, generator=g, device=dev) * 0.01
+    c = torch.randn(168, generator=g, device=dev)
+    err = rel_fro(kernels.v_projection(raw, a, c), kernels.v_projection_plain(raw, a, c))
+    log(f"  K2 v_projection uint16 (256, 1048576) r'=168 (1024^2 uint16 call): rel Frobenius err {err:.3e}")
+    check(err <= 1e-5, f"K2 (256, 1048576): error {err}")
+    prepared = kernels.prepare_projector(a)
+    ms = cuda_ms(lambda: kernels.v_projection(raw, a, c, prepared), reps=10)
+    lib_ms = cuda_ms(lambda: torch.matmul(raw.float(), a), reps=10)
+    log(f"  K2 (256, 1048576) uint16 r'=168, projector prepared once: kernel {ms:.3f} ms, "
+        f"torch.matmul(raw.float(), A) {lib_ms:.3f} ms")
+    log_bound("K2 (256, 1048576) uint16", ms,
+              bound(2.0 * 256 * (1 << 20) * 168, 256 * (1 << 20) * 2 + (1 << 20) * 168 * 4 + 168 * 256 * 4, True))
+    del raw, a, prepared
     # the main path's call: the whole 2048-frame movie as one chunk, r' = 336
     raw = torch.randn(2048, d, generator=g, device=dev)
     a = torch.randn(d, 336, generator=g, device=dev) * 0.01
@@ -190,27 +239,34 @@ def phase_kernels(results: dict) -> None:
     check(err <= 1e-5, f"K2 (2048, 262144): error {err}")
     first_err = max_abs(out_k, out_p)
     del out_k, out_p
-    ms = cuda_ms(lambda: kernels.v_projection(raw, a, c))
-    plain_ms = cuda_ms(lambda: kernels.v_projection_plain(raw, a, c))
+    ms = cuda_ms(lambda: kernels.v_projection(raw, a, c), reps=10)
+    prepared = kernels.prepare_projector(a)
+    ms_k = cuda_ms(lambda: kernels.v_projection(raw, a, c, prepared), reps=10)
+    plain_ms = cuda_ms(lambda: kernels.v_projection_plain(raw, a, c), reps=10)
+    lib_ms = cuda_ms(lambda: torch.matmul(raw.float(), a), reps=10)
     log(f"  K2 (2048, 262144) f32 r'=336 (main path): rel Frobenius err {err:.3e}; "
-        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    results["v_projection"] = dict(max_abs_err=first_err, ms=ms, plain_ms=plain_ms)
-    del raw, a
+        f"kernel {ms:.3f} ms with the projector's preparation ({ms_k:.3f} ms without), plain {plain_ms:.3f} ms, "
+        f"torch.matmul {lib_ms:.3f} ms")
+    b = bound(2.0 * 2048 * d * 336, 2048 * d * 4 + d * 336 * 4 + 336 * 2048 * 4, tensor_3xtf32=True)
+    log_bound("K2 (2048, 262144) f32 r'=336", ms, b)
+    results["v_projection"] = dict(max_abs_err=first_err, ms=ms, plain_ms=plain_ms,
+                                   bound_ms=b["bound_ms"], bound_by=b["bound_by"], library_ms=lib_ms)
+    del raw, a, prepared
 
     # K3: relative Frobenius error <= 1e-5
     first = None
-    for name, (d1, d2, b, s_slots, f) in [
+    for name, (d1, d2, blk, s_slots, f) in [
         ("961 blocks 32x32 on 512^2, S=20, f=512", (512, 512, 32, 20, 512)),
         ("60x52 blocks 20 (snapped tail)", (60, 52, 20, 3, 40)),
         ("60x52 blocks 15 (odd)", (60, 52, 15, 5, 70)),
     ]:
-        grid = BlockGrid(d1, d2, (b, b))
+        grid = BlockGrid(d1, d2, (blk, blk))
         n = grid.n_blocks
-        panels = torch.randn(n, b * b, s_slots, generator=g, device=dev)
+        panels = torch.randn(n, blk * blk, s_slots, generator=g, device=dev)
         temporal = torch.randn(n, s_slots, f, generator=g, device=dev)
         starts = torch.as_tensor(grid.starts, device=dev)
         cosets = tuple(ids for ids, _ in grid.cosets())
-        args = (panels, temporal, starts, cosets, (d1, d2), (b, b))
+        args = (panels, temporal, starts, cosets, (d1, d2), (blk, blk))
         out_k = kernels.block_reconstruct(*args)
         out_p = kernels.block_reconstruct_plain(*args)
         torch.cuda.synchronize()
@@ -218,12 +274,15 @@ def phase_kernels(results: dict) -> None:
         log(f"  K3 block_reconstruct {name} ({len(cosets)} cosets): rel Frobenius err {err:.3e}")
         check(err <= 1e-5, f"K3 {name}: error {err}")
         if first is None:
-            first = (args, max_abs(out_k, out_p))
-    args, err0 = first
+            first = (args, max_abs(out_k, out_p), (n, blk * blk, s_slots, f, d1 * d2))
+    args, err0, (n, pix, s_slots, f, canvas) = first
     ms = cuda_ms(lambda: kernels.block_reconstruct(*args))
     plain_ms = cuda_ms(lambda: kernels.block_reconstruct_plain(*args))
+    b = bound(2.0 * n * pix * s_slots * f, 4 * (n * pix * s_slots + n * s_slots * f + canvas * f), False)
     log(f"  K3 961 blocks f=512: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    results["block_reconstruct"] = dict(max_abs_err=err0, ms=ms, plain_ms=plain_ms)
+    log_bound("K3 961 blocks f=512", ms, b)
+    results["block_reconstruct"] = dict(max_abs_err=err0, ms=ms, plain_ms=plain_ms,
+                                        bound_ms=b["bound_ms"], bound_by=b["bound_by"], library_ms=None)
 
     # K4: eigenvalues within 1e-5 |lambda_max| of the plain twin's and of
     # torch.linalg.eigh's (cuSOLVER) on the same input in float64; V diag(lambda)
@@ -256,12 +315,25 @@ def phase_kernels(results: dict) -> None:
             if first is None:
                 first = (sym, max_abs(vals_k, vals_p))
     sym, err0 = first
-    ms = cuda_ms(lambda: kernels.jacobi_eigh(sym))
+    # K4 and cuSOLVER in alternation, one call each a round, 30 rounds
+    k4_times, cus_times = [], []
+    cuda_ms(lambda: torch.linalg.eigh(sym))
+    for _ in range(30):
+        k4_times.append(cuda_ms(lambda: kernels.jacobi_eigh(sym), reps=1))
+        cus_times.append(cuda_ms(lambda: torch.linalg.eigh(sym), reps=1))
+    ms, cusolver_ms = float(np.median(k4_times)), float(np.median(cus_times))
     plain_ms = cuda_ms(lambda: linalg.jacobi_eigh_plain(sym))
-    cusolver_ms = cuda_ms(lambda: torch.linalg.eigh(sym))
-    log(f"  K4 (256, 30, 30): kernel {ms:.3f} ms, plain twin {plain_ms:.3f} ms, "
-        f"cuSOLVER (torch.linalg.eigh) {cusolver_ms:.3f} ms")
-    results["jacobi_eigh"] = dict(max_abs_err=err0, ms=ms, plain_ms=plain_ms)
+    q = lambda xs: "-".join(f"{v:.3f}" for v in np.percentile(xs, [25, 75]))
+    log(f"  K4 (256, 30, 30), 30 alternating rounds: kernel median {ms:.3f} ms (quartiles {q(k4_times)}), "
+        f"cuSOLVER (torch.linalg.eigh) median {cusolver_ms:.3f} ms (quartiles {q(cus_times)}); "
+        f"plain twin {plain_ms:.3f} ms")
+    # a cyclic-Jacobi rotation updates two rows and two columns of A and two
+    # columns of V: ~18 k flops; sweeps * k (k - 1) / 2 rotations a matrix
+    n, k = sym.shape[0], sym.shape[1]
+    b = bound(n * linalg.jacobi_sweeps(k) * k * (k - 1) / 2 * 18 * k, 4 * n * (2 * k * k + k), False)
+    log_bound("K4 (256, 30, 30)", ms, b)
+    results["jacobi_eigh"] = dict(max_abs_err=err0, ms=ms, plain_ms=plain_ms,
+                                  bound_ms=b["bound_ms"], bound_by=b["bound_by"], library_ms=cusolver_ms)
 
 
 def k4_matrices(kind: str, n: int, k: int, g):
@@ -464,7 +536,9 @@ def main(argv=None) -> int:
     _build.library()
     path = _build.last_build["path"]
     log(f"phase 1 build: {time.perf_counter() - t0:.2f} s ({path}, "
-        f"nvcc {_build.last_build.get('seconds', 0.0):.2f} s)")
+        f"nvcc {_build.last_build.get('seconds', 0.0):.2f} s; per source, in parallel: "
+        + ", ".join(f"{name} {secs:.2f} s"
+                    for name, secs in _build.last_build.get("source_seconds", {}).items()) + ")")
     for line in _build.last_build.get("log", "").splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")

@@ -1,159 +1,279 @@
-// K2: streamed temporal regression, out = (raw @ A - c)^T.
+// K2: streamed temporal regression, out = (raw @ A - c)^T, on the tensor
+// cores in 3xTF32.
 //
 // Replaces: localmd_tpu/ops/pallas_kernels.py, fused_v_projection (body
 // _vproj_kernel, tile choice _vp_pick_tiles). raw is one (t, d) frame chunk
 // in its native dtype (float32 or uint16) with C-order pixels, A the (d, r')
 // folded projector, c the (r',) constant; out is (r', t) float32.
 //
-// What bounds it on the card: 2 * t * d * r' fp32 flops (1.6e11 at
-// t = 1024, d = 512^2, r' = 300) over t * d raw values plus d * r' projector
-// values; the products stay IEEE fp32 (the JAX package pins
-// Precision.HIGHEST and Hopper's tensor cores have no fp32 mode), so the
-// CUDA cores bound it. The second bound is accuracy: a sum over d = 262144
-// products accumulated sequentially in fp32 drifts by ~eps * sqrt(d), so
-// no CTA sums more than a 4096-pixel split (~eps * 64 relative).
+// Bounds on an H100 SXM: 2 t d r' flops (3.6e11 for the main path's
+// (2048, 262144) x (262144, 336) call) take 5.4 ms on the CUDA cores at
+// 67 TFLOP/s fp32, 2.2 ms as the three TF32 products of 3xTF32 at
+// 495 TFLOP/s; the bytes (raw once, A once, out once: 2.5 GB) take 0.75 ms.
+// The design targets the 3xTF32 bound. The JAX package pins
+// Precision.HIGHEST and the port holds K2 to 1e-5 of fp32, which one TF32
+// pass misses by 20x on offset data; 3xTF32 (tf32_common.cuh) meets it.
 //
-// Design: a register-tiled SGEMM. Each CTA owns a 128 (t) x 128 (r')
-// output tile; each of its 256 threads an 8 x 8 register tile. The k axis
-// (pixels) streams through shared memory in 16-deep slabs, double-buffered:
-// the next slab's global loads are in flight while the current one is
-// multiplied, one barrier per slab. uint16 converts to f32 as it loads, so
-// no f32 copy of the chunk exists. The output grid is tiled over r' as
-// well, so any rank fits (the TPU version fell back to XLA when r'
-// outgrew VMEM; this has no fallback). The d axis is split across CTAs
-// (split-K) to fill the SMs and to bound each CTA's sum; two CTAs fit on
-// an SM (<= 128 registers a thread). A second kernel adds the splits in a
-// fixed order, subtracts c and stores the transpose. No atomics: results
-// are deterministic.
+// Design. A CTA owns a 128 (t) x BN (r') output tile, BN = 16 NT with NT in
+// 1..11 chosen by the wrapper so that r' splits into near-equal tiles of
+// at most 176 columns; its two warpgroups each multiply 64 rows with
+// wgmma.mma_async m64nBNk8 (wgmma_tf32.cuh): A from registers, B (hi or
+// lo) from shared memory through a descriptor. The pixel axis streams in
+// 32-deep slabs through a 3-stage cp.async ring, one barrier a slab. raw
+// reaches shared memory in its native dtype and is converted and split in
+// registers on its way into the A fragments: no f32 copy of the chunk
+// exists. The moving of slabs into shared memory bounds this kernel as
+// much as its products do (on the card, without its MMAs it still takes
+// 60% of its time), and the projector is the larger stream: each t tile
+// reads all of it. So the wrapper stores the projector once per call as
+// one float32 array, transposed to K-major (r'_pad, d_pad) with each 8
+// pixels in the order the A fragments take them (lmd_projector_t below),
+// and each slab is split into hi and lo in shared memory (double-buffered)
+// after the previous slab's products; a pre-split projector would double
+// that stream. Wide r' tiles cut the re-reads of raw. Each k8 step issues
+// lo*hi, hi*lo, hi*hi. The tensor cores truncate each product's fp32
+// result, so a long chain drifts toward zero (2-3e-5 relative over 4096
+// pixels, on the card): each slab's 12-wgmma chain starts from zero and is
+// added into the running sum with ordinary fp32 adds, which round to
+// nearest. That doubles the accumulator registers, which is what caps BN
+// at 176 (222 registers a thread). The pixel axis is split across CTAs
+// (split-K, at most 4096 pixels summed per CTA); a second kernel adds the
+// splits in a fixed order, subtracts c and stores the transpose. No
+// atomics: results are deterministic. Rows whose pixels are not 16-byte
+// aligned (d not a multiple of 4 floats / 8 uint16, or an offset base)
+// load through registers instead of cp.async.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "tf32_common.cuh"
+#include "wgmma_tf32.cuh"
 
 namespace {
 
-constexpr int BM = 128;  // t rows per CTA
-constexpr int BN = 128;  // r' columns per CTA
-constexpr int BK = 16;   // k slab
+constexpr int BM = 128;     // t rows per CTA
+constexpr int BK = 32;      // pixels per slab
+constexpr int STAGES = 3;
 constexpr int THREADS = 256;
 
-// four consecutive raw values along a row; vec_ok means all four are in
-// range and 4-element aligned
-__device__ __forceinline__ void load4(const float* p, bool vec_ok, int valid, float out[4]) {
-  if (vec_ok) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-  } else {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) out[q] = q < valid ? p[q] : 0.0f;
-  }
-}
-
-__device__ __forceinline__ void load4(const uint16_t* p, bool vec_ok, int valid, float out[4]) {
-  if (vec_ok) {
-    const uint2 v = *reinterpret_cast<const uint2*>(p);
-    out[0] = static_cast<float>(v.x & 0xffffu);
-    out[1] = static_cast<float>(v.x >> 16);
-    out[2] = static_cast<float>(v.y & 0xffffu);
-    out[3] = static_cast<float>(v.y >> 16);
-  } else {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) out[q] = q < valid ? static_cast<float>(p[q]) : 0.0f;
-  }
-}
-
 template <typename T>
-__global__ void __launch_bounds__(THREADS, 2)
-vproj_partial_kernel(const T* __restrict__ raw, int t_len, int d,
-                     const float* __restrict__ a, int r, int k_chunk,
-                     float* __restrict__ ws) {
-  __shared__ __align__(16) float as[2][BK][BM];
-  __shared__ __align__(16) float bs[2][BK][BN];
+struct RawTile;
+
+// float32 rows: 32 floats = 8 chunks of 4, swizzled like the B tiles
+template <>
+struct RawTile<float> {
+  static constexpr int kChunkElems = 4;
+  static constexpr int kChunks = BK / kChunkElems;   // 8 per row
+  static constexpr int kBytes = BM * BK * 4;
+  __device__ static int chunk_offset(int m, int c) {  // in elements
+    return m * BK + lmd::swz_chunk(m, c) * 4;
+  }
+  // the pair (samples 2t, 2t + 1 of k8 step s) of row m
+  __device__ static void pair(const float* tile, int m, int s, int t, float& x0, float& x1) {
+    const float2 v = *reinterpret_cast<const float2*>(tile + lmd::swz_pair(m, s, t));
+    x0 = v.x;
+    x1 = v.y;
+  }
+};
+
+// uint16 rows: 32 values = 4 chunks of 8 (one k8 step each), group s of row
+// m at chunk s ^ ((m >> 1) & 3)
+template <>
+struct RawTile<uint16_t> {
+  static constexpr int kChunkElems = 8;
+  static constexpr int kChunks = BK / kChunkElems;   // 4 per row
+  static constexpr int kBytes = BM * BK * 2;
+  __device__ static int chunk_offset(int m, int c) {
+    return m * BK + ((c ^ (m >> 1)) & 3) * 8;
+  }
+  __device__ static void pair(const uint16_t* tile, int m, int s, int t, float& x0, float& x1) {
+    const uint32_t v = *reinterpret_cast<const uint32_t*>(
+        tile + m * BK + ((s ^ (m >> 1)) & 3) * 8 + 2 * t);
+    x0 = lmd::u16_to_f32(v & 0xffffu);
+    x1 = lmd::u16_to_f32(v >> 16);
+  }
+};
+
+template <typename T, int BN>
+__global__ void __launch_bounds__(THREADS, 1)
+vproj_wgmma_kernel(const T* __restrict__ raw, int t_len, int d, bool vec_ok,
+                   const float* __restrict__ bt, int d_pad, int r, int k_chunk,
+                   float* __restrict__ ws) {
+  constexpr int ND = BN / 2;          // accumulator registers a thread
+  constexpr int A_BYTES = RawTile<T>::kBytes;
+  constexpr int B_FLOATS = BN * BK;   // one slab of the projector
+  constexpr int STAGE_BYTES = A_BYTES + B_FLOATS * 4;
+  extern __shared__ __align__(128) unsigned char smem[];
+  // after the ring: hi and lo of two slabs, [slab parity][hi, lo]
+  float* split_buf = reinterpret_cast<float*>(smem + STAGES * STAGE_BYTES);
 
   const int tid = threadIdx.x;
-  const int tx = tid % 16;  // columns tx*4 + {0..3} and 64 + tx*4 + {0..3}
-  const int ty = tid / 16;  // rows    ty*4 + {0..3} and 64 + ty*4 + {0..3}
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const int wg = warp >> 2;  // warpgroup: rows wg*64 .. +63 of the CTA tile
+  const int wl = warp & 3;   // its warp: rows wg*64 + wl*16 + {g, g + 8}
   const int n0 = blockIdx.x * BN;
   const int m0 = blockIdx.y * BM;
   const long long k_begin = static_cast<long long>(blockIdx.z) * k_chunk;
   const long long k_end = k_begin + k_chunk < d ? k_begin + k_chunk : d;
   const int n_slabs = k_begin < k_end ? static_cast<int>((k_end - k_begin + BK - 1) / BK) : 0;
 
-  // global-load mapping: raw slab = 128 rows x 16 k (8 per thread, along
-  // k); projector slab = 16 k x 128 columns (8 per thread, along r')
-  const int a_row = tid >> 1;
-  const int a_k = (tid & 1) * 8;
-  const int b_k = tid >> 4;
-  const int b_n = (tid & 15) * 8;
-  const bool row_ok = m0 + a_row < t_len;
-  // vector loads need 4-element-aligned rows and base pointers
-  const bool d_vec = (d % 4) == 0 &&
-                     (reinterpret_cast<uintptr_t>(raw) % (4 * sizeof(T))) == 0;
-  const bool r_vec = (r % 4) == 0 && (reinterpret_cast<uintptr_t>(a) % 16) == 0;
+  auto stage_a = [&](int st) { return reinterpret_cast<T*>(smem + st * STAGE_BYTES); };
+  auto stage_b = [&](int st) {
+    return reinterpret_cast<float*>(smem + st * STAGE_BYTES + A_BYTES);
+  };
+  auto hi_buf = [&](int slab) { return split_buf + (slab & 1) * 2 * B_FLOATS; };
+  auto lo_buf = [&](int slab) { return hi_buf(slab) + B_FLOATS; };
 
-  float pa[8], pb[8];
-  auto load_slab = [&](long long k0) {
-    const long long kr = k0 + b_k;
+  // one slab: raw rows m0.. (native dtype) and BN rows of the projector;
+  // the projector as core matrices: chunk c (4 k) of row n at
+  // ((n / 8) * 8 + c) * 128 B + (n % 8) * 16 B
+  auto load_slab = [&](int st, int slab) {
+    const long long k0 = k_begin + static_cast<long long>(slab) * BK;
+    T* as = stage_a(st);
+    constexpr int CE = RawTile<T>::kChunkElems;
+    constexpr int A_CHUNKS = BM * RawTile<T>::kChunks;
+    for (int i = tid; i < A_CHUNKS; i += THREADS) {
+      const int m = i / RawTile<T>::kChunks;
+      const int c = i % RawTile<T>::kChunks;
+      const long long k = k0 + c * CE;
+      T* dst = as + RawTile<T>::chunk_offset(m, c);
+      const bool row_in = m0 + m < t_len;
+      const T* src = raw + static_cast<long long>(m0 + m) * d + k;
+      if (vec_ok) {
+        const bool in = row_in && k < k_end;
+        lmd::cp_async16(dst, in ? src : raw, in);
+      } else {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const long long col = k0 + a_k + 4 * h;
-      const long long left = k_end - col;
-      const int a_valid = row_ok ? static_cast<int>(left < 4 ? (left > 0 ? left : 0) : 4) : 0;
-      const T* pr = raw + static_cast<long long>(m0 + a_row) * d + col;
-      load4(a_valid > 0 ? pr : raw, d_vec && a_valid == 4, a_valid, pa + 4 * h);
-      const int nn = n0 + b_n + 4 * h;
-      const int b_valid = kr < k_end ? (r - nn < 4 ? (r - nn > 0 ? r - nn : 0) : 4) : 0;
-      const float* pp = a + (kr < k_end ? kr : 0) * r + nn;
-      load4(b_valid > 0 ? pp : a, r_vec && b_valid == 4, b_valid, pb + 4 * h);
+        for (int e = 0; e < CE; ++e) {
+          dst[e] = (row_in && k + e < k_end) ? src[e] : T(0);
+        }
+      }
+    }
+    float* bs = stage_b(st);
+    for (int i = tid; i < BN * 8; i += THREADS) {
+      const int n = i >> 3;
+      const int c = i & 7;
+      lmd::cp_async16(bs + ((n >> 3) * 8 + c) * 32 + (n & 7) * 4,
+                      bt + static_cast<long long>(n0 + n) * d_pad + k0 + c * 4, true);
     }
   };
-  auto store_slab = [&](int buf) {
-#pragma unroll
-    for (int q = 0; q < 8; ++q) as[buf][a_k + q][a_row] = pa[q];
-    *reinterpret_cast<float4*>(&bs[buf][b_k][b_n]) = make_float4(pb[0], pb[1], pb[2], pb[3]);
-    *reinterpret_cast<float4*>(&bs[buf][b_k][b_n + 4]) = make_float4(pb[4], pb[5], pb[6], pb[7]);
+  // the projector slab in stage st into hi and lo (same layout), for wgmma
+  auto split_slab = [&](int st, int slab) {
+    const float4* src = reinterpret_cast<const float4*>(stage_b(st));
+    float4* hi = reinterpret_cast<float4*>(hi_buf(slab));
+    float4* lo = reinterpret_cast<float4*>(lo_buf(slab));
+    for (int i = tid; i < B_FLOATS / 4; i += THREADS) {
+      const float4 v = src[i];
+      uint32_t h[4], l[4];
+      lmd::split_tf32(v.x, h[0], l[0]);
+      lmd::split_tf32(v.y, h[1], l[1]);
+      lmd::split_tf32(v.z, h[2], l[2]);
+      lmd::split_tf32(v.w, h[3], l[3]);
+      hi[i] = make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]), __uint_as_float(h[2]),
+                          __uint_as_float(h[3]));
+      lo[i] = make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]), __uint_as_float(l[2]),
+                          __uint_as_float(l[3]));
+    }
   };
 
-  float acc[8][8];
+  // part: this slab's sums, a wgmma chain of 12 started from zero; acc: the
+  // split's sum, fp32 adds rounded to nearest (the tensor cores truncate
+  // each product's fp32 result, so one chain over 4096 pixels would drift
+  // by 2-3e-5)
+  float acc[ND], part[ND];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  for (int i = 0; i < ND; ++i) acc[i] = part[i] = 0.0f;
 
-  if (n_slabs > 0) {
-    load_slab(k_begin);
-    store_slab(0);
+  // the A fragments of slab i's four k8 steps: rows g and g + 8 of this
+  // warp's 16, samples 2t and 2t + 1 of the step (logical k = t and t + 4;
+  // the wrapper stores the projector's k in the same order)
+  uint32_t ahi[BK / 8][4], alo[BK / 8][4];
+  auto prepare = [&](int i) {
+    const T* as = stage_a(i % STAGES);
+    const int m = wg * 64 + wl * 16 + g;
+#pragma unroll
+    for (int s = 0; s < BK / 8; ++s) {
+      float x0, x1, y0, y1;
+      RawTile<T>::pair(as, m, s, tq, x0, x1);
+      RawTile<T>::pair(as, m + 8, s, tq, y0, y1);
+      lmd::split_tf32(x0, ahi[s][0], alo[s][0]);
+      lmd::split_tf32(y0, ahi[s][1], alo[s][1]);
+      lmd::split_tf32(x1, ahi[s][2], alo[s][2]);
+      lmd::split_tf32(y1, ahi[s][3], alo[s][3]);
+    }
+  };
+
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < n_slabs) load_slab(st, st);
+    lmd::cp_async_commit();
   }
+  lmd::cp_async_wait<STAGES - 2>();
   __syncthreads();
-  for (int it = 0; it < n_slabs; ++it) {
-    const int buf = it & 1;
-    if (it + 1 < n_slabs) load_slab(k_begin + static_cast<long long>(it + 1) * BK);
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&as[buf][kk][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&as[buf][kk][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&bs[buf][kk][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&bs[buf][kk][64 + tx * 4]);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    // buf ^ 1 was last read before the previous barrier
-    if (it + 1 < n_slabs) store_slab(buf ^ 1);
-    __syncthreads();
+  if (n_slabs > 0) {
+    split_slab(0, 0);
+    prepare(0);
   }
 
+  for (int it = 0; it < n_slabs; ++it) {
+    // slab it + 1 has landed; slab it's hi/lo and A fragments are made;
+    // iteration it - 1 is done with its stage and with the hi/lo buffers
+    // of parity it + 1
+    lmd::cp_async_wait<STAGES - 3>();
+    lmd::fence_proxy_async_shared();
+    __syncthreads();
+    if (it + STAGES - 1 < n_slabs) load_slab((it + STAGES - 1) % STAGES, it + STAGES - 1);
+    lmd::cp_async_commit();
+
+#pragma unroll
+    for (int i = 0; i < ND; ++i) lmd::fence_operand(part[i]);
+    lmd::wgmma_fence();
+    const float* bh = hi_buf(it);
+    const float* bl = lo_buf(it);
+#pragma unroll
+    for (int s = 0; s < BK / 8; ++s) {
+      // k8 step s: core matrices 2s and 2s + 1 along K
+      const uint64_t dh = lmd::smem_desc(bh + 2 * s * 32, 128, 1024);
+      const uint64_t dl = lmd::smem_desc(bl + 2 * s * 32, 128, 1024);
+      lmd::Wgmma<BN>::run(part, alo[s], dh, s > 0 ? 1 : 0);
+      lmd::Wgmma<BN>::run(part, ahi[s], dl, 1);
+      lmd::Wgmma<BN>::run(part, ahi[s], dh, 1);
+    }
+    lmd::wgmma_commit();
+    lmd::wgmma_wait_all();
+#pragma unroll
+    for (int s = 0; s < BK / 8; ++s)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        lmd::fence_operand(ahi[s][q]);
+        lmd::fence_operand(alo[s][q]);
+      }
+#pragma unroll
+    for (int i = 0; i < ND; ++i) {
+      lmd::fence_operand(part[i]);
+      acc[i] += part[i];
+    }
+    // the next slab's projector into hi/lo and its A fragments
+    if (it + 1 < n_slabs) {
+      split_slab((it + 1) % STAGES, it + 1);
+      prepare(it + 1);
+    }
+  }
+  lmd::cp_async_wait<0>();
+
+  // accumulator layout: register 4j + q holds row g (q < 2) or g + 8, column
+  // 8j + 2t + (q & 1)
   float* dst = ws + static_cast<long long>(blockIdx.z) * t_len * r;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
+  for (int half = 0; half < 2; ++half) {
+    const int row = m0 + wg * 64 + wl * 16 + g + half * 8;
     if (row >= t_len) continue;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-      if (col < r) dst[static_cast<long long>(row) * r + col] = acc[i][j];
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = n0 + j * 8 + 2 * tq;
+      float* p = dst + static_cast<long long>(row) * r + col;
+      if (col < r) p[0] = acc[4 * j + 2 * half];
+      if (col + 1 < r) p[1] = acc[4 * j + 2 * half + 1];
     }
   }
 }
@@ -187,28 +307,95 @@ __global__ void vproj_reduce_kernel(const float* __restrict__ ws, int splits,
   }
 }
 
+// a (d, r) row-major, transposed to bt (r_pad, d_pad) K-major, zero where
+// k >= d or n >= r, each 8 pixels stored in the order 0, 2, 4, 6, 1, 3, 5, 7:
+// the order in which the A fragments take a k8 step's samples (logical
+// k = t is pixel 2t, k = t + 4 pixel 2t + 1).
+__global__ void projector_t_kernel(const float* __restrict__ a, int d, int r,
+                                   float* __restrict__ bt, int d_pad, int r_pad) {
+  __shared__ float tile[32][33];
+  const int k0 = blockIdx.x * 32;
+  const int n0 = blockIdx.y * 32;
+  for (int q = threadIdx.y; q < 32; q += blockDim.y) {
+    const int k = k0 + q;
+    const int n = n0 + threadIdx.x;
+    tile[q][threadIdx.x] = (k < d && n < r) ? a[static_cast<long long>(k) * r + n] : 0.0f;
+  }
+  __syncthreads();
+  const int x = threadIdx.x;
+  const int src = (x & ~7) | ((x & 3) << 1) | ((x >> 2) & 1);  // pixel at position x
+  for (int q = threadIdx.y; q < 32; q += blockDim.y) {
+    const int n = n0 + q;
+    const int k = k0 + x;
+    if (n < r_pad && k < d_pad) bt[static_cast<long long>(n) * d_pad + k] = tile[src][q];
+  }
+}
+
+template <typename T, int NT>
+cudaError_t launch_partial(const T* raw, int t_len, int d, bool vec_ok, const float* bt,
+                           int d_pad, int r, int n_tiles, int splits, int k_chunk, float* ws,
+                           cudaStream_t st) {
+  constexpr int BN = 16 * NT;
+  constexpr int SMEM = STAGES * (RawTile<T>::kBytes + BN * BK * 4) + 4 * BN * BK * 4;
+  auto kern = vproj_wgmma_kernel<T, BN>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(n_tiles, (t_len + BM - 1) / BM, splits);
+  kern<<<grid, THREADS, SMEM, st>>>(raw, t_len, d, vec_ok, bt, d_pad, r, k_chunk, ws);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch(int nt, const T* raw, int t_len, int d, bool vec_ok, const float* bt,
+                     int d_pad, int r, int n_tiles, int splits, int k_chunk, float* ws,
+                     cudaStream_t st) {
+#define LMD_VP_CASE(N)                                                                   \
+  case N:                                                                                \
+    return launch_partial<T, N>(raw, t_len, d, vec_ok, bt, d_pad, r, n_tiles, splits,    \
+                                k_chunk, ws, st);
+  switch (nt) {
+    LMD_VP_CASE(1) LMD_VP_CASE(2) LMD_VP_CASE(3) LMD_VP_CASE(4)
+    LMD_VP_CASE(5) LMD_VP_CASE(6) LMD_VP_CASE(7) LMD_VP_CASE(8)
+    LMD_VP_CASE(9) LMD_VP_CASE(10) LMD_VP_CASE(11)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef LMD_VP_CASE
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = uint16. ws holds splits * t * r floats; k_chunk is
-// a multiple of 16 with splits * k_chunk >= d.
-extern "C" int lmd_v_projection(const void* raw, int dtype, int t_len, int d,
-                                const void* a, int r, const void* c,
-                                int splits, int k_chunk, void* ws, void* out,
-                                void* stream) {
+// The (d, r) projector transposed to K2's (r_pad, d_pad) K-major layout.
+extern "C" int lmd_projector_t(const void* a, int d, int r, void* bt, int d_pad, int r_pad,
+                               void* stream) {
+  const dim3 grid((d_pad + 31) / 32, (r_pad + 31) / 32);
+  projector_t_kernel<<<grid, dim3(32, 8), 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(a), d, r, static_cast<float*>(bt), d_pad, r_pad);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dtype: 0 = float32, 1 = uint16. bt is (n_tiles * 16 nt, d_pad) from
+// lmd_projector_t, d_pad a multiple of 32 covering splits * k_chunk;
+// k_chunk is a multiple of 32; ws holds splits * t * r floats.
+extern "C" int lmd_v_projection(const void* raw, int dtype, int t_len, int d, const void* bt,
+                                int d_pad, int r, int nt, int n_tiles, const void* c,
+                                int splits, int k_chunk, void* ws, void* out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((r + BN - 1) / BN, (t_len + BM - 1) / BM, splits);
   float* w = static_cast<float*>(ws);
-  const float* af = static_cast<const float*>(a);
+  const float* b = static_cast<const float*>(bt);
+  const uintptr_t base = reinterpret_cast<uintptr_t>(raw);
+  cudaError_t err;
   if (dtype == 0) {
-    vproj_partial_kernel<float><<<grid, THREADS, 0, st>>>(
-        static_cast<const float*>(raw), t_len, d, af, r, k_chunk, w);
+    const bool vec_ok = (d % 4) == 0 && (base % 16) == 0;
+    err = dispatch<float>(nt, static_cast<const float*>(raw), t_len, d, vec_ok, b, d_pad, r,
+                          n_tiles, splits, k_chunk, w, st);
   } else if (dtype == 1) {
-    vproj_partial_kernel<uint16_t><<<grid, THREADS, 0, st>>>(
-        static_cast<const uint16_t*>(raw), t_len, d, af, r, k_chunk, w);
+    const bool vec_ok = (d % 8) == 0 && (base % 16) == 0;
+    err = dispatch<uint16_t>(nt, static_cast<const uint16_t*>(raw), t_len, d, vec_ok, b, d_pad,
+                             r, n_tiles, splits, k_chunk, w, st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 rgrid((r + 31) / 32, (t_len + 31) / 32);
   vproj_reduce_kernel<<<rgrid, dim3(32, 8), 0, st>>>(

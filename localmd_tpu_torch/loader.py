@@ -218,8 +218,10 @@ class PMDLoader:
         # flattens in C order, so reorder the rows once (loader.py:1142)
         a_c = _rows_to_c(a_tilde, d1, d2, self.order).contiguous()
         del a, a_tilde
+        # K2's layout of the projector, made once for every chunk
+        prepared = kernels.prepare_projector(a_c) if a_c.is_cuda else None
         results = []
         for s, e in _chunk_ranges(self.shape[0], self._stream_chunk_frames()):
             raw = self._load_raw(slice(s, e))
-            results.append(kernels.v_projection(raw.reshape(e - s, d1 * d2), a_c, c))
+            results.append(kernels.v_projection(raw.reshape(e - s, d1 * d2), a_c, c, prepared))
         return torch.cat(results, dim=1) if len(results) > 1 else results[0]

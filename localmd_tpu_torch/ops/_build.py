@@ -24,6 +24,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 SOURCES = ("movie_stats.cu", "v_projection.cu", "block_reconstruct.cu", "jacobi_eigh.cu")
+HEADERS = ("tf32_common.cuh", "wgmma_tf32.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -34,11 +35,14 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # every entry point returns cudaGetLastError() as an int
 SIGNATURES = {
-    # x, dtype, t, P, cos_m, sin_m, cos1, sin1, nperseg, n_segs, divisor,
-    # scale, mean, sigma, stream
-    "lmd_movie_stats": (_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _F, _F, _P, _P, _P),
-    # raw, dtype, t, d, a, r, c, splits, k_chunk, ws, out, stream
-    "lmd_v_projection": (_P, _I, _I, _I, _P, _I, _P, _I, _I, _P, _P, _P),
+    # x, dtype, t, P, w_hi, w_lo, cos1, sin1, nperseg, nper_pad, n_segs,
+    # divisor, scale, mean, sigma, stream
+    "lmd_movie_stats": (_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P, _P, _P),
+    # a, d, r, bt, d_pad, r_pad, stream
+    "lmd_projector_t": (_P, _I, _I, _P, _I, _I, _P),
+    # raw, dtype, t, d, bt, d_pad, r, nt, n_tiles, c, splits, k_chunk, ws,
+    # out, stream
+    "lmd_v_projection": (_P, _I, _I, _I, _P, _I, _I, _I, _I, _P, _I, _I, _P, _P, _P),
     # panels, temporal, starts, ids, coset_offsets (host), n_cosets, p, S,
     # f, b2, d2, out, stream
     "lmd_block_reconstruct": (
@@ -62,7 +66,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         with open(os.path.join(CSRC_DIR, name), "rb") as fh:
             h.update(name.encode() + b"\0" + fh.read())
     return h.hexdigest()[:16]
@@ -70,9 +74,9 @@ def _digest() -> str:
 
 def build() -> str:
     """Compile the kernels if the library for the current sources is
-    missing; return its path. ``last_build`` records the seconds spent and
-    the compiler's output (``-Xptxas -v``: registers, shared memory,
-    spills per kernel)."""
+    missing; return its path. ``last_build`` records the seconds spent (in
+    all, and until each source's nvcc finished) and the compiler's output
+    (``-Xptxas -v``: registers, shared memory, spills per kernel)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     path = os.path.join(BUILD_DIR, f"liblocalmd_kernels_{_digest()}.so")
     if os.path.exists(path):
@@ -81,16 +85,23 @@ def build() -> str:
     tmp = f"{path}.{os.getpid()}.tmp"
     objs = [f"{tmp}.{os.path.splitext(name)[0]}.o" for name in SOURCES]
     t0 = time.perf_counter()
-    compiles = [
-        (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        for cmd in (
-            [_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, os.path.join(CSRC_DIR, name)]
-            for name, obj in zip(SOURCES, objs)
-        )
-    ]
+    compiles = []
+    for name, obj in zip(SOURCES, objs):
+        cmd = [_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, os.path.join(CSRC_DIR, name)]
+        log = open(f"{obj}.log", "w+")   # a file, not a pipe: nothing blocks on output
+        compiles.append((name, cmd, log, subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)))
+    source_seconds: dict = {}
+    while len(source_seconds) < len(compiles):
+        for name, _, _, proc in compiles:
+            if name not in source_seconds and proc.poll() is not None:
+                source_seconds[name] = time.perf_counter() - t0
+        time.sleep(0.02)
     logs, failed = [], []
-    for cmd, proc in compiles:
-        out, _ = proc.communicate()
+    for name, cmd, log, proc in compiles:
+        log.seek(0)
+        out = log.read()
+        log.close()
+        os.remove(log.name)
         logs.append(out)
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
@@ -107,7 +118,8 @@ def build() -> str:
         raise RuntimeError("\n".join(failed))
     seconds = time.perf_counter() - t0
     os.replace(tmp, path)
-    last_build.update(path=path, seconds=seconds, cached=False, log="".join(logs))
+    last_build.update(path=path, seconds=seconds, cached=False, log="".join(logs),
+                      source_seconds=source_seconds)
     return path
 
 

@@ -23,7 +23,7 @@ kernel, so a run can show that the main path went through it.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -80,19 +80,48 @@ def _check_status(name: str, code: int) -> None:
 # K1: fused movie statistics
 # ---------------------------------------------------------------------------
 
+_TF32_MASK = -0x2000   # 0xffffe000 as an int32: sign, exponent, 10 mantissa bits
+
+
+def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The 3xTF32 split x = hi + lo of csrc/tf32_common.cuh, on float32: hi is
+    x rounded to tf32 to nearest, ties away from zero (cvt.rna.tf32.f32's
+    rounding, as an integer add and a mask); lo = x - hi, exact. The tensor
+    core reads lo's top 10 mantissa bits."""
+    u = x.contiguous().view(torch.int32)
+    hi = ((u + 0x1000) & _TF32_MASK).view(torch.float32)
+    return hi, x - hi
+
+
+def k8_order(n: int) -> torch.Tensor:
+    """The sample order of the kernels' K-major matrices: position i of
+    each 8 holds sample 0, 2, 4, 6, 1, 3, 5, 7 -- the order in which the A
+    fragments take a k8 step's samples (logical k = t is sample 2t, k =
+    t + 4 sample 2t + 1). ``stored[:, i] = original[:, k8_order(n)[i]]``."""
+    i = torch.arange(n)
+    return (i & ~7) | ((i & 3) << 1) | ((i >> 2) & 1)
+
+
 _DFT_CACHE: dict = {}
+_K1_BK = 32
 
 
 def _dft_constants(nperseg: int, device: torch.device):
-    """Windowed band-DFT matrices (nperseg, 64), their column sums and the
-    density scale, built on the CPU with the f32 arithmetic of
-    ops/noise.py:55-61 and cached per device."""
+    """K1's constants on ``device``, cached: the windowed band-DFT matrix as
+    tf32 hi and lo parts, K-major (128, nperseg rounded up to 32, zero past
+    nperseg) with its samples in ``k8_order``, its column sums cos1/sin1
+    (64,) and the density scale. The matrices are built on the CPU with the
+    f32 arithmetic of ops/noise.py:55-61. Rows 0-63 are the cos columns of
+    bins 0-63, rows 64-127 their sin columns."""
     key = (nperseg, str(device))
     got = _DFT_CACHE.get(key)
     if got is None:
         cos_m, sin_m, cos_1, sin_1 = _band_dft_matrices(nperseg, "cpu")
         scale = float(welch_scale(nperseg, "cpu"))
-        got = tuple(x.contiguous().to(device) for x in (cos_m, sin_m, cos_1, sin_1)) + (scale,)
+        nper_pad = -(-nperseg // _K1_BK) * _K1_BK
+        w = torch.nn.functional.pad(torch.cat([cos_m, sin_m], dim=1).T, (0, nper_pad - nperseg))
+        w_hi, w_lo = split_tf32(w[:, k8_order(nper_pad)])
+        got = tuple(x.contiguous().to(device) for x in (w_hi, w_lo, cos_1, sin_1)) + (scale,)
         _DFT_CACHE[key] = got
     return got
 
@@ -139,13 +168,13 @@ def movie_stats(
     t, p = chunk2d.shape
     n_segs = _stats_segments(t, compute_noise, nperseg)
     dev = chunk2d.device
-    cos_m, sin_m, cos_1, sin_1, scale = _dft_constants(nperseg, dev)
+    w_hi, w_lo, cos_1, sin_1, scale = _dft_constants(nperseg, dev)
     mean = torch.empty(p, dtype=torch.float32, device=dev)
     sigma = torch.empty(p, dtype=torch.float32, device=dev)
     code = _library().lmd_movie_stats(
         _ptr(chunk2d), _DTYPE_CODES[chunk2d.dtype], t, p,
-        _ptr(cos_m), _ptr(sin_m), _ptr(cos_1), _ptr(sin_1),
-        nperseg, n_segs, float(mean_divisor), scale,
+        _ptr(w_hi), _ptr(w_lo), _ptr(cos_1), _ptr(sin_1),
+        nperseg, w_hi.shape[1], n_segs, float(mean_divisor), scale,
         _ptr(mean), _ptr(sigma), _stream(chunk2d),
     )
     _check_status("movie_stats", code)
@@ -160,10 +189,23 @@ movie_stats.launches = 0
 # K2: fused V projection
 # ---------------------------------------------------------------------------
 
-_VP_BM, _VP_BN, _VP_BK = 128, 128, 16
+_VP_BM, _VP_BK = 128, 32
+_VP_MAX_NT = 11          # r' tile = 16 * nt columns, at most 176
 _VP_MIN_K_CHUNK = 256
 # each CTA's fp32 sum runs over at most this many pixels (accuracy bound)
 _VP_MAX_K_CHUNK = 4096
+
+
+class Projector(NamedTuple):
+    """The (d, r') projector as K2 reads it: transposed to K-major
+    ``(n_tiles * 16 * nt, d_pad)``, zero padded, each 8 pixels in the order
+    the kernel's A fragments take them (``lmd_projector_t``)."""
+
+    bt: torch.Tensor
+    d: int
+    r: int
+    nt: int
+    n_tiles: int
 
 
 def v_projection_plain(raw2d: torch.Tensor, a_cols: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -171,22 +213,52 @@ def v_projection_plain(raw2d: torch.Tensor, a_cols: torch.Tensor, c: torch.Tenso
     return (raw2d.to(torch.float32) @ a_cols - c[None, :]).T
 
 
-def _vp_split(t: int, d: int, r: int, n_sm: int) -> Tuple[int, int]:
+def _vp_tiles(r: int) -> Tuple[int, int]:
+    """(nt, n_tiles): r' in n_tiles near-equal tiles of 16 * nt <= 176
+    columns, so the padding past r' is under 16 columns a tile."""
+    n_tiles = -(-r // (16 * _VP_MAX_NT))
+    per_tile = -(-r // n_tiles)
+    return -(-per_tile // 16), n_tiles
+
+
+def _vp_split(t: int, d: int, r_tiles: int, n_sm: int) -> Tuple[int, int]:
     """(splits, k_chunk): split the d axis until the grid holds at least two
-    waves of CTAs (two CTAs fit on an SM) and no split sums more than
-    4096 pixels, keeping each split at least 256 deep and a multiple of 16."""
-    tiles = -(-t // _VP_BM) * -(-r // _VP_BN)
-    want = max(-(-4 * n_sm // tiles), -(-d // _VP_MAX_K_CHUNK))
+    waves of CTAs (one CTA fits on an SM) and no split sums more than 4096
+    pixels, keeping each split at least 256 deep and a multiple of 32."""
+    tiles = -(-t // _VP_BM) * r_tiles
+    want = max(-(-2 * n_sm // tiles), -(-d // _VP_MAX_K_CHUNK))
     splits = max(1, min(want, -(-d // _VP_MIN_K_CHUNK)))
     per_split = -(-d // splits)
     k_chunk = -(-per_split // _VP_BK) * _VP_BK
     return -(-d // k_chunk), k_chunk
 
 
-def v_projection(raw2d: torch.Tensor, a_cols: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+def prepare_projector(a_cols: torch.Tensor) -> Projector:
+    """K2's layout of a (d, r') float32 projector on the card, made once
+    for all the chunks it multiplies."""
+    _require_cuda("prepare_projector", a_cols)
+    if a_cols.dim() != 2 or a_cols.dtype != torch.float32:
+        raise ValueError(f"prepare_projector: expected (d, r') float32, got {tuple(a_cols.shape)}")
+    d, r = a_cols.shape
+    nt, n_tiles = _vp_tiles(r)
+    d_pad = -(-d // _VP_BK) * _VP_BK
+    bt = torch.empty((n_tiles * 16 * nt, d_pad), dtype=torch.float32, device=a_cols.device)
+    code = _library().lmd_projector_t(
+        _ptr(a_cols), d, r, _ptr(bt), d_pad, bt.shape[0], _stream(a_cols)
+    )
+    _check_status("prepare_projector", code)
+    return Projector(bt, d, r, nt, n_tiles)
+
+
+def v_projection(
+    raw2d: torch.Tensor, a_cols: torch.Tensor, c: torch.Tensor,
+    prepared: Optional[Projector] = None,
+) -> torch.Tensor:
     """K2: (t, d) raw chunk (float32/uint16, C-order pixels) x (d, r')
     projector -> (r', t), in one pass over the raw chunk with no f32 copy.
-    ``a_cols`` rows must follow raw2d's C-order pixel flattening."""
+    ``a_cols`` rows must follow raw2d's C-order pixel flattening.
+    ``prepared`` is ``prepare_projector(a_cols)`` when the caller reuses it
+    across chunks; otherwise it is made here."""
     if raw2d.device.type == "cpu":
         return v_projection_plain(raw2d, a_cols, c)
     _require_cuda("v_projection", raw2d, a_cols, c)
@@ -201,13 +273,18 @@ def v_projection(raw2d: torch.Tensor, a_cols: torch.Tensor, c: torch.Tensor) -> 
             f"c {tuple(c.shape)} do not agree"
         )
     r = a_cols.shape[1]
+    if prepared is None:
+        prepared = prepare_projector(a_cols)
+    elif (prepared.d, prepared.r) != (d, r) or prepared.bt.device != raw2d.device:
+        raise ValueError("v_projection: the prepared projector belongs to another projector")
     dev = raw2d.device
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits, k_chunk = _vp_split(t, d, r, n_sm)
+    splits, k_chunk = _vp_split(t, d, prepared.n_tiles, n_sm)
     ws = torch.empty((splits, t, r), dtype=torch.float32, device=dev)
     out = torch.empty((r, t), dtype=torch.float32, device=dev)
     code = _library().lmd_v_projection(
-        _ptr(raw2d), _DTYPE_CODES[raw2d.dtype], t, d, _ptr(a_cols), r, _ptr(c),
+        _ptr(raw2d), _DTYPE_CODES[raw2d.dtype], t, d, _ptr(prepared.bt),
+        prepared.bt.shape[1], r, prepared.nt, prepared.n_tiles, _ptr(c),
         splits, k_chunk, _ptr(ws), _ptr(out), _stream(raw2d),
     )
     _check_status("v_projection", code)

@@ -4,8 +4,8 @@ Batch-first like the JAX package: every routine accepts a leading ``...``
 batch. Small SVDs go through a symmetric Gram + ``eigh_descending``, which
 routes as the JAX package does (ops/linalg.py:208-221): on the card every
 eigh with k <= 64 goes to K4, the batched cyclic-Jacobi kernel
-(``ops.kernels.jacobi_eigh``); larger ones and every CPU eigh go to
-``torch.linalg.eigh`` (cuSOLVER / LAPACK). ``jacobi_eigh_plain`` is K4's
+(``ops.kernels.jacobi_eigh``), larger ones to cuSOLVER, and every CPU eigh
+to numpy's LAPACK. ``jacobi_eigh_plain`` is K4's
 plain twin. Random sketches are drawn through ``utils.random.normal`` so
 tests can inject the JAX package's draws.
 """
@@ -135,9 +135,12 @@ def uses_jacobi(device, k: int) -> bool:
 def eigh_descending(sym: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Eigendecomposition of symmetric (..., k, k), eigenvalues descending.
 
-    On the card with k <= 64: K4 (``kernels.jacobi_eigh``). Otherwise
-    ``torch.linalg.eigh`` -- on the CPU that is the JAX package's CPU
-    reference (LAPACK), on the card cuSOLVER for k > 64."""
+    On the card with k <= 64: K4 (``kernels.jacobi_eigh``); above, cuSOLVER
+    (``torch.linalg.eigh``). On the CPU: numpy's LAPACK (``np.linalg.eigh``
+    in float32), a LAPACK build like the one the JAX package's CPU path
+    calls. torch's MKL ``ssyevd`` fails to converge on some Grams with many
+    repeated eigenvalues (the factorized SVD's on a white 64x64x2000 movie
+    with 32x32 blocks) where numpy's converges."""
     if uses_jacobi(sym.device, sym.shape[-1]):
         from localmd_tpu_torch.ops import kernels
 
@@ -145,7 +148,11 @@ def eigh_descending(sym: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         k = sym.shape[-1]
         vals, vecs = kernels.jacobi_eigh(sym.reshape(-1, k, k).contiguous())
         return vals.reshape(*lead, k), vecs.reshape(*lead, k, k)
-    vals, vecs = torch.linalg.eigh(sym)
+    if sym.device.type == "cpu":
+        vals_np, vecs_np = np.linalg.eigh(sym.detach().numpy())
+        vals, vecs = torch.from_numpy(vals_np), torch.from_numpy(vecs_np)
+    else:
+        vals, vecs = torch.linalg.eigh(sym)
     return vals.flip(-1), vecs.flip(-1)
 
 

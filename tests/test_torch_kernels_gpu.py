@@ -48,7 +48,27 @@ def test_movie_stats_matches_plain(cuda, dtype, t, p, nperseg, noise):
         assert bool((s_k == 0).all())
 
 
-@pytest.mark.parametrize("dtype,t,d,r", [("uint16", 300, 20000, 77), ("float32", 64, 1024, 2560)])
+@pytest.mark.parametrize("dtype,t,nperseg", [("uint16", 1024, 256), ("uint16", 1024, 1024),
+                                             ("float32", 300, 300)])
+def test_movie_stats_offset_small_noise_matches_plain(cuda, dtype, t, nperseg):
+    """clip(3 N(0, 1) + 1000): the input on which one TF32 pass misses the
+    sigma bar; the 3xTF32 kernel holds it (nperseg 256 and reference mode)."""
+    from localmd_tpu_torch.ops import kernels
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = (torch.randn(t, 8192, generator=g, device=cuda) * 3 + 1000).clamp(0, 65535)
+    x = x.to(getattr(torch, dtype))
+    m_k, s_k = kernels.movie_stats(x, t, nperseg=nperseg)
+    m_p, s_p = kernels.movie_stats_plain(x, t, nperseg=nperseg)
+    assert float((m_k - m_p).abs().max() / m_p.abs().max()) <= 1e-5
+    torch.testing.assert_close(s_k, s_p, rtol=1e-4, atol=0)
+
+
+@pytest.mark.parametrize("dtype,t,d,r", [
+    ("uint16", 300, 20000, 77), ("float32", 64, 1024, 2560),
+    ("uint16", 256, 1 << 20, 168),      # the 1024^2 uint16 cell's chunk
+    ("float32", 500, 65536, 465),       # the voltage cell's r'
+])
 def test_v_projection_matches_plain(cuda, dtype, t, d, r):
     from localmd_tpu_torch.ops import kernels
 
@@ -56,7 +76,13 @@ def test_v_projection_matches_plain(cuda, dtype, t, d, r):
     raw = (torch.randn(t, d, generator=g, device=cuda) * 40 + 1000).to(getattr(torch, dtype))
     a = torch.randn(d, r, generator=g, device=cuda) * 0.01
     c = torch.randn(r, generator=g, device=cuda)
-    assert _rel_fro(kernels.v_projection(raw, a, c), kernels.v_projection_plain(raw, a, c)) <= 1e-5
+    before = kernels.v_projection.launches
+    out = kernels.v_projection(raw, a, c)
+    assert kernels.v_projection.launches == before + 1
+    assert _rel_fro(out, kernels.v_projection_plain(raw, a, c)) <= 1e-5
+    # a projector prepared once serves every chunk
+    prepared = kernels.prepare_projector(a)
+    assert torch.equal(kernels.v_projection(raw, a, c, prepared), out)
 
 
 @pytest.mark.parametrize("d1,d2,b,s,f", [(128, 96, 32, 20, 130), (60, 52, 15, 5, 7)])

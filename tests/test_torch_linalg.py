@@ -142,3 +142,55 @@ def test_subspace_eigh_with_injected_sketch(rng):
     top_t = to_np(vecs_t)[:, :rank]
     top_j = np.asarray(vecs_j)[:, :rank]
     assert rel_fro(_proj(top_t), _proj(top_j)) <= 1e-4
+
+
+def _repeated_gram(rng, k=195, distinct=20):
+    """A float32 (k, k) Gram with ``distinct`` eigenvalues, most repeated many
+    times and the rest zero: the shape of the factorized SVD's Gram on a
+    white movie."""
+    q, _ = np.linalg.qr(rng.standard_normal((k, k)))
+    lam = np.zeros(k)
+    lam[: 4 * distinct] = np.repeat(np.linspace(9.0, 1.0, distinct), 4)
+    return ((q * lam) @ q.T).astype(np.float32)
+
+
+def test_eigh_descending_cpu_repeated_spectrum_matches_numpy_and_jax(rng):
+    """On the CPU eigh_descending is numpy's LAPACK eigh, descending; on a
+    Gram with many repeated eigenvalues it agrees with the JAX package's
+    eigh_descending (eigenvalues 1e-5 * lambda_max, reconstruction 1e-5)."""
+    sym = _repeated_gram(rng)
+    vals_t, vecs_t = tl.eigh_descending(t32(sym))
+    ref_vals, ref_vecs = np.linalg.eigh(sym)
+    assert vals_t.dtype == torch.float32 and vecs_t.dtype == torch.float32
+    assert np.array_equal(to_np(vals_t), ref_vals[::-1]) and np.array_equal(to_np(vecs_t), ref_vecs[:, ::-1])
+    vals_j, _ = jl.eigh_descending(jnp.asarray(sym))
+    assert np.abs(to_np(vals_t) - np.asarray(vals_j)).max() <= 1e-5 * 9.0
+    recon = to_np(vecs_t) * to_np(vals_t)[None, :] @ to_np(vecs_t).T
+    assert rel_fro(recon, sym) <= TOL
+
+
+def test_white_movie_decomposes_on_cpu_with_jax_ranks():
+    """A white 64x64x2000 movie with 32x32 blocks and the thresholds pinned to
+    (0, 0): torch's MKL eigh failed to converge on its factorized-SVD Gram
+    (``_LinAlgError``); the port now runs and gives the JAX package's
+    ``pipeline_ranks`` and kept rank, with one injected sketch in both."""
+    import localmd_tpu.pipeline as jax_pipeline
+    import localmd_tpu_torch.pipeline as port_pipeline
+    from localmd_tpu.ops.linalg import sketch_override as jax_sketch_override
+
+    movie = np.random.default_rng(0).standard_normal((2000, 64, 64)).astype(np.float32)
+    kwargs = dict(frame_range=2000, max_components=20, background_rank=15, seed=0)
+    mp = pytest.MonkeyPatch()
+    try:
+        mp.setattr(port_pipeline, "threshold_heuristic", lambda *a, **k: (0.0, 0.0))
+        mp.setattr(jax_pipeline, "threshold_heuristic", lambda *a, **k: (0.0, 0.0))
+        fn = _fixed(1234)
+        with sketch_override(fn):
+            port = port_pipeline.localmd_decomposition(movie, (32, 32), device="cpu", **kwargs)
+        with jax_sketch_override(lambda shape: jnp.asarray(fn(shape))):
+            ref = jax_pipeline.localmd_decomposition(movie, (32, 32), **kwargs)
+    finally:
+        mp.undo()
+    assert port.pipeline_ranks == ref.pipeline_ranks
+    assert port.rank == ref.rank
+    assert rel_fro(port[:, :, :], ref[:, :, :]) <= 1e-4

@@ -91,10 +91,12 @@ def test_build_compiles_each_source_at_once_then_links(tmp_path, monkeypatch):
     assert all("arch=compute_90a,code=sm_90a" in c for c in compiles)
     assert calls[-1].startswith("-shared -o ") and os.path.exists(path)
     assert sorted(os.listdir(tmp_path / "build")) == [os.path.basename(path)]
+    assert set(_build.last_build["source_seconds"]) == set(_build.SOURCES)
     assert _build.build() == path and _build.last_build["cached"]
 
 
-@pytest.mark.parametrize("call", ["movie_stats", "v_projection", "block_reconstruct", "jacobi_eigh"])
+@pytest.mark.parametrize("call", ["movie_stats", "v_projection", "prepare_projector",
+                                  "block_reconstruct", "jacobi_eigh"])
 def test_wrappers_raise_on_non_cpu_tensors_without_cuda(call):
     """A tensor off the CPU goes to the CUDA kernel or raises; the plain
     version is never taken for it (meta tensors stand in for a device
@@ -111,6 +113,8 @@ def test_wrappers_raise_on_non_cpu_tensors_without_cuda(call):
         elif call == "v_projection":
             kernels.v_projection(torch.empty(8, 16, **meta), torch.empty(16, 4, **meta),
                                  torch.empty(4, **meta))
+        elif call == "prepare_projector":
+            kernels.prepare_projector(torch.empty(16, 4, **meta))
         else:
             kernels.block_reconstruct(
                 torch.empty(1, 100, 2, **meta), torch.empty(1, 2, 5, **meta),

@@ -20,8 +20,8 @@ rank beside them, the windows each block batch ran (an early stop shows as
 fewer than ``n_windows``), each kernel's launches per warm call, and the
 card's name and power limit.
 ``--profile`` adds one warm call under ``torch.profiler``:
-device busy ms (union of kernel intervals), idle share, and the kernels
-with the most device time. ``--small-eigh cusolver`` sends the small
+device busy ms (union of kernel intervals), idle share, the kernels
+with the most device time, and the device time of each of K1-K4. ``--small-eigh cusolver`` sends the small
 eighs that go to K4 (k <= 64) to ``torch.linalg.eigh`` instead, to set the
 two side by side in one call.
 """
@@ -135,9 +135,19 @@ def timed_run(movie, blocks=BLOCKS, **settings):
     return pmd, seconds, torch.cuda.max_memory_allocated() / 2**30
 
 
+# the port's kernels by the names of their device functions (csrc/*.cu)
+PORT_KERNEL_NAMES = {
+    "movie_stats": ("movie_stats_wgmma_kernel",),
+    "v_projection": ("vproj_wgmma_kernel", "vproj_reduce_kernel", "projector_t_kernel"),
+    "block_reconstruct": ("recon_gather_kernel",),
+    "jacobi_eigh": ("jacobi_warp_kernel", "jacobi_cta_kernel"),
+}
+
+
 def profile_run(movie, settings: dict, top: int = 12) -> dict:
     """One warm call under torch.profiler: wall, device busy time (union of
-    kernel intervals), idle share and the kernels with most device time."""
+    kernel intervals), idle share, the kernels with most device time and
+    the device time of each of the port's four kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -160,6 +170,10 @@ def profile_run(movie, settings: dict, top: int = 12) -> dict:
         profiled_wall_ms=wall * 1e3, device_busy_ms=busy_us / 1e3,
         idle_share_profiled=1.0 - busy_us / 1e3 / (wall * 1e3), n_kernels=len(spans),
         top_kernels_ms=[[name[:90], us / 1e3] for name, us in ranked],
+        port_kernels_ms={
+            kernel: sum(us for name, us in by_name.items() if any(f in name for f in funcs)) / 1e3
+            for kernel, funcs in PORT_KERNEL_NAMES.items()
+        },
     )
 
 

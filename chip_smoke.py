@@ -11,15 +11,18 @@ Phases (each prints one progress line; any failure raises, exit code != 0):
    3xTF32 kernels K1 and K2), with CUDA-event times, each beside its bound
    on this card and, where one PyTorch call computes the same function,
    that call's time (K2: ``torch.matmul``; K4: cuSOLVER's
-   ``torch.linalg.eigh``, timed in alternation with K4, and also its
-   float64 eigenvalues as K4's reference).
+   ``torch.linalg.eigh``, timed in alternation with K4 at every shape of
+   ``K4_SHAPES``, and also its float64 eigenvalues as K4's reference); K3
+   is timed at each case it checks, with its block lists prepared once as
+   the path keeps them.
 3. golden: the port on the golden movie with the committed injected
    sketches and pinned thresholds, against tests/golden/reference_golden.npz
    (K4 on the path: every small eigh).
 4. main path: ``localmd_decomposition`` on bench.make_movie's 512 x 512 x
    2048 float32 movie made on the card (bench.py's configuration), once
-   cold and twice warm, then ``reconstruct_frames`` on 512 frames; every
-   kernel must have run.
+   cold and twice warm, then ``reconstruct_frames`` on 512 frames, twice
+   (the first call also builds K3's block lists); every kernel must have
+   run.
 5. the same movie as uint16, once.
 6. denoising: the same construction with smoothed factors, float32 and
    uint16, once each; the reconstruction must be closer to the clean movie
@@ -253,36 +256,40 @@ def phase_kernels(results: dict) -> None:
                                    bound_ms=b["bound_ms"], bound_by=b["bound_by"], library_ms=lib_ms)
     del raw, a, prepared
 
-    # K3: relative Frobenius error <= 1e-5
+    # K3: relative Frobenius error <= 1e-5. Timed as the path calls it,
+    # with the block lists prepared once (PMDArray keeps them); the bound
+    # counts 3xTF32 on the tensor cores and the canvas written once.
     first = None
     for name, (d1, d2, blk, s_slots, f) in [
         ("961 blocks 32x32 on 512^2, S=20, f=512", (512, 512, 32, 20, 512)),
         ("60x52 blocks 20 (snapped tail)", (60, 52, 20, 3, 40)),
         ("60x52 blocks 15 (odd)", (60, 52, 15, 5, 70)),
+        ("961 blocks 32x32 on 512^2, S=40, f=512", (512, 512, 32, 40, 512)),
     ]:
         grid = BlockGrid(d1, d2, (blk, blk))
         n = grid.n_blocks
         panels = torch.randn(n, blk * blk, s_slots, generator=g, device=dev)
         temporal = torch.randn(n, s_slots, f, generator=g, device=dev)
-        starts = torch.as_tensor(grid.starts, device=dev)
         cosets = tuple(ids for ids, _ in grid.cosets())
-        args = (panels, temporal, starts, cosets, (d1, d2), (blk, blk))
-        out_k = kernels.block_reconstruct(*args)
+        args = (panels, temporal, grid.starts, cosets, (d1, d2), (blk, blk))
+        plan = kernels.prepare_reconstruct(grid.starts, cosets, (d1, d2), (blk, blk), dev)
+        out_k = kernels.block_reconstruct(*args, plan)
         out_p = kernels.block_reconstruct_plain(*args)
         torch.cuda.synchronize()
         err = rel_fro(out_k, out_p)
-        log(f"  K3 block_reconstruct {name} ({len(cosets)} cosets): rel Frobenius err {err:.3e}")
         check(err <= 1e-5, f"K3 {name}: error {err}")
+        ms = cuda_ms(lambda: kernels.block_reconstruct(*args, plan), reps=10)
+        plain_ms = cuda_ms(lambda: kernels.block_reconstruct_plain(*args))
+        b = bound(2.0 * n * blk * blk * s_slots * f,
+                  4 * (n * blk * blk * s_slots + n * s_slots * f + d1 * d2 * f), True)
+        log(f"  K3 block_reconstruct {name}: rel Frobenius err {err:.3e}; kernel {ms:.3f} ms, "
+            f"plain {plain_ms:.3f} ms")
+        log_bound(f"K3 {name}", ms, b)
         if first is None:
-            first = (args, max_abs(out_k, out_p), (n, blk * blk, s_slots, f, d1 * d2))
-    args, err0, (n, pix, s_slots, f, canvas) = first
-    ms = cuda_ms(lambda: kernels.block_reconstruct(*args))
-    plain_ms = cuda_ms(lambda: kernels.block_reconstruct_plain(*args))
-    b = bound(2.0 * n * pix * s_slots * f, 4 * (n * pix * s_slots + n * s_slots * f + canvas * f), False)
-    log(f"  K3 961 blocks f=512: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    log_bound("K3 961 blocks f=512", ms, b)
-    results["block_reconstruct"] = dict(max_abs_err=err0, ms=ms, plain_ms=plain_ms,
-                                        bound_ms=b["bound_ms"], bound_by=b["bound_by"], library_ms=None)
+            first = dict(max_abs_err=max_abs(out_k, out_p), ms=ms, plain_ms=plain_ms,
+                         bound_ms=b["bound_ms"], bound_by=b["bound_by"], library_ms=None)
+        del panels, temporal, out_k, out_p
+    results["block_reconstruct"] = first
 
     # K4: eigenvalues within 1e-5 |lambda_max| of the plain twin's and of
     # torch.linalg.eigh's (cuSOLVER) on the same input in float64; V diag(lambda)
@@ -314,19 +321,26 @@ def phase_kernels(results: dict) -> None:
             check(recon <= 1e-5 and orth <= 1e-5, f"K4 ({n}, {k}) {kind}: recon {recon}, orth {orth}")
             if first is None:
                 first = (sym, max_abs(vals_k, vals_p))
-    sym, err0 = first
-    # K4 and cuSOLVER in alternation, one call each a round, 30 rounds
-    k4_times, cus_times = [], []
-    cuda_ms(lambda: torch.linalg.eigh(sym))
-    for _ in range(30):
-        k4_times.append(cuda_ms(lambda: kernels.jacobi_eigh(sym), reps=1))
-        cus_times.append(cuda_ms(lambda: torch.linalg.eigh(sym), reps=1))
-    ms, cusolver_ms = float(np.median(k4_times)), float(np.median(cus_times))
-    plain_ms = cuda_ms(lambda: linalg.jacobi_eigh_plain(sym))
+    # K4 and cuSOLVER in alternation, one call each a round, 30 rounds, at
+    # every shape; the kernels line keeps (256, 30, 30)
+    sym0, err0 = first
     q = lambda xs: "-".join(f"{v:.3f}" for v in np.percentile(xs, [25, 75]))
-    log(f"  K4 (256, 30, 30), 30 alternating rounds: kernel median {ms:.3f} ms (quartiles {q(k4_times)}), "
-        f"cuSOLVER (torch.linalg.eigh) median {cusolver_ms:.3f} ms (quartiles {q(cus_times)}); "
-        f"plain twin {plain_ms:.3f} ms")
+    for (n, k) in K4_SHAPES:
+        sym = k4_matrices("random_psd", n, k, g)
+        k4_times, cus_times = [], []
+        cuda_ms(lambda: torch.linalg.eigh(sym))
+        for _ in range(30):
+            k4_times.append(cuda_ms(lambda: kernels.jacobi_eigh(sym), reps=1))
+            cus_times.append(cuda_ms(lambda: torch.linalg.eigh(sym), reps=1))
+        k_ms, c_ms = float(np.median(k4_times)), float(np.median(cus_times))
+        log(f"  K4 ({n}, {k}, {k}), 30 alternating rounds: kernel median {k_ms:.3f} ms "
+            f"(quartiles {q(k4_times)}), cuSOLVER (torch.linalg.eigh) median {c_ms:.3f} ms "
+            f"(quartiles {q(cus_times)})")
+        if (n, k) == (256, 30):
+            ms, cusolver_ms = k_ms, c_ms
+    sym = sym0
+    plain_ms = cuda_ms(lambda: linalg.jacobi_eigh_plain(sym))
+    log(f"  K4 (256, 30, 30) plain twin {plain_ms:.3f} ms")
     # a cyclic-Jacobi rotation updates two rows and two columns of A and two
     # columns of V: ~18 k flops; sweeps * k (k - 1) / 2 rotations a matrix
     n, k = sym.shape[0], sym.shape[1]
@@ -445,17 +459,19 @@ def check_recon(pmd, movie, clean_fn, label: str, denoised: bool) -> None:
     import torch
 
     frames = np.arange(512)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    recon = pmd.reconstruct_frames(frames)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
+    times = []
+    for _ in range(2):          # the first call also makes the C-order panels and K3's lists
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        recon = pmd.reconstruct_frames(frames)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
     check(tuple(recon.shape) == (512,) + tuple(movie.shape[1:]), f"{label}: recon shape")
     check(bool(torch.isfinite(recon).all()), f"{label}: non-finite reconstruction")
     clean = clean_fn(torch.as_tensor(frames, device=recon.device))
     err_recon = float(torch.linalg.norm(recon - clean))
     err_raw = float(torch.linalg.norm(movie[:512].to(torch.float32) - clean))
-    log(f"  {label} reconstruct_frames(512): {secs:.4f} s; "
+    log(f"  {label} reconstruct_frames(512): {times[0]:.4f} s first, {times[1]:.4f} s again; "
         f"||recon - clean|| {err_recon:.1f}, ||movie - clean|| {err_raw:.1f}")
     if denoised:
         check(err_recon < err_raw, f"{label}: reconstruction is not closer to the clean movie")

@@ -1,6 +1,7 @@
-// Shared pieces of the two 3xTF32 tensor-core kernels (K1 movie_stats.cu,
-// K2 v_projection.cu): the fp32 -> (hi, lo) tf32 split, exact uint16 ->
-// float, cp.async with zero fill, and the swizzle of K2's float32 raw tile.
+// Shared pieces of the three 3xTF32 tensor-core kernels (K1 movie_stats.cu,
+// K2 v_projection.cu, K3 block_reconstruct.cu): the fp32 -> (hi, lo) tf32
+// split, exact uint16 -> float, cp.async with zero fill, and the swizzle of
+// K2's float32 raw tile.
 // The warpgroup multiply itself is in wgmma_tf32.cuh.
 //
 // 3xTF32. Hopper's tensor cores have no IEEE-fp32 mode; TF32 keeps 10
@@ -46,6 +47,14 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pr
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   const int n = pred ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n)
+               : "memory");
+}
+
+// 4-byte global -> shared copy (through L1); zero-fills when !pred
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool pred) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  const int n = pred ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem), "r"(n)
                : "memory");
 }
 

@@ -26,6 +26,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from localmd_tpu_torch.config import resolve_device
 from localmd_tpu_torch.ops.linalg import (
     DEFAULT_OVERSAMPLES,
     _rsvd_core,
@@ -356,11 +357,13 @@ def threshold_heuristic(
     percentile_threshold: float = 5.0,
     generator: Optional[torch.Generator] = None,
     sim_batch: int = 32,
-    device="cpu",
+    device="cuda",
 ) -> Tuple[float, float]:
     """Spatial/temporal roughness cutoffs from a noise-null Monte-Carlo:
     whole ``sim_batch`` batches of simulated blocks, the percentile taken
-    over exactly the first ``iters`` draws (engine.py:937-967)."""
+    over exactly the first ``iters`` draws (engine.py:937-967). Runs on the
+    card unless ``device="cpu"`` is passed; raises without CUDA."""
+    device = resolve_device(device)
     d1, d2, t = dimensions
     n_batches = max(1, -(-iters // sim_batch))
     sps, tps = [], []

@@ -43,13 +43,11 @@ SIGNATURES = {
     # raw, dtype, t, d, bt, d_pad, r, nt, n_tiles, c, splits, k_chunk, ws,
     # out, stream
     "lmd_v_projection": (_P, _I, _I, _I, _P, _I, _I, _I, _I, _P, _I, _I, _P, _P, _P),
-    # panels, temporal, starts, ids, coset_offsets (host), n_cosets, p, S,
-    # f, b2, d2, out, stream
-    "lmd_block_reconstruct": (
-        _P, _P, _P, _P, ctypes.POINTER(ctypes.c_int), _I, _I, _I, _I, _I, _I, _P, _P,
-    ),
-    # sym, n, k, sched, sweeps, vals, vecs, stream
-    "lmd_jacobi_eigh": (_P, _I, _I, _P, _I, _P, _P, _P),
+    # panels, temporal, starts, tile_offsets, tile_blocks, d1, d2, b1, b2,
+    # S, f, out, stream
+    "lmd_block_reconstruct": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
+    # sym, n, k, sweeps, vals, vecs, stream
+    "lmd_jacobi_eigh": (_P, _I, _I, _I, _P, _P, _P),
 }
 
 _lock = threading.Lock()

@@ -12,7 +12,7 @@ kernel, so a run can show that the main path went through it.
 - K2 ``v_projection``: ``(raw @ A - c)^T`` over a raw chunk in its native
   dtype (``csrc/v_projection.cu``; plain twin: loader.py:365-372).
 - K3 ``block_reconstruct``: overlap-add of per-block ``U_b @ V_b`` into a
-  (d1, d2, f) canvas, one launch per disjoint coset
+  (d1, d2, f) canvas, one launch gathering each 8 x 8 pixel tile's blocks
   (``csrc/block_reconstruct.cu``; plain twin: a scatter-add).
 - K4 ``jacobi_eigh``: batched cyclic-Jacobi eigh of (n, k, k) symmetric
   matrices, k <= 64 (``csrc/jacobi_eigh.cu``; plain twin:
@@ -28,12 +28,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from localmd_tpu_torch.ops.linalg import (
-    JACOBI_MAX_DIM,
-    _jacobi_tables,
-    jacobi_eigh_plain,
-    jacobi_sweeps,
-)
+from localmd_tpu_torch.ops.linalg import JACOBI_MAX_DIM, jacobi_eigh_plain, jacobi_sweeps
 from localmd_tpu_torch.ops.noise import (
     NOVERLAP,
     NPERSEG,
@@ -306,13 +301,9 @@ def panels_f_to_c(panels: torch.Tensor, b1: int, b2: int) -> torch.Tensor:
     return panels.reshape(n, b2, b1, s).transpose(1, 2).reshape(n, p, s).contiguous()
 
 
-def check_cosets(starts: np.ndarray, cosets: Sequence[np.ndarray], fov, block_shape) -> None:
-    """Raise unless ``cosets`` partition the blocks into groups whose
-    rectangles are pairwise disjoint and inside the FOV -- what lets K3
-    write each coset without atomics."""
+def _check_ids_and_fov(starts: np.ndarray, cosets: Sequence[np.ndarray], fov, block_shape) -> None:
     d1, d2 = fov
     b1, b2 = block_shape
-    starts = np.asarray(starts)
     ids = np.concatenate([np.asarray(c) for c in cosets]) if len(cosets) else np.zeros(0, int)
     if sorted(ids.tolist()) != list(range(len(starts))):
         raise ValueError("cosets must hold every block id exactly once")
@@ -320,6 +311,17 @@ def check_cosets(starts: np.ndarray, cosets: Sequence[np.ndarray], fov, block_sh
         starts.min() < 0 or (starts[:, 0] + b1).max() > d1 or (starts[:, 1] + b2).max() > d2
     ):
         raise ValueError("a block lies outside the FOV")
+
+
+def check_cosets(starts: np.ndarray, cosets: Sequence[np.ndarray], fov, block_shape) -> None:
+    """Raise unless ``cosets`` partition the blocks into groups whose
+    rectangles are pairwise disjoint and inside the FOV: a pixel then meets
+    at most one block of a coset, and the order of the cosets is the order
+    of every pixel's sum."""
+    d1, d2 = fov
+    b1, b2 = block_shape
+    starts = np.asarray(starts)
+    _check_ids_and_fov(starts, cosets, fov, block_shape)
     for c in cosets:
         cover = np.zeros((d1, d2), np.int32)
         for k, j in starts[np.asarray(c)]:
@@ -328,24 +330,86 @@ def check_cosets(starts: np.ndarray, cosets: Sequence[np.ndarray], fov, block_sh
             raise ValueError("blocks within a coset overlap")
 
 
+RECON_TILE = 8   # K3's pixel tile: 8 x 8 pixels a CTA
+
+
+def recon_tile_lists(starts, cosets: Sequence[np.ndarray], fov, block_shape):
+    """K3's block lists, on the host: for every 8 x 8 pixel tile (row-major
+    over the ceil(d1 / 8) x ceil(d2 / 8) tiles) the blocks whose rectangle
+    meets it, ordered by coset (the order of ``cosets``, then the order
+    within it), so every pixel sums its blocks in one fixed order. Returns
+    (offsets (tiles + 1,), blocks (nnz,)) int32 in CSR form."""
+    d1, d2 = fov
+    b1, b2 = block_shape
+    st = np.asarray(starts, dtype=np.int64).reshape(-1, 2)
+    rank = np.empty(len(st), np.int64)
+    order = np.concatenate([np.asarray(c, np.int64) for c in cosets]) if len(cosets) else np.zeros(0, np.int64)
+    rank[order] = np.arange(len(order))
+    t = RECON_TILE
+    tiles_x = -(-d2 // t)
+    n_tiles = -(-d1 // t) * tiles_x
+    ty0, ty1 = st[:, 0] // t, (st[:, 0] + b1 - 1) // t
+    tx0, tx1 = st[:, 1] // t, (st[:, 1] + b2 - 1) // t
+    ntx = tx1 - tx0 + 1
+    cnt = (ty1 - ty0 + 1) * ntx
+    blk = np.repeat(np.arange(len(st)), cnt)
+    local = np.arange(cnt.sum()) - np.repeat(np.cumsum(cnt) - cnt, cnt)
+    tile = (ty0[blk] + local // ntx[blk]) * tiles_x + tx0[blk] + local % ntx[blk]
+    sort = np.lexsort((rank[blk], tile))
+    offsets = np.concatenate([[0], np.cumsum(np.bincount(tile, minlength=n_tiles))])
+    return offsets.astype(np.int32), blk[sort].astype(np.int32)
+
+
+class ReconPlan(NamedTuple):
+    """K3's block geometry on the card, made once per factorization
+    (``prepare_reconstruct``): the starts and the per-tile block lists."""
+
+    starts: torch.Tensor
+    tile_offsets: torch.Tensor
+    tile_blocks: torch.Tensor
+    n_blocks: int
+    fov: Tuple[int, int]
+    block_shape: Tuple[int, int]
+
+
+def prepare_reconstruct(starts, cosets: Sequence[np.ndarray], fov, block_shape,
+                        device) -> ReconPlan:
+    """K3's plan for a block grid: checks that the host ``starts`` lie in
+    the FOV and that the cosets hold every block once, builds the block
+    lists (``recon_tile_lists``) and uploads them with the starts, once.
+    That the blocks of a coset are disjoint is the caller's contract
+    (``BlockGrid.cosets``); the plain twin checks it (``check_cosets``)."""
+    if isinstance(starts, torch.Tensor) and starts.device.type != "cpu":
+        raise ValueError("block_reconstruct: starts must be on the host (numpy or a CPU tensor)")
+    st = np.asarray(starts, dtype=np.int32).reshape(-1, 2)
+    _check_ids_and_fov(st, cosets, fov, block_shape)
+    offsets, blocks = recon_tile_lists(st, cosets, fov, block_shape)
+    dev = torch.device(device)
+    return ReconPlan(
+        torch.from_numpy(st).to(dev), torch.from_numpy(offsets).to(dev),
+        torch.from_numpy(blocks).to(dev), len(st), tuple(fov), tuple(block_shape),
+    )
+
+
 def block_reconstruct_plain(
     panels_c: torch.Tensor,
     temporal: torch.Tensor,
-    starts: torch.Tensor,
+    starts,
     cosets: Sequence[np.ndarray],
     fov: Tuple[int, int],
     block_shape: Tuple[int, int],
 ) -> torch.Tensor:
     """Plain twin of K3: batched panel product + scatter-add (the
     ``BlockSparseMatrix.matmul`` + ``unflatten_fov`` of pmd_array.py:336-338,
-    in C-order rows)."""
+    in C-order rows). ``starts`` (N, 2) on any device."""
     d1, d2 = fov
     b1, b2 = block_shape
-    check_cosets(starts.cpu().numpy(), cosets, fov, block_shape)
+    st_host = starts.cpu().numpy() if isinstance(starts, torch.Tensor) else np.asarray(starts)
+    check_cosets(st_host, cosets, fov, block_shape)
     f = temporal.shape[-1]
     contrib = panels_c @ temporal                                  # (N, p, f)
-    st = starts.to(torch.long)
     dev = panels_c.device
+    st = torch.tensor(st_host, dtype=torch.long, device=dev)
     rows = (st[:, 0, None, None] + torch.arange(b1, device=dev)[None, :, None]) * d2 + (
         st[:, 1, None, None] + torch.arange(b2, device=dev)[None, None, :]
     )
@@ -357,56 +421,46 @@ def block_reconstruct_plain(
 def block_reconstruct(
     panels_c: torch.Tensor,
     temporal: torch.Tensor,
-    starts: torch.Tensor,
+    starts,
     cosets: Sequence[np.ndarray],
     fov: Tuple[int, int],
     block_shape: Tuple[int, int],
+    prepared: Optional[ReconPlan] = None,
 ) -> torch.Tensor:
     """K3: ``sum_b panels_c[b] @ temporal[b]`` overlap-added into a
     (d1, d2, f) canvas at each block's start.
 
     panels_c (N, b1*b2, S) f32 with C-order local rows; temporal (N, S, f)
-    f32; starts (N, 2) int32; ``cosets`` a partition of the block ids into
-    groups of pairwise-disjoint blocks (``BlockGrid.cosets``), launched in
-    order so the sums are deterministic."""
+    f32; starts (N, 2) block starts on the host (numpy or a CPU tensor);
+    ``cosets`` a partition of the block ids into groups of
+    pairwise-disjoint blocks (``BlockGrid.cosets``), whose order fixes the
+    order of every pixel's sum. ``prepared`` is ``prepare_reconstruct``'s
+    plan when the caller reuses it across calls: the call then reads
+    nothing back from the card and uploads nothing. One launch."""
     if panels_c.device.type == "cpu":
         return block_reconstruct_plain(panels_c, temporal, starts, cosets, fov, block_shape)
-    _require_cuda("block_reconstruct", panels_c, temporal, starts)
+    _require_cuda("block_reconstruct", panels_c, temporal)
     d1, d2 = fov
     b1, b2 = block_shape
     n, p, s = panels_c.shape
     if panels_c.dtype != torch.float32 or temporal.dtype != torch.float32:
         raise ValueError("block_reconstruct: panels and temporal must be float32")
-    if starts.dtype != torch.int32 or starts.shape != (n, 2):
-        raise ValueError("block_reconstruct: starts must be (N, 2) int32")
     if p != b1 * b2 or temporal.dim() != 3 or temporal.shape[:2] != (n, s):
         raise ValueError(
             f"block_reconstruct: panels {tuple(panels_c.shape)} / temporal "
             f"{tuple(temporal.shape)} do not match blocks {block_shape}"
         )
+    if prepared is None:
+        prepared = prepare_reconstruct(starts, cosets, fov, block_shape, panels_c.device)
+    elif (prepared.n_blocks, prepared.fov, prepared.block_shape) != (n, (d1, d2), (b1, b2)) or (
+        prepared.starts.device != panels_c.device
+    ):
+        raise ValueError("block_reconstruct: the prepared plan belongs to another block grid")
     f = temporal.shape[2]
-    if s * 64 * 4 > 227 * 1024:
-        raise ValueError(f"block_reconstruct: {s} slots exceed the shared-memory tile")
-    dev = panels_c.device
-    host_ids = [np.asarray(c, dtype=np.int32) for c in cosets]
-    all_ids = np.concatenate(host_ids)
-    if all_ids.size and (all_ids.min() < 0 or all_ids.max() >= n):
-        raise ValueError("block_reconstruct: a coset names a block id out of range")
-    # every write lands inside the canvas (one small sync); disjointness
-    # within a coset is the caller's contract (BlockGrid.cosets), which the
-    # plain twin checks
-    lo, hi1, hi2 = torch.stack(
-        [starts.min(), starts[:, 0].max(), starts[:, 1].max()]
-    ).tolist() if n else (0, 0, 0)
-    if lo < 0 or hi1 + b1 > d1 or hi2 + b2 > d2:
-        raise ValueError("block_reconstruct: a block lies outside the FOV")
-    offsets = np.concatenate([[0], np.cumsum([len(c) for c in host_ids])]).astype(np.int32)
-    ids = torch.from_numpy(all_ids).to(dev)
-    c_offsets = (ctypes.c_int * len(offsets))(*offsets.tolist())
-    out = torch.zeros((d1, d2, f), dtype=torch.float32, device=dev)
+    out = torch.empty((d1, d2, f), dtype=torch.float32, device=panels_c.device)
     code = _library().lmd_block_reconstruct(
-        _ptr(panels_c), _ptr(temporal), _ptr(starts), _ptr(ids),
-        c_offsets, len(host_ids), p, s, f, b2, d2, _ptr(out), _stream(panels_c),
+        _ptr(panels_c), _ptr(temporal), _ptr(prepared.starts), _ptr(prepared.tile_offsets),
+        _ptr(prepared.tile_blocks), d1, d2, b1, b2, s, f, _ptr(out), _stream(panels_c),
     )
     _check_status("block_reconstruct", code)
     block_reconstruct.launches += 1
@@ -419,20 +473,6 @@ block_reconstruct.launches = 0
 # ---------------------------------------------------------------------------
 # K4: batched cyclic-Jacobi eigh
 # ---------------------------------------------------------------------------
-
-_SCHED_CACHE: dict = {}
-
-
-def _jacobi_schedule(k: int, device: torch.device) -> torch.Tensor:
-    """The plain twin's (k - 1, k/2, 2) int32 schedule on ``device``, so the
-    kernel rotates the same pairs at the same steps."""
-    key = (k, str(device))
-    got = _SCHED_CACHE.get(key)
-    if got is None:
-        got = torch.from_numpy(_jacobi_tables(k)).to(device)
-        _SCHED_CACHE[key] = got
-    return got
-
 
 def jacobi_eigh(sym: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4: eigendecomposition of a batch of symmetric (n, k, k) float32
@@ -453,10 +493,8 @@ def jacobi_eigh(sym: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     vecs = torch.empty((n, k, k), dtype=torch.float32, device=dev)
     if n == 0:
         return vals, vecs
-    k_even = k + (k % 2)
     code = _library().lmd_jacobi_eigh(
-        _ptr(sym), n, k, _ptr(_jacobi_schedule(k_even, dev)), jacobi_sweeps(k),
-        _ptr(vals), _ptr(vecs), _stream(sym),
+        _ptr(sym), n, k, jacobi_sweeps(k), _ptr(vals), _ptr(vecs), _stream(sym),
     )
     _check_status("jacobi_eigh", code)
     jacobi_eigh.launches += 1

@@ -17,6 +17,7 @@ import scipy.sparse
 import torch
 
 from localmd_tpu_torch.blocksparse import BlockSparseMatrix
+from localmd_tpu_torch.config import resolve_device
 from localmd_tpu_torch.ops import kernels
 from localmd_tpu_torch.ops.tiling import BlockGrid, unflatten_fov
 
@@ -94,19 +95,20 @@ class PMDArray:
         self._var_host: Optional[np.ndarray] = None
         self._rs_dev = None
         self._panels_c = None
-        self._starts_dev = None
+        self._recon_plan = None
         self.row_indices = np.arange(self.fov_dim1 * self.fov_dim2).reshape(
             (self.fov_dim1, self.fov_dim2), order=self.order
         )
 
     @classmethod
-    def from_reference_state(cls, state: dict, device="cpu") -> "PMDArray":
+    def from_reference_state(cls, state: dict, device="cuda") -> "PMDArray":
         """Build the port's PMDArray from the numpy state of a JAX-package
         PMDArray: ``panels``, ``rows``, ``dense_basis``, ``starts``,
         ``block_shape``, ``counts``, ``r`` (padded), ``s``, ``v``,
         ``k2_keep`` (or None), ``mean_img``, ``std_img`` and optionally
-        ``order`` (default "F")."""
-        dev = torch.device(device)
+        ``order`` (default "F"). The factors go to the card unless
+        ``device="cpu"`` is passed; raises without CUDA."""
+        dev = resolve_device(device)
         order = str(state.get("order", "F"))
         mean_img = np.asarray(state["mean_img"], dtype=np.float32)
         d1, d2 = mean_img.shape
@@ -239,18 +241,23 @@ class PMDArray:
 
     def _reconstruct_standardized(self, temporal: torch.Tensor) -> torch.Tensor:
         """U @ temporal as a (d1, d2, f) image: K3 over the block panels
-        (pmd_array.py:325-360) plus the dense background term."""
+        (pmd_array.py:325-360) plus the dense background term. The C-order
+        panels and, on the card, K3's block lists are made on the first
+        call and kept."""
         u = self._blocksparse
         d1, d2 = self.fov_dim1, self.fov_dim2
         b1, b2 = u.block_shape
         if self._panels_c is None:
             self._panels_c = kernels.panels_f_to_c(u.panels, b1, b2)
-            self._starts_dev = torch.tensor(u.starts, dtype=torch.int32, device=u.panels.device)
+            if self._panels_c.device.type == "cuda":
+                self._recon_plan = kernels.prepare_reconstruct(
+                    u.starts, u.cosets, (d1, d2), (b1, b2), self._panels_c.device
+                )
         nb = u.n_block_cols
         f = temporal.shape[-1]
         t_blocks = temporal[:nb].reshape(u.n_blocks, u.slots, f).contiguous()
         img = kernels.block_reconstruct(
-            self._panels_c, t_blocks, self._starts_dev, u.cosets, (d1, d2), (b1, b2)
+            self._panels_c, t_blocks, u.starts, u.cosets, (d1, d2), (b1, b2), self._recon_plan
         )
         if u.dense_basis.shape[1]:
             img = img + unflatten_fov(u.dense_basis @ temporal[nb:], d1, d2, self.order)

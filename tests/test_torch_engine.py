@@ -112,8 +112,8 @@ def test_rank_simulation_batch_matches_jax_key_tree(dims, num_comps):
 
 def test_threshold_heuristic_deterministic_and_plausible():
     dims = (16, 16, 64)
-    a = te.threshold_heuristic(dims, iters=64, generator=torch.Generator().manual_seed(3))
-    b = te.threshold_heuristic(dims, iters=64, generator=torch.Generator().manual_seed(3))
+    a = te.threshold_heuristic(dims, iters=64, generator=torch.Generator().manual_seed(3), device="cpu")
+    b = te.threshold_heuristic(dims, iters=64, generator=torch.Generator().manual_seed(3), device="cpu")
     assert a == b
     ref = je.threshold_heuristic(dims, iters=64, key=jax.random.PRNGKey(3))
     # independent Monte-Carlo streams: the 5th percentiles agree loosely
@@ -126,7 +126,7 @@ def test_threshold_heuristic_under_override_is_one_simulation():
     noise = np.random.default_rng(1).standard_normal(dims).astype(np.float32)
     sketch = np.random.default_rng(2).standard_normal((40, 11)).astype(np.float32)
     with sketch_override(lambda shape: noise if tuple(shape) == dims else sketch):
-        s_thr, t_thr = te.threshold_heuristic(dims, iters=8, sim_batch=4)
+        s_thr, t_thr = te.threshold_heuristic(dims, iters=8, sim_batch=4, device="cpu")
     sp, tp = te._rank_simulation_batch(t32(noise[None]), t32(sketch[None]), 1)
     assert s_thr == pytest.approx(float(sp[0, 0]), rel=1e-6)
     assert t_thr == pytest.approx(float(tp[0, 0]), rel=1e-6)

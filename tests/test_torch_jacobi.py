@@ -105,6 +105,29 @@ def test_inner_angle_converges_where_jax_outer_angle_stalls(k):
     assert rel_fro(_recon(to_np(vals_t), to_np(vecs_t)), sym) <= 1e-5
 
 
+@pytest.mark.parametrize("apq_mag", [0.0, 1e-15, 1e-5, 1.0, 1e5, 1e15])
+def test_tangent_rotation_is_the_atan2_inner_angle(apq_mag):
+    """``_rotation``'s tangent form (K4's and its Pallas body's) against
+    theta = 0.5 atan2(2 a_pq sign(d), |d|) in float64 on the same float32
+    d = a_qq - a_pp: (c, s) within 1e-6 absolute over a grid with a_pq = 0,
+    d = 0, d < 0 and |d| / |a_pq| from 1e-30 to 1e30; |theta| <= pi/4."""
+    mags = [0.0, 1e-15, 1e-5, 1.0, 1e5, 1e15]
+    diag = np.array(sorted({s * m for m in mags for s in (-1.0, 1.0)}), np.float32)
+    app, aqq, sgn_pq = np.meshgrid(diag, diag, [-1.0, 1.0], indexing="ij")
+    app, aqq = app.ravel(), aqq.ravel()
+    apq = (sgn_pq.ravel() * apq_mag).astype(np.float32)
+    c, s = (to_np(x) for x in tl._rotation(t32(app), t32(aqq), t32(apq)))
+    d = (aqq - app).astype(np.float64)                       # float32 difference, as the form takes it
+    theta = 0.5 * np.arctan2(2.0 * apq.astype(np.float64) * np.where(d >= 0, 1.0, -1.0), np.abs(d))
+    theta = np.where(apq == 0, 0.0, theta)
+    assert (d == 0).any() and (d < 0).any() and (d > 0).any()
+    np.testing.assert_allclose(c, np.cos(theta), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(s, np.sin(theta), rtol=0, atol=1e-6)
+    assert (np.abs(np.arctan2(s.astype(np.float64), c)) <= np.pi / 4 + 1e-7).all()
+    if apq_mag == 0.0:
+        assert (c == 1).all() and (s == 0).all()
+
+
 def test_schedule_rotates_every_pair_once_per_sweep():
     for k in (2, 12, 30, 64):
         sched = tl._jacobi_tables(k)
@@ -115,6 +138,37 @@ def test_schedule_rotates_every_pair_once_per_sweep():
         for step in sched:
             assert sorted(step.reshape(-1).tolist()) == list(range(k))
         np.testing.assert_array_equal(sched, jl._jacobi_tables(k)[0])
+
+
+@pytest.mark.parametrize("kp", [2, 12, 20, 26, 30, 32])
+def test_k4_register_pairs_follow_the_schedule(kp):
+    """K4 keeps its pairs in registers (csrc/jacobi_eigh.cu): slot s holds
+    the circle elements at positions s and kp - 1 - s, each moved one step
+    by ``next_element``; the look-ahead warp reads element x's rotation of
+    the step before from the slot of ``prev_position`` of x's position; a
+    V lane follows its element's position by ``next_position``. Those
+    recurrences, written out here, give the plain twin's schedule over
+    two sweeps."""
+    m1, h = kp - 1, kp // 2
+    next_element = lambda e: 0 if e == 0 else (m1 if e == 1 else e - 1)
+    next_position = lambda p: 0 if p == 0 else (1 if p == m1 else p + 1)
+    prev_position = lambda p: 0 if p == 0 else (m1 if p == 1 else p - 1)
+    slot_of = lambda p: p if p < h else m1 - p
+    sched = tl._jacobi_tables(kp)
+    slots = [[0 if s == 0 else s, m1 - s] for s in range(h)]
+    pos = list(range(kp))
+    for step in range(2 * m1):
+        pairs = sched[step % m1]
+        assert [tuple(sorted(xy)) for xy in slots] == [tuple(p) for p in pairs]
+        for e in range(kp):
+            s = slot_of(pos[e])
+            assert e in pairs[s]                          # a V lane finds its pair
+        before = [tuple(sorted(xy)) for xy in slots]
+        slots = [[next_element(x), next_element(y)] for x, y in slots]
+        pos = [next_position(p) for p in pos]
+        for s, (x, y) in enumerate(slots):                # the look-ahead's sources
+            assert x in before[slot_of(prev_position(s))]
+            assert y in before[slot_of(prev_position(m1 - s))]
 
 
 @pytest.fixture(scope="module")

@@ -5,7 +5,8 @@ Marked ``gpu``; each test skips (in a fixture, not at import) unless
 ``python -m pytest -m gpu --noconftest tests/test_torch_kernels_gpu.py``
 (the shared conftest imports jax). Tolerances:
 K1 mean max|d|/max|ref| 1e-5, sigma rtol 1e-4; K2 and K3 1e-5 relative
-Frobenius; K4 eigenvalues 1e-5 * |lambda_max| of the plain twin's,
+Frobenius; K4 eigenvalues 1e-5 * |lambda_max| of the plain twin's (and of
+float64 cuSOLVER),
 ``V diag(lambda) V^T`` 1e-5 relative Frobenius of the input, and
 ``max|V^T V - I|`` 1e-5."""
 
@@ -85,7 +86,14 @@ def test_v_projection_matches_plain(cuda, dtype, t, d, r):
     assert torch.equal(kernels.v_projection(raw, a, c, prepared), out)
 
 
-@pytest.mark.parametrize("d1,d2,b,s,f", [(128, 96, 32, 20, 130), (60, 52, 15, 5, 7)])
+@pytest.mark.parametrize("d1,d2,b,s,f", [
+    (128, 96, 32, 20, 130), (60, 52, 15, 5, 7),
+    # S from 1 to 40 (16-byte and 4-byte panel rows), f off the 64-frame tile
+    (60, 52, 20, 1, 64), (60, 52, 20, 3, 40), (60, 52, 20, 8, 130), (60, 52, 20, 33, 70),
+    (60, 52, 20, 40, 129),
+    # three blocks a dimension at the snapped tail; odd blocks; 60 = 7.5 tiles
+    (52, 52, 20, 20, 130), (60, 52, 15, 12, 96),
+])
 def test_block_reconstruct_matches_plain(cuda, d1, d2, b, s, f):
     from localmd_tpu_torch.ops import kernels
     from localmd_tpu_torch.ops.tiling import BlockGrid
@@ -94,9 +102,15 @@ def test_block_reconstruct_matches_plain(cuda, d1, d2, b, s, f):
     g = torch.Generator(device=cuda).manual_seed(2)
     panels = torch.randn(grid.n_blocks, b * b, s, generator=g, device=cuda)
     temporal = torch.randn(grid.n_blocks, s, f, generator=g, device=cuda)
-    args = (panels, temporal, torch.as_tensor(grid.starts, device=cuda),
-            [ids for ids, _ in grid.cosets()], (d1, d2), (b, b))
-    assert _rel_fro(kernels.block_reconstruct(*args), kernels.block_reconstruct_plain(*args)) <= 1e-5
+    cosets = [ids for ids, _ in grid.cosets()]
+    args = (panels, temporal, grid.starts, cosets, (d1, d2), (b, b))
+    before = kernels.block_reconstruct.launches
+    out = kernels.block_reconstruct(*args)
+    assert kernels.block_reconstruct.launches == before + 1
+    assert _rel_fro(out, kernels.block_reconstruct_plain(*args)) <= 1e-5
+    # a plan made once serves every call, with the same sums
+    plan = kernels.prepare_reconstruct(grid.starts, cosets, (d1, d2), (b, b), cuda)
+    assert torch.equal(kernels.block_reconstruct(*args, plan), out)
 
 
 @pytest.mark.parametrize("n,k", [(256, 30), (131, 11), (1, 25), (64, 64), (3, 1)])
@@ -121,6 +135,36 @@ def test_jacobi_eigh_matches_plain(cuda, n, k):
     # eigh_descending sends every small eigh on the card to K4
     linalg.eigh_descending(sym)
     assert kernels.jacobi_eigh.launches == before + 2
+
+
+@pytest.mark.parametrize("kind", ["random_psd", "rank_deficient", "repeated", "diagonal"])
+@pytest.mark.parametrize("k", [11, 20, 25, 30, 33, 64])
+def test_jacobi_eigh_spectra_match_plain(cuda, k, kind):
+    """The four spectra of chip_smoke.k4_matrices on both kernels (four
+    warps a matrix for k <= 32, the CTA kernel above), 37 matrices a call,
+    held to the plain twin and to float64 cuSOLVER."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from chip_smoke import k4_matrices
+    from localmd_tpu_torch.ops import kernels, linalg
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    sym = k4_matrices(kind, 37, k, g)
+    before = kernels.jacobi_eigh.launches
+    vals, vecs = kernels.jacobi_eigh(sym)
+    assert kernels.jacobi_eigh.launches == before + 1
+    vals_p, _ = linalg.jacobi_eigh_plain(sym)
+    vals_64 = torch.linalg.eigvalsh(sym.double()).flip(-1)
+    lam = float(vals_64.abs().max())
+    assert float((vals - vals_p).abs().max()) <= 1e-5 * lam
+    assert float((vals.double() - vals_64).abs().max()) <= 1e-5 * lam
+    v64 = vecs.double()
+    recon = (v64 * vals.double()[:, None, :]) @ v64.transpose(1, 2)
+    assert _rel_fro(recon, sym) <= 1e-5
+    eye = torch.eye(k, device=cuda, dtype=torch.float64)
+    assert float((v64.transpose(1, 2) @ v64 - eye).abs().max()) <= 1e-5
 
 
 def _smooth_movie(t, d1, d2, rank=4, seed=3, noise=1e-4):
@@ -176,10 +220,19 @@ def test_block_reconstruct_rejects_out_of_canvas_blocks(cuda):
 
     grid = BlockGrid(60, 52, (20, 20))
     n = grid.n_blocks
-    starts = torch.as_tensor(grid.starts, device=cuda)
+    starts = grid.starts.copy()
     starts[-1, 1] += 1                       # one block past the right edge
+    before = kernels.block_reconstruct.launches
     with pytest.raises(ValueError, match="outside the FOV"):
         kernels.block_reconstruct(
             torch.zeros(n, 400, 2, device=cuda), torch.zeros(n, 2, 3, device=cuda),
             starts, [ids for ids, _ in grid.cosets()], (60, 52), (20, 20),
         )
+    # the starts stay on the host: the wrapper reads nothing back from the card
+    with pytest.raises(ValueError, match="on the host"):
+        kernels.block_reconstruct(
+            torch.zeros(n, 400, 2, device=cuda), torch.zeros(n, 2, 3, device=cuda),
+            torch.as_tensor(grid.starts, device=cuda), [ids for ids, _ in grid.cosets()],
+            (60, 52), (20, 20),
+        )
+    assert kernels.block_reconstruct.launches == before

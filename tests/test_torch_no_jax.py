@@ -13,7 +13,7 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "localmd_tpu_torch")
 # the scripts that drive the port on the card, where jax is not installed
-SCRIPTS = ("chip_smoke.py", "bench_torch.py")
+SCRIPTS = ("chip_smoke.py", "bench_torch.py", "kernel_variants.py")
 FORBIDDEN = ("jax", "jaxlib", "localmd_tpu")
 
 
@@ -132,6 +132,36 @@ def test_pipeline_device_is_explicit(monkeypatch):
         localmd_decomposition(movie, (10, 10), frame_range=300)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         localmd_decomposition(movie, (10, 10), frame_range=300, device="cuda")
+
+
+@pytest.mark.parametrize("entry", ["from_reference_state", "threshold_heuristic"])
+def test_entry_points_default_to_the_card(entry, monkeypatch):
+    """The two entry points that once ran on the CPU by default now take
+    the card and raise without CUDA; ``device="cpu"`` runs them here."""
+    from localmd_tpu_torch import PMDArray, engine
+    from localmd_tpu_torch.ops.tiling import BlockGrid
+
+    grid = BlockGrid(20, 20, (10, 10))
+    n, k, t = grid.n_blocks, 2, 30
+    state = dict(
+        panels=np.zeros((n, 100, k), np.float32), rows=grid.rows, dense_basis=np.zeros((400, 0)),
+        starts=grid.starts, block_shape=(10, 10), counts=np.full(n, k), r=np.eye(n * k, 3),
+        s=np.ones(3), v=np.zeros((3, t)), k2_keep=None, mean_img=np.zeros((20, 20)),
+        std_img=np.ones((20, 20)),
+    )
+    if entry == "from_reference_state":
+        call = lambda **kw: PMDArray.from_reference_state(state, **kw)
+    else:
+        call = lambda **kw: engine.threshold_heuristic((10, 10, t), iters=4, sim_batch=4, **kw)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for kwargs in ({}, dict(device="cuda")):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call(**kwargs)
+    out = call(device="cpu")
+    if entry == "from_reference_state":
+        assert out.shape == (t, 20, 20) and out._blocksparse.panels.device.type == "cpu"
+    else:
+        assert all(np.isfinite(x) for x in out)
 
 
 def test_numerics_policy_has_tf32_off():

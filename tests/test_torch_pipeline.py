@@ -207,7 +207,7 @@ def test_from_reference_state_reconstructs_identical_factors(name, runs):
     from localmd_tpu_torch import PMDArray
 
     _, jax_pmd, _ = runs[name]
-    port = PMDArray.from_reference_state(_reference_state(jax_pmd))
+    port = PMDArray.from_reference_state(_reference_state(jax_pmd), device="cpu")
     ref = np.asarray(jax_pmd.reconstruct_frames(np.arange(jax_pmd.shape[0])))
     assert rel_fro(to_np(port.reconstruct_frames(np.arange(port.shape[0]))), ref) <= 1e-5
     assert rel_fro(port[:, :, :], jax_pmd[:, :, :]) <= 1e-5

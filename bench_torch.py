@@ -8,8 +8,8 @@ bench.make_movie's movie (bench.py:23-63), made on the card from a seeded
 ``torch.Generator``: rank-16 white factors + N(0, 1) noise, uint16 as
 clip(40 x + 1000).
 
-    python3 bench_torch.py [--cell 512_f32|1024_u16|voltage_f32|all] [--runs 10] [--profile]
-                           [--small-eigh k4|cusolver]
+    python3 bench_torch.py [--cell 512_f32|1024_u16|voltage_f32|northstar_u16|all] [--runs 10]
+                           [--profile] [--small-eigh k4|cusolver]
 
 Per cell: one cold call of ``localmd_decomposition``, then ``--runs`` warm
 calls, each timed on the host clock around work that ends in
@@ -24,6 +24,19 @@ device busy ms (union of kernel intervals), idle share, the kernels
 with the most device time, and the device time of each of K1-K4. ``--small-eigh cusolver`` sends the small
 eighs that go to K4 (k <= 64) to ``torch.linalg.eigh`` instead, to set the
 two side by side in one call.
+
+``northstar_u16`` is the JAX package's north-star workload
+(bench_northstar.py:118-131): bench.make_movie's uint16 construction at
+512 x 512 x 30000, written to a raw file in a temporary directory (removed
+at the end) and run from disk with ``num_workers=4``, once with the device
+movie cache ("auto") and once without it. Per setting: a cold call,
+``--runs`` timed calls (three by default for this cell), and with
+``--profile`` one more under the profiler. Beside the walls it reports the
+cached frames, the GB copied host->device (the loader's pinned copies),
+the file's write rate, and the disk-read and pinned host->device rates
+measured alone. With less free disk than the file and ~3 GB of outputs
+need (half the free space at most), T is cut, to no fewer than 8192
+frames.
 """
 
 from __future__ import annotations
@@ -31,8 +44,10 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -60,6 +75,140 @@ CELLS = {
 }
 
 
+# bench_northstar.py:118-131: the JAX package's north star, a 512 x 512 x
+# 30000 uint16 movie streamed from a raw file
+NORTHSTAR_SHAPE = (30000, 512, 512)
+NORTHSTAR_BLOCKS = (32, 32)
+NORTHSTAR_CONFIG = dict(
+    frame_range=4096, max_components=20, background_rank=15, temporal_avg_factor=10,
+    sim_iters=250, seed=0, rank_prune=True, num_workers=4,
+)
+NORTHSTAR_MIN_FRAMES = 8192
+OUTPUT_RESERVE_BYTES = 3e9
+
+
+def northstar_frames(directory: str, t: int = NORTHSTAR_SHAPE[0]):
+    """(frames, cut line or None): the most frames up to ``t`` whose raw file
+    plus ~3 GB of outputs fit in half the free space of ``directory``; raises
+    when even 8192 frames do not fit."""
+    _, d1, d2 = NORTHSTAR_SHAPE
+    free = shutil.disk_usage(directory).free
+    fit = int((free / 2 - OUTPUT_RESERVE_BYTES) // (d1 * d2 * 2))
+    if fit >= t:
+        return t, None
+    if fit < NORTHSTAR_MIN_FRAMES:
+        raise RuntimeError(
+            f"{directory}: {free / 1e9:.1f} GB free holds fewer than {NORTHSTAR_MIN_FRAMES} "
+            "north-star frames plus outputs in half of it"
+        )
+    return fit, (f"north-star movie cut to T = {fit} frames (of {t}): {free / 1e9:.1f} GB "
+                 f"free in {directory}, half of it holds the file plus ~3 GB of outputs")
+
+
+def write_movie_file(path: str, t: int, seed: int = 0, piece: int = 2048):
+    """bench.make_movie's uint16 construction at 512 x 512 x ``t``, made on
+    the card in ``piece``-frame pieces from a seeded torch.Generator and
+    written to ``path``. Returns (the movie on the card, seconds of the
+    write including the copies off the card)."""
+    import torch
+
+    _, d1, d2 = NORTHSTAR_SHAPE
+    movie, _ = make_movie("uint16", d1, d2, t, seed=seed, piece=piece)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with open(path, "wb") as fh:
+        for s in range(0, t, piece):
+            fh.write(movie[s : s + piece].cpu().numpy().tobytes())
+    return movie, time.perf_counter() - t0
+
+
+def stream_legs(path: str, t: int, frames: int = 2048) -> dict:
+    """The two legs of streaming measured alone (bench_northstar.py:48-80):
+    reading ``frames`` frames from the file into a pinned buffer through the
+    loader's reader (4 threads; the page cache included, as the pipeline's
+    reads see it), and copying that pinned buffer to the card."""
+    import torch
+
+    from localmd_tpu_torch.dataset import RawBinaryArray
+
+    _, d1, d2 = NORTHSTAR_SHAPE
+    src = RawBinaryArray(path, (t, d1, d2), "uint16")
+    src.set_io_threads(4)
+    n = min(frames, t)
+    host = torch.empty((n, d1, d2), dtype=torch.uint16, pin_memory=True)
+    t0 = time.perf_counter()
+    src.read_into(slice(t - n, t), host.numpy())
+    disk_s = time.perf_counter() - t0
+    dev = torch.empty_like(host, device="cuda")
+    times = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dev.copy_(host, non_blocking=True)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    nbytes = host.numel() * 2
+    return dict(disk_read_GBps=nbytes / disk_s / 1e9,
+                pinned_h2d_GBps=nbytes / float(np.median(times[1:])) / 1e9)
+
+
+def bench_northstar(runs: int, with_profile: bool, card: str) -> dict:
+    """The north-star cell: from a raw file, cache "auto" and False."""
+    import torch
+
+    from localmd_tpu_torch.dataset import RawBinaryArray
+    from localmd_tpu_torch.ops import kernels
+
+    tmp = tempfile.mkdtemp(prefix="northstar_")
+    try:
+        t, cut = northstar_frames(tmp)
+        if cut:
+            print(cut, flush=True)
+        _, d1, d2 = NORTHSTAR_SHAPE
+        path = os.path.join(tmp, "movie.u16.raw")
+        movie, write_s = write_movie_file(path, t)
+        del movie
+        torch.cuda.empty_cache()
+        nbytes = t * d1 * d2 * 2
+        out = dict(cell="northstar_u16", shape=[t, d1, d2], dtype="uint16", card=card,
+                   settings=NORTHSTAR_CONFIG, file_GB=nbytes / 1e9, write_GBps=nbytes / write_s / 1e9,
+                   legs=stream_legs(path, t))
+        for cache in ("auto", False):
+            dataset = RawBinaryArray(path, (t, d1, d2), "uint16")
+            settings = dict(NORTHSTAR_CONFIG, cache_movie=cache)
+            _, cold, _ = timed_run(dataset, blocks=NORTHSTAR_BLOCKS, **settings)
+            walls, stages, peak = [], {}, 0.0
+            kernels.reset_launch_counts()
+            for _ in range(runs):
+                pmd, secs, peak_i = timed_run(dataset, blocks=NORTHSTAR_BLOCKS, **settings)
+                walls.append(secs)
+                peak = max(peak, peak_i)
+                for k, v in pmd.pipeline_timings.items():
+                    stages.setdefault(k, []).append(v)
+            q1, med, q3 = (float(x) for x in np.percentile(walls, [25, 50, 75]))
+            streamed = pmd.pipeline_cache["pinned_bytes"] / 1e9
+            leg = dict(
+                cold_s=cold, warm_s=walls, warm_median_s=med, warm_q1_s=q1, warm_q3_s=q3,
+                mpf_per_s=d1 * d2 * t / med / 1e6,
+                stage_median_s={k: float(np.median(v)) for k, v in stages.items()},
+                cached_frames=pmd.pipeline_cache["cached_frames"],
+                pinned_copies=pmd.pipeline_cache["pinned_copies"], streamed_GB=streamed,
+                achieved_GBps=streamed / med, peak_gib=peak, ranks=pmd.pipeline_ranks,
+                kept_rank=pmd.rank,
+                launches_per_call={k: n / runs for k, n in kernels.launch_counts().items()},
+            )
+            del pmd
+            if with_profile:
+                prof = profile_run(dataset, dict(settings, blocks=NORTHSTAR_BLOCKS))
+                prof["idle_share_at_median_wall"] = 1.0 - prof["device_busy_ms"] / (med * 1e3)
+                leg["profile"] = prof
+            out["cache_" + str(cache).lower()] = leg
+            torch.cuda.empty_cache()
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi reports them."""
     out = subprocess.run(
@@ -84,11 +233,11 @@ def _smooth_unit(x, n_dims: int, width: int, passes: int = 3):
 
 
 def make_movie(dtype: str, d1=512, d2=512, t=2048, rank=16, seed=0, smooth=False,
-               device="cuda"):
+               device="cuda", piece=512):
     """bench.make_movie's construction made on ``device``: spatial
     (d1*d2, rank) and temporal (rank, t) factors of unit-variance normals,
     movie = (spatial @ temporal).T + N(0, 1), uint16 as clip(40 x + 1000)
-    truncated. Filled 512 frames at a time.
+    truncated. Filled ``piece`` frames at a time.
 
     ``smooth=True`` box-filters the factors (9 pixels, 9 frames, three
     passes) so they are smoother than the noise, like footprints and
@@ -106,12 +255,12 @@ def make_movie(dtype: str, d1=512, d2=512, t=2048, rank=16, seed=0, smooth=False
         temporal = _smooth_unit(temporal, 1, 9)
     scale, offset = (1.0, 0.0) if dtype == "float32" else (40.0, 1000.0)
     movie = torch.empty((t, d1, d2), dtype=getattr(torch, dtype), device=dev)
-    for s in range(0, t, 512):
-        chunk = (spatial @ temporal[:, s : s + 512]).T.reshape(-1, d1, d2)
+    for s in range(0, t, piece):
+        chunk = (spatial @ temporal[:, s : s + piece]).T.reshape(-1, d1, d2)
         chunk += torch.randn(chunk.shape, generator=g, device=dev)
         if dtype == "uint16":
             chunk = (chunk * scale + offset).clamp(0, 65535)
-        movie[s : s + 512] = chunk.to(movie.dtype)
+        movie[s : s + piece] = chunk.to(movie.dtype)
 
     def clean(frames):
         return (spatial @ temporal[:, frames]).T.reshape(-1, d1, d2) * scale + offset
@@ -144,19 +293,29 @@ PORT_KERNEL_NAMES = {
 }
 
 
+# CUDA runtime calls that can block the host: syncs, copies (one from
+# pageable memory first waits for its stream) and allocations
+HOST_RUNTIME_CALLS = ("cudaDeviceSynchronize", "cudaStreamSynchronize", "cudaEventSynchronize",
+                      "cudaMemcpyAsync", "cudaMemcpy", "cudaMalloc", "cudaFree", "cudaHostAlloc")
+
+
 def profile_run(movie, settings: dict, top: int = 12) -> dict:
     """One warm call under torch.profiler: wall, device busy time (union of
-    kernel intervals), idle share, the kernels with most device time and
-    the device time of each of the port's four kernels."""
+    kernel intervals), idle share, the kernels with most device time, the
+    device time of each of the port's four kernels, and the CUDA runtime
+    calls that can hold the host (count and host ms each)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, wall, _ = timed_run(movie, **settings)
-    spans, by_name = [], {}
+    spans, by_name, host = [], {}, {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
+            if e.name in HOST_RUNTIME_CALLS:
+                n, us = host.get(e.name, (0, 0.0))
+                host[e.name] = (n + 1, us + e.time_range.end - e.time_range.start)
             continue
         spans.append((e.time_range.start, e.time_range.end))
         by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
@@ -174,6 +333,7 @@ def profile_run(movie, settings: dict, top: int = 12) -> dict:
             kernel: sum(us for name, us in by_name.items() if any(f in name for f in funcs)) / 1e3
             for kernel, funcs in PORT_KERNEL_NAMES.items()
         },
+        host_runtime_calls={name: [n, us / 1e3] for name, (n, us) in sorted(host.items())},
     )
 
 
@@ -214,8 +374,9 @@ def bench_cell(name: str, runs: int, with_profile: bool, card: str) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--cell", default="all", choices=["all", *CELLS])
-    ap.add_argument("--runs", type=int, default=10, help="warm calls per cell")
+    ap.add_argument("--cell", default="all", choices=["all", *CELLS, "northstar_u16"])
+    ap.add_argument("--runs", type=int, default=None,
+                    help="warm calls per cell (default 10; 3 for northstar_u16)")
     ap.add_argument("--profile", action="store_true",
                     help="add one warm call under torch.profiler")
     ap.add_argument("--small-eigh", default="k4", choices=["k4", "cusolver"],
@@ -241,8 +402,11 @@ def main(argv=None) -> int:
 
         linalg.uses_jacobi = lambda device, k: False
     card = card_line()
-    for name in CELLS if args.cell == "all" else [args.cell]:
-        out = bench_cell(name, args.runs, args.profile, card)
+    for name in [*CELLS, "northstar_u16"] if args.cell == "all" else [args.cell]:
+        if name == "northstar_u16":
+            out = bench_northstar(args.runs or 3, args.profile, card)
+        else:
+            out = bench_cell(name, args.runs or 10, args.profile, card)
         out["small_eigh"] = args.small_eigh
         print(json.dumps(out), flush=True)
     return 0

@@ -32,22 +32,39 @@ Phases (each prints one progress line; any failure raises, exit code != 0):
    256 x 256 x 20000 float32, once cold and once warm, then with smoothed
    factors once: shape, ranks, at least one residual window, finite frames
    through K3, every kernel launched, and denoising on the smoothed movie.
+8. from disk: the JAX package's north star (bench_northstar.py:118-131),
+   bench.make_movie's uint16 construction at 512 x 512 x 30000 (15.7 GB)
+   written to a raw file in a temporary directory (removed at the end; T
+   is cut, to no fewer than 8192 frames, when half the free space cannot
+   hold the file and ~3 GB of outputs). The same movie runs card-resident,
+   then from the file with the device movie cache and without it: equal
+   statistics and ``pipeline_ranks``, 512 sampled frames within 1e-5, frames
+   cached, pinned copies made, the native reader in use; then device
+   slicing against the host path on five keys, ``export_tiff`` read back
+   exactly, ``close(materialize=False)`` freeing the factors, and the CLI
+   (compress, info, export) in subprocesses against an in-process run.
 
 The last two lines are a JSON object with one entry per kernel (its
-launches summed over the runs of phases 4 and 7, each counted from 0) and
-the result line ``{"ok": true, "device": {...}}``.
+launches summed over the runs of phases 4, 7 and 8, each counted from 0)
+and the result line ``{"ok": true, "device": {...}}``.
 
-Run from the repository root: ``python3 chip_smoke.py`` (one card).
-``--phases 0,1,2`` runs a subset (the result line needs all of them).
+Run from the repository root: ``python3 chip_smoke.py`` (one card; phase 8
+needs ~19 GB of free temporary disk, or prints its cut). ``--phases 0,1,2``
+runs a subset (the result line needs all of them); ``--frames T`` sets
+phase 8's T.
 Repeated warm timings and a profile: ``bench_torch.py``.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
+import shutil
+import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -66,7 +83,7 @@ KERNELS = {
     "jacobi_eigh": ("localmd_tpu_torch/csrc/jacobi_eigh.cu",
                     "scripts/ablate_jacobi_kernel.py:103"),
 }
-ALL_PHASES = (0, 1, 2, 3, 4, 5, 6, 7)
+ALL_PHASES = (0, 1, 2, 3, 4, 5, 6, 7, 8)
 # K4's cases: the shapes the paths give it -- the rSVD Gram (256 and 225
 # blocks, k = 30), svd_gram_left (k = 20), the threshold Monte-Carlo (131
 # simulations, k = 11, odd), the background rSVD (k = 25) -- and k = 64
@@ -418,7 +435,7 @@ def phase_golden() -> None:
     err_host = float(np.linalg.norm(recon_host - ref) / np.linalg.norm(ref))
     mean_err = float(np.max(np.abs(pmd.mean_img - golden["mean_img"])) / np.abs(golden["mean_img"]).max())
     var_err = float(np.max(np.abs(pmd.var_img - golden["noise_var_img"]) / np.abs(golden["noise_var_img"])))
-    log(f"  golden: recon rel Frobenius {err_k3:.3e} (K3) / {err_host:.3e} (host CSR), "
+    log(f"  golden: recon rel Frobenius {err_k3:.3e} (K3) / {err_host:.3e} (slicing), "
         f"mean max|d|/max|ref| {mean_err:.3e}, var rel {var_err:.3e}, ranks {pmd.pipeline_ranks}")
     for k in before:
         check(after[k] > before[k], f"golden run did not launch {k}")
@@ -523,10 +540,223 @@ def phase_voltage() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 8: from a movie file on disk to an exported movie
+# ---------------------------------------------------------------------------
+
+def timed(fn):
+    """(result, seconds) of ``fn()`` on the host clock, the card drained
+    before and after."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def log_stream_run(label: str, pmd, secs: float, t: int) -> None:
+    cache = pmd.pipeline_cache
+    gb = cache["pinned_bytes"] / 1e9
+    log(f"  {label}: {secs:.4f} s = {512 * 512 * t / secs / 1e6:.1f} Mpf/s; stages "
+        + json.dumps({k: round(v, 4) for k, v in pmd.pipeline_timings.items()})
+        + f"; cached {cache['cached_frames']}/{cache['total_frames']} frames; streamed "
+        f"{gb:.3f} GB in {cache['pinned_copies']} pinned copies = {gb / secs:.3f} GB/s; "
+        f"ranks {pmd.pipeline_ranks}, kept {pmd.rank}")
+
+
+# the kernels a decomposition launches; K3 runs in export_tiff
+STREAM_KERNELS = ("movie_stats", "v_projection", "jacobi_eigh")
+
+
+def check_stream_launches(label: str, launches: dict) -> None:
+    log(f"  launches of the {label} run: {launches}")
+    for name in STREAM_KERNELS:
+        check(launches[name] > 0, f"{label}: the run never launched {name}")
+
+
+def phase_from_disk(frames=None) -> dict:
+    """Phase 8. Returns the launch counts of its two from-disk runs and of
+    the export, each counted from 0 just before it (the card-resident
+    reference run and the comparisons are not counted)."""
+    import torch
+
+    from bench_torch import (
+        NORTHSTAR_BLOCKS,
+        NORTHSTAR_CONFIG,
+        northstar_frames,
+        stream_legs,
+        timed_run,
+        write_movie_file,
+    )
+    from localmd_tpu_torch import RawBinaryArray, TensorMovie, TiffArray, localmd_decomposition
+    from localmd_tpu_torch.io.native import native_available
+    from localmd_tpu_torch.io.tiff import write_tiff_stream
+    from localmd_tpu_torch.ops import kernels
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_northstar_")
+    try:
+        t, cut = northstar_frames(tmp)
+        if frames:
+            t, cut = min(frames, t), f"north-star movie set to T = {min(frames, t)} frames"
+        log(f"phase 8 from disk: 512x512x{t} uint16 raw file, {NORTHSTAR_CONFIG}")
+        if cut:
+            log(cut)
+        path = os.path.join(tmp, "movie.u16.raw")
+        nbytes = t * 512 * 512 * 2
+        movie, write_s = write_movie_file(path, t)
+        log(f"  wrote {nbytes / 1e9:.3f} GB in {write_s:.2f} s = {nbytes / write_s / 1e9:.3f} GB/s")
+        settings = dict(NORTHSTAR_CONFIG)
+
+        # 2. the same movie resident on the card: the reference of the file runs
+        pmd_res, secs, _ = timed_run(TensorMovie(movie), blocks=NORTHSTAR_BLOCKS, **settings)
+        log_stream_run("card-resident", pmd_res, secs, t)
+        del movie
+        torch.cuda.empty_cache()
+
+        # 3. from the file, movie cache "auto"
+        check(native_available(), "the native reader is not built: the timed path would read in Python")
+        src = RawBinaryArray(path, (t, 512, 512), "uint16")
+        kernels.reset_launch_counts()
+        pmd, secs_on, _ = timed_run(src, blocks=NORTHSTAR_BLOCKS, cache_movie="auto", **settings)
+        launches_on = kernels.launch_counts()
+        log_stream_run("from disk, cache auto", pmd, secs_on, t)
+        check_stream_launches("from disk, cache auto", launches_on)
+        check(src._native_reader() is not None and src._fast_reader.n_threads == 4,
+              "the file was not read by the native reader with 4 threads")
+        mean_d = float(np.abs(pmd.mean_img - pmd_res.mean_img).max())
+        std_d = float(np.abs(pmd.var_img - pmd_res.var_img).max())
+        sample = np.sort(np.random.default_rng(0).choice(t, 512, replace=False))
+        err = rel_fro(pmd.reconstruct_frames(sample), pmd_res.reconstruct_frames(sample))
+        log(f"  from disk vs card-resident: mean max|d| {mean_d:.3e}, std max|d| {std_d:.3e}, "
+            f"512 sampled frames rel Frobenius {err:.3e}")
+        check(mean_d <= 1e-5 * float(np.abs(pmd_res.mean_img).max())
+              and std_d <= 1e-5 * float(np.abs(pmd_res.var_img).max()), "from-disk statistics differ")
+        check(pmd.pipeline_ranks == pmd_res.pipeline_ranks,
+              f"ranks {pmd.pipeline_ranks} vs {pmd_res.pipeline_ranks}")
+        check(err <= 1e-5, f"from-disk reconstruction error {err}")
+        check(pmd.pipeline_cache["cached_frames"] > 0, "no frame was cached")
+        check(pmd.pipeline_cache["pinned_copies"] > 0, "no pinned copy was made")
+
+        # 4. from the file, no cache: the V regression streams through the
+        # pinned ring while the factorized SVD runs
+        kernels.reset_launch_counts()
+        pmd_off, secs_off, _ = timed_run(src, blocks=NORTHSTAR_BLOCKS, cache_movie=False, **settings)
+        launches_off = kernels.launch_counts()
+        log_stream_run("from disk, no cache", pmd_off, secs_off, t)
+        check_stream_launches("from disk, no cache", launches_off)
+        err_off = rel_fro(pmd_off.reconstruct_frames(sample), pmd_res.reconstruct_frames(sample))
+        log(f"  no cache vs card-resident: 512 sampled frames rel Frobenius {err_off:.3e}")
+        check(pmd_off.pipeline_ranks == pmd_res.pipeline_ranks,
+              f"no cache: ranks {pmd_off.pipeline_ranks} vs {pmd_res.pipeline_ranks}")
+        check(err_off <= 1e-5, f"no-cache reconstruction error {err_off}")
+        check(pmd_off.pipeline_cache["cached_frames"] == 0, "the no-cache run cached frames")
+        check(pmd_off.pipeline_cache["pinned_copies"] > 0, "no cache: no pinned copy was made")
+        legs = stream_legs(path, t)
+        log(f"  alone: disk read {legs['disk_read_GBps']:.3f} GB/s (native reader, 4 threads, "
+            f"2048 frames into pinned memory), pinned H2D {legs['pinned_h2d_GBps']:.3f} GB/s")
+
+        # 6. slicing on the cached run's array, each case against the host path
+        cases = [
+            ("unaligned ROI [0:512, 100:228, 37:300]", (slice(0, 512), slice(100, 228), slice(37, 300))),
+            ("strided [-5:, ::7, ::9]", (slice(-5, None), slice(None, None, 7), slice(None, None, 9))),
+            (f"fancy pairs [[3, 17, {t - 1}], [5, 400], [7, 511]]", ([3, 17, t - 1], [5, 400], [7, 511])),
+            ("pixel trace [:, 250, 250]", (slice(None), 250, 250)),
+            ("full frame [1000]", (1000,)),
+        ]
+        for name, key in cases:
+            got, secs = timed(lambda: pmd[key])
+            want, host_s = timed(lambda: pmd._getitem_host(key).squeeze().astype(np.float32))
+            err = float(np.linalg.norm((got - want).astype(np.float64)) / np.linalg.norm(want))
+            log(f"  slice {name}: {tuple(got.shape)}, device {secs * 1e3:.2f} ms, host path "
+                f"{host_s * 1e3:.2f} ms, rel Frobenius {err:.3e}")
+            check(got.shape == want.shape and err <= 1e-5, f"slice {name}: error {err}")
+        dev = pmd.slice_device(slice(0, 4), slice(0, 64), slice(0, 64))
+        check(isinstance(dev, torch.Tensor) and dev.is_cuda and tuple(dev.shape) == (4, 64, 64),
+              "slice_device did not return a CUDA tensor")
+
+        # 7. export frames 0-2047 as uint16 and read them back
+        n_exp = min(2048, t)
+        tif = os.path.join(tmp, "denoised.tif")
+        kernels.reset_launch_counts()
+        _, secs = timed(lambda: pmd.export_tiff(tif, frames=range(n_exp), dtype="uint16"))
+        launches_export = kernels.launch_counts()
+        log(f"  launches of the export: {launches_export}")
+        check(launches_export["block_reconstruct"] > 0, "export_tiff never launched block_reconstruct")
+        size = os.path.getsize(tif)
+        back = TiffArray(tif)[0:n_exp]
+        want = np.concatenate([
+            np.clip(np.rint(pmd.reconstruct_frames(np.arange(s, min(s + 512, n_exp))).cpu().numpy()),
+                    0, 65535)
+            for s in range(0, n_exp, 512)
+        ])
+        log(f"  export_tiff {n_exp} frames uint16: {secs:.3f} s = {size / secs / 1e6:.1f} MB/s; "
+            f"read back equal: {np.array_equal(back, want)}")
+        check(back.shape == want.shape and np.array_equal(back, want), "exported TIFF differs")
+        os.remove(tif)
+
+        # 8. close without materializing: the factors' device memory goes
+        u = pmd_off._blocksparse
+        factor_bytes = sum(x.numel() * x.element_size() for x in (
+            u.panels, u.rows, u.dense_basis, pmd_off._r_padded, pmd_off._v_src))
+        before = torch.cuda.memory_allocated()
+        del u
+        pmd_off.close(materialize=False)
+        gc.collect()
+        freed = before - torch.cuda.memory_allocated()
+        log(f"  close(materialize=False): {freed / 1e6:.1f} MB freed, factors {factor_bytes / 1e6:.1f} MB")
+        check(freed >= factor_bytes, f"close freed {freed} bytes of {factor_bytes}")
+        try:
+            pmd_off[0]
+        except RuntimeError:
+            pass
+        else:
+            raise AssertionError("slicing a closed array did not raise")
+        launches = {name: launches_on[name] + launches_off[name] + launches_export[name]
+                    for name in launches_on}
+        del pmd, pmd_off, pmd_res
+        torch.cuda.empty_cache()
+
+        # 9. the CLI on the first 2048 frames as a TIFF, against an in-process run
+        n_cli = min(2048, t)
+        tif_in = os.path.join(tmp, "first.tif")
+        raw = np.memmap(path, dtype=np.uint16, mode="r", shape=(t, 512, 512))
+        write_tiff_stream(tif_in, (raw[i] for i in range(n_cli)), (n_cli, 512, 512), np.uint16)
+        del raw
+        npz, npy = os.path.join(tmp, "cli.npz"), os.path.join(tmp, "cli_recon.npy")
+        cli = [sys.executable, "-m", "localmd_tpu_torch.cli"]
+        bench = ["--blocks", "32", "32", "--frame-range", "1024", "--max-components", "20",
+                 "--background-rank", "15", "--temporal-avg-factor", "10", "--rank-prune",
+                 "--seed", "0"]
+        outs = []
+        for args in (["compress", tif_in, npz, *bench], ["info", npz],
+                     ["export", npz, npy, "--frames", "0", "512"]):
+            (proc, secs) = timed(lambda: subprocess.run(cli + args, capture_output=True, text=True,
+                                                        cwd=HERE, timeout=600))
+            check(proc.returncode == 0, f"cli {args[0]} failed:\n{proc.stderr[-3000:]}")
+            outs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+            log(f"  cli {args[0]}: {secs:.2f} s, {proc.stdout.strip().splitlines()[-1][:300]}")
+        ref = localmd_decomposition(TiffArray(tif_in), (32, 32), frame_range=1024,
+                                    max_components=20, background_rank=15, temporal_avg_factor=10,
+                                    rank_prune=True, seed=0, device="cuda")
+        err = rel_fro(torch.as_tensor(np.load(npy), device="cuda"), ref.reconstruct_frames(np.arange(512)))
+        log(f"  cli vs in-process: rank {outs[1]['rank']} vs {ref.rank}, export rel Frobenius {err:.3e}")
+        check(outs[0]["rank"] == outs[1]["rank"] == ref.rank, "cli rank differs from the in-process run")
+        check(err <= 1e-5, f"cli reconstruction error {err}")
+        del ref
+        torch.cuda.empty_cache()
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(map(str, ALL_PHASES)),
                     help="comma-separated phases to run (default: all)")
+    ap.add_argument("--frames", type=int, default=None,
+                    help="T of phase 8's movie (default 30000, cut to the free disk)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -606,6 +836,13 @@ def main(argv=None) -> int:
         launches_7 = phase_voltage()
         if launches is not None:
             launches = {name: launches[name] + launches_7[name] for name in launches}
+    if 8 in phases:
+        launches_8 = phase_from_disk(args.frames)
+        log(f"  launches from disk (phase 8): {launches_8}")
+        for name, n in launches_8.items():
+            check(n > 0, f"the from-disk path never launched {name}")
+        if launches is not None:
+            launches = {name: launches[name] + launches_8[name] for name in launches}
 
     if phases != set(ALL_PHASES):
         log(f"partial run (phases {sorted(phases)}): no result line")

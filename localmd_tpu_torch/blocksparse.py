@@ -17,7 +17,7 @@ canvas forms as this module.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 import numpy as np
@@ -50,6 +50,7 @@ class BlockSparseMatrix:
     starts: np.ndarray            # (n_blocks, 2) int32
     block_shape: Tuple[int, int]
     cosets: tuple
+    _by_coset: Optional[tuple] = field(default=None, init=False, repr=False, compare=False)
 
     @property
     def n_blocks(self) -> int:
@@ -69,17 +70,36 @@ class BlockSparseMatrix:
 
     # -- products -------------------------------------------------------------
 
+    def _coset_layout(self):
+        """(panels, rows, perm, bounds): the panels and rows with their
+        blocks in coset order, the block ids in that order and each coset's
+        [start, end) in it. Made on the first product and kept, so every
+        coset is a contiguous slice and no product gathers the panels."""
+        if self._by_coset is None:
+            order = np.concatenate([np.asarray(ids, dtype=np.int64) for ids in self.cosets])
+            perm = torch.as_tensor(order, device=self.panels.device)
+            bounds = np.cumsum([0] + [len(ids) for ids in self.cosets]).tolist()
+            self._by_coset = (self.panels.index_select(0, perm), self.rows.index_select(0, perm),
+                              perm, bounds)
+        return self._by_coset
+
     def matmul(self, x: torch.Tensor) -> torch.Tensor:
-        """U @ x for x (R, m) -> (n_pixels, m): per block group, a batched
-        panel matmul scatter-added by ``rows``."""
+        """U @ x for x (R, m) -> (n_pixels, m): a batched panel matmul per
+        block group, scatter-added by ``rows``. The groups follow the
+        cosets, whose blocks are disjoint: no pixel meets two blocks of one
+        ``index_add_``, so the card's atomic adds land in a fixed order
+        (coset by coset) and the product is the same on every run."""
         nb = self.n_block_cols
         m = x.shape[-1]
-        x_block = x[:nb].reshape(self.n_blocks, self.slots, m)
+        panels, rows, perm, bounds = self._coset_layout()
+        x_block = x[:nb].reshape(self.n_blocks, self.slots, m).index_select(0, perm)
         out = torch.zeros((self.n_pixels, m), dtype=torch.float32, device=x.device)
         g = _block_group_size(self.panels.shape[1], m)
-        for s in range(0, self.n_blocks, g):
-            contrib = self.panels[s : s + g] @ x_block[s : s + g]      # (g, p, m)
-            out.index_add_(0, self.rows[s : s + g].reshape(-1), contrib.reshape(-1, m))
+        for a, b in zip(bounds[:-1], bounds[1:]):
+            for s in range(a, b, g):
+                e = min(s + g, b)
+                contrib = panels[s:e] @ x_block[s:e]                    # (g, p, m)
+                out.index_add_(0, rows[s:e].reshape(-1), contrib.reshape(-1, m))
         if self.dense_basis.shape[1]:
             out = out + self.dense_basis @ x[nb:]
         return out

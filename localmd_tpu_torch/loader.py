@@ -1,6 +1,6 @@
-"""Movie loader: statistics, background basis, standardized init frames and
-the streamed V regression (counterpart of localmd_tpu/loader.py for
-in-memory sources).
+"""Movie loader: statistics, background basis, standardized init frames, the
+streamed V regression, host->device streaming and the device movie cache
+(counterpart of localmd_tpu/loader.py).
 
 - The statistics pass walks plain 1024-frame ranges and runs K1
   (``ops.kernels.movie_stats``) on each raw chunk in its native dtype; a
@@ -10,26 +10,44 @@ in-memory sources).
   standardization into one dense projector, A~ = (U P)/std and c = A~^T mean,
   so each raw chunk is one K2 call (``ops.kernels.v_projection``;
   loader.py:1131-1158).
+- Host sources stream on a background thread (``_PrefetchIter``): the
+  worker reads each chunk from disk into a ring of ``depth + 2`` pinned
+  host buffers in the chunk's native dtype (256 MiB pieces), starts the
+  copies to the card on a dedicated copy stream and records an event; the
+  consumer's stream waits on that event before any kernel reads the chunk
+  (``_PinnedStager``). A device tensor is never made from pageable memory.
+- The movie cache (loader.py:535-648): while the stats pass streams the
+  movie, leading chunks are copied straight into one device buffer in
+  their native dtype, as many frames as ``CACHE_FRACTION`` of the free
+  device memory holds; the init frames, the background frames and the V
+  regression then read those frames from the card -- contiguous ranges as
+  views -- instead of streaming them again.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Tuple
+import queue
+import threading
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from localmd_tpu_torch.dataset import as_dataset
+from localmd_tpu_torch.dataset import TensorMovie, as_dataset, frame_list
 from localmd_tpu_torch.ops import kernels
 from localmd_tpu_torch.ops.linalg import truncated_random_svd
 from localmd_tpu_torch.ops.noise import NPERSEG
 from localmd_tpu_torch.ops.tiling import flatten_fov, flatten_image, unflatten_fov
-from localmd_tpu_torch.utils import display, make_generator
+from localmd_tpu_torch.utils import display, is_device_oom, make_generator, transient_budget_bytes
 
 MIN_NOISE_FRAMES = 256   # reference min_allowed_frames
 STATS_CHUNK_FRAMES = 1024
-STREAM_CHUNK_BYTES = 1 << 30  # f32 bytes of one streamed V-regression chunk
+STREAM_CHUNK_BYTES = 1 << 30  # floor of the f32 bytes of one streamed chunk
+STAGE_PIECE_BYTES = 1 << 28   # one pinned ring slot: a host->device copy
+CACHE_FRACTION = 0.5          # share of the free device memory the movie cache may take
+
+_KERNEL_DTYPES = (np.dtype(np.uint16), np.dtype(np.float32))
 
 
 def _chunk_ranges(total: int, chunk: int, merge_tail: bool = True) -> List[Tuple[int, int]]:
@@ -43,6 +61,218 @@ def _chunk_ranges(total: int, chunk: int, merge_tail: bool = True) -> List[Tuple
     ranges = [(i * chunk, (i + 1) * chunk) for i in range(n_chunks - 2)]
     ranges.append(((n_chunks - 2) * chunk, total))
     return ranges
+
+
+class _PrefetchIter:
+    """Background-thread prefetching iterator over ``load_fn(item)``
+    (loader.py:156-248).
+
+    Abandoning the iterator mid-stream (an exception in the consumer loop,
+    e.g. the pipeline's OOM retries) must not leak the worker: ``close()``
+    (also run by GC) sets the stop event and drains the queue, so the worker
+    unblocks, drops its references and exits. With ``eager=True`` the
+    worker starts at construction instead of the first ``__next__``."""
+
+    def __init__(self, make_items: Sequence, load_fn, depth: int = 2,
+                 eager: bool = False):
+        self._q: "queue.Queue" = queue.Queue(maxsize=depth)
+        self._sentinel = object()
+        self._err: list = []
+        self._stop = threading.Event()
+        self._items = make_items
+        self._load = load_fn
+        self._done = False
+        self._started = False
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        if eager:
+            self._ensure_started()
+
+    def _ensure_started(self) -> None:
+        if not self._started:
+            self._started = True
+            self._thread.start()
+
+    def _put(self, item) -> bool:
+        """put honoring stop; False once the consumer is gone."""
+        while not self._stop.is_set():
+            try:
+                self._q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _worker(self) -> None:
+        try:
+            for item in self._items:
+                if self._stop.is_set() or not self._put(self._load(item)):
+                    return
+        except BaseException as e:  # surface IO errors in the consumer
+            self._err.append(e)
+        finally:
+            self._put(self._sentinel)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self._done or self._stop.is_set():
+            raise StopIteration
+        self._ensure_started()
+        while True:
+            try:
+                got = self._q.get(timeout=0.1)
+                break
+            except queue.Empty:
+                if self._stop.is_set():  # cross-thread close mid-consumption
+                    raise StopIteration
+        if got is self._sentinel:
+            self._done = True
+            if self._err:
+                raise self._err[0]
+            raise StopIteration
+        return got
+
+    def close(self) -> None:
+        stop = getattr(self, "_stop", None)  # __del__-safe if __init__ failed
+        if stop is None:
+            return
+        stop.set()
+        try:
+            while True:
+                self._q.get_nowait()
+        except queue.Empty:
+            pass
+
+    __del__ = close
+
+
+_COPY_STREAMS: dict = {}
+_COPY_STREAMS_LOCK = threading.Lock()
+
+
+def _copy_stream(device: torch.device) -> "torch.cuda.Stream":
+    """The host->device copy stream of ``device``, one per device for the
+    process: the caching allocator keeps a pool per stream, so chunks
+    allocated on one long-lived stream reuse its cached blocks run after
+    run instead of stranding them in the pools of new streams."""
+    with _COPY_STREAMS_LOCK:
+        stream = _COPY_STREAMS.get(device.index)
+        if stream is None:
+            stream = _COPY_STREAMS[device.index] = torch.cuda.Stream(device=device)
+        return stream
+
+
+class _PinnedStager:
+    """Host->device copies through a ring of pinned host buffers and a copy
+    stream, for one stream of chunks.
+
+    ``stage`` runs on the prefetch worker: it makes the loader's device the
+    thread's current device (a new thread starts on device 0) and moves the
+    chunk in pieces of at most ``STAGE_PIECE_BYTES``. For each piece it
+    waits until the ring slot's previous copy has completed (a slot is
+    never refilled while its bytes are still in flight), reads the frames
+    from disk into the slot, and starts the copy into the chunk's device
+    tensor with ``non_blocking=True`` on the copy stream, so the next
+    piece's read overlaps this piece's copy. The event recorded after the
+    last piece marks the whole chunk (one stream runs its copies in order).
+    Pinned memory stays at ``n_slots`` pieces whatever the chunk size;
+    ``release`` drops the ring.
+
+    A ``dest`` the caller passes (the movie cache) was allocated on the
+    consumer's stream, whose queued work may still use its block: the
+    stager is made on the consumer's thread and records an event on that
+    stream, and the copy stream waits on it before the first copy into a
+    ``dest``."""
+
+    def __init__(self, loader: "PMDLoader", n_slots: int):
+        self._loader = loader
+        self.device = loader.device
+        self.stream = _copy_stream(self.device)
+        self._consumer_ready = torch.cuda.Event()
+        self._consumer_ready.record(torch.cuda.current_stream(self.device))
+        frame_bytes = loader.n_pixels * torch.empty(0, dtype=loader.stream_dtype).element_size()
+        self._piece = max(1, STAGE_PIECE_BYTES // frame_bytes)
+        self._slots: List[Optional[torch.Tensor]] = [None] * n_slots
+        self._events: List[Optional[torch.cuda.Event]] = [None] * n_slots
+        self._next = 0
+
+    def _slot(self) -> Tuple[int, torch.Tensor]:
+        i = self._next
+        self._next = (i + 1) % len(self._slots)
+        if self._events[i] is not None:
+            self._events[i].synchronize()
+        if self._slots[i] is None:
+            self._slots[i] = torch.empty(
+                (self._piece,) + tuple(self._loader.shape[1:]),
+                dtype=self._loader.stream_dtype, pin_memory=True,
+            )
+        return i, self._slots[i]
+
+    def stage(self, frames, dest: Optional[torch.Tensor] = None):
+        torch.cuda.set_device(self.device)
+        ids = frame_list(frames, self._loader.shape[0])
+        n = len(ids)
+        contiguous = n > 0 and ids == list(range(ids[0], ids[0] + n))
+        with torch.cuda.stream(self.stream):
+            if dest is None:
+                dest = torch.empty((n,) + tuple(self._loader.shape[1:]),
+                                   dtype=self._loader.stream_dtype, device=self.device)
+            else:
+                # the consumer's stream owns ``dest``: its earlier work there
+                # goes first, and the allocator must not hand the block out
+                # again before these copies have landed
+                self.stream.wait_event(self._consumer_ready)
+                dest.record_stream(self.stream)
+        event = None
+        for a in range(0, n, self._piece):
+            b = min(a + self._piece, n)
+            i, slot = self._slot()
+            host = slot[: b - a]
+            piece = slice(ids[0] + a, ids[0] + b) if contiguous else ids[a:b]
+            self._loader._read_into(piece, host.numpy())
+            with torch.cuda.stream(self.stream):
+                dest[a:b].copy_(host, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(self.stream)
+            self._events[i] = event
+            self._loader._count_copy(host.numel() * host.element_size())
+        return dest, event
+
+    def release(self) -> None:
+        self._slots = [None] * len(self._slots)
+        self._events = [None] * len(self._events)
+
+
+class _StagedChunks(_PrefetchIter):
+    """A ``_PrefetchIter`` whose items are ``(tensor, event)``: each
+    ``__next__`` makes the consumer's stream wait on the copy's event and
+    marks the tensor as used by that stream, so the caching allocator does
+    not give its block to the next copy while K1 or K2 still reads it.
+    ``close`` also releases the pinned ring; queued chunks are dropped by
+    the base class's drain."""
+
+    def __init__(self, items, load_fn, stager: Optional[_PinnedStager], depth: int,
+                 eager: bool = False):
+        self._stager = stager
+        super().__init__(items, load_fn, depth=depth, eager=eager)
+
+    def __next__(self):
+        tensor, event = super().__next__()
+        if event is not None:
+            stream = torch.cuda.current_stream(tensor.device)
+            stream.wait_event(event)
+            tensor.record_stream(stream)
+        return tensor
+
+    def close(self) -> None:
+        super().close()
+        stager = getattr(self, "_stager", None)
+        if stager is not None:
+            stager.release()
+            self._stager = None
+
+    __del__ = close
 
 
 def _rows_to_c(x: torch.Tensor, d1: int, d2: int, order: str) -> torch.Tensor:
@@ -87,6 +317,10 @@ def _fold_projector(a: torch.Tensor, std_flat: torch.Tensor, mean_flat: torch.Te
     return a_tilde, c
 
 
+def _torch_dtype(np_dtype: np.dtype) -> torch.dtype:
+    return torch.from_numpy(np.zeros(0, np_dtype)).dtype
+
+
 class PMDLoader:
     """Owns dataset access, per-pixel statistics and the background basis."""
 
@@ -102,13 +336,19 @@ class PMDLoader:
         seed: Optional[int] = None,
         welch_compat: str = "scipy",
         np_rng=None,
+        num_workers: Optional[int] = None,
+        precomputed: Optional[dict] = None,
+        cache_movie="auto",
     ):
         if welch_compat not in ("scipy", "reference"):
             raise ValueError(
                 f"welch_compat must be 'scipy' or 'reference', got {welch_compat!r}"
             )
         self.dataset = as_dataset(dataset)
-        self.device = torch.device(device)
+        dev = torch.device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        self.device = dev
         self.shape = tuple(int(s) for s in self.dataset.shape)
         self.batch_size = batch_size
         self.order = order
@@ -118,8 +358,46 @@ class PMDLoader:
         self._compute_normalizer = compute_normalizer
         self._np_rng = np_rng if np_rng is not None else np.random
         self._generator = make_generator(seed, self.device)
-        self._initialize_normalizers()
-        self._initialize_background()
+        self.stream_dtype = self._stream_dtype()
+        # the movie cache (loader.py:448-466): "auto" caches as many leading
+        # frames as CACHE_FRACTION of the free device memory holds (on the
+        # CPU, with no memory query, only cache_movie=True caches, and then
+        # everything); False never caches
+        self._cache_policy = cache_movie
+        self._cache: Optional[torch.Tensor] = None
+        self._cache_frames = 0
+        self._cache_building = False
+        self._v_prefetch: Optional[dict] = None
+        # host->device copies of movie frames (all from pinned memory); the
+        # prefetch workers add to these
+        self.transfers = {"pinned_copies": 0, "pinned_bytes": 0}
+        self._transfers_lock = threading.Lock()
+        # threads, not processes: num_workers maps onto the prefetch depth
+        # and the native reader's thread count (loader.py:478-487)
+        self.num_workers = int(num_workers) if num_workers else 0
+        self._prefetch_depth = max(2, min(self.num_workers, 4))
+        if self.num_workers and hasattr(self.dataset, "set_io_threads"):
+            self.dataset.set_io_threads(self.num_workers)
+
+        # checkpoint/resume: skip the statistics and background passes when
+        # a prior run's results are supplied (loader.py:500-510)
+        if precomputed and "mean_img" in precomputed:
+            self.mean_img = self._f32(precomputed["mean_img"])
+            self.std_img = self._f32(precomputed["std_img"])
+        else:
+            self._run_stats_with_oom_retry()
+        if precomputed and "spatial_basis" in precomputed:
+            if self.background_rank > 0:
+                # draw the frames all the same: the pipeline's later numpy
+                # draws (window sampling) must see the RandomState as an
+                # uninterrupted run leaves it
+                self._background_frames()
+            self.spatial_basis = self._f32(precomputed["spatial_basis"])
+        else:
+            self._initialize_background()
+
+    def _f32(self, x) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(x, dtype=np.float32), device=self.device)
 
     @property
     def n_pixels(self) -> int:
@@ -127,20 +405,216 @@ class PMDLoader:
 
     # -- raw access -----------------------------------------------------------
 
+    @property
+    def _device_resident(self) -> bool:
+        return isinstance(self.dataset, TensorMovie) and self.dataset.device == self.device
+
+    def _stream_dtype(self) -> torch.dtype:
+        """The dtype chunks reach the card in: the stored one when K1 and K2
+        read it natively (uint16, float32), else float32."""
+        if isinstance(self.dataset, TensorMovie):
+            dt = self.dataset.dtype
+            return dt if dt in (torch.uint16, torch.float32) else torch.float32
+        raw = np.dtype(getattr(self.dataset, "raw_dtype", None) or self.dataset.dtype)
+        raw = raw.newbyteorder("=")
+        return _torch_dtype(raw if raw in _KERNEL_DTYPES else np.dtype(np.float32))
+
+    def _count_copy(self, nbytes: int) -> None:
+        with self._transfers_lock:
+            self.transfers["pinned_copies"] += 1
+            self.transfers["pinned_bytes"] += int(nbytes)
+
+    def _read_into(self, frames, out: np.ndarray) -> np.ndarray:
+        """Frames of the dataset into the host buffer ``out`` (n, d1, d2)."""
+        if hasattr(self.dataset, "read_into"):
+            return self.dataset.read_into(frames, out)
+        got = np.asarray(self.dataset[frame_list(frames, self.shape[0])])
+        np.copyto(out, got.reshape(out.shape), casting="unsafe")
+        return out
+
+    def _host_chunk(self, frames, dest: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """A host source's frames on the device, read synchronously: on the
+        card through a pinned buffer, on the CPU into ``dest`` or a new
+        buffer."""
+        if self.device.type != "cuda":
+            n = len(frame_list(frames, self.shape[0]))
+            out = dest if dest is not None else torch.empty((n,) + self.shape[1:],
+                                                            dtype=self.stream_dtype)
+            self._read_into(frames, out.numpy())
+            return out
+        out, event = _PinnedStager(self, 2).stage(frames, dest)
+        if event is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(event)
+            out.record_stream(stream)
+        return out
+
+    def _fetch(self, frames, stager: Optional[_PinnedStager] = None,
+               dest: Optional[torch.Tensor] = None):
+        """(chunk, event): the (t, d1, d2) frames in the stream dtype on the
+        device, from the cache or a device-resident movie (a view for a
+        contiguous range), else from the host (staged through ``stager`` on
+        the card, event None otherwise)."""
+        if self._cache_serves(frames):
+            if isinstance(frames, slice):
+                return self._cache[frames], None
+            return TensorMovie(self._cache).gather(frame_list(frames, self.shape[0])), None
+        if self._device_resident:
+            if isinstance(frames, slice):
+                return self.dataset.frames(frames), None
+            return self.dataset.gather(frame_list(frames, self.shape[0])), None
+        if stager is not None:
+            return stager.stage(frames, dest)
+        return self._host_chunk(frames, dest), None
+
     def _load_raw(self, frames) -> torch.Tensor:
-        """(t, d1, d2) native-dtype frames on the device: a slice for a
-        contiguous range, else a gather of the sorted frame list."""
-        if isinstance(frames, slice):
-            return self.dataset.frames(frames, self.device)
-        frames = list(frames)
-        if frames == list(range(frames[0], frames[0] + len(frames))):
-            return self.dataset.frames(slice(frames[0], frames[0] + len(frames)), self.device)
-        return self.dataset.gather(frames, self.device)
+        """(t, d1, d2) frames on the device, read now: a slice for a
+        contiguous range, else a gather of the frame list."""
+        if not isinstance(frames, slice):
+            frames = list(frames)
+            if frames == list(range(frames[0], frames[0] + len(frames))):
+                frames = slice(frames[0], frames[0] + len(frames))
+        return self._fetch(frames)[0]
 
     def _stream_chunk_frames(self) -> int:
-        return max(64, min(self.batch_size, STREAM_CHUNK_BYTES // (self.n_pixels * 4)))
+        """Frames a streamed chunk holds: max(1 GiB, the card's memory / 16)
+        per f32 frame, capped at ``batch_size`` (loader.py:650-658)."""
+        per_frame = self.n_pixels * 4
+        budget = max(STREAM_CHUNK_BYTES, transient_budget_bytes(self.device))
+        return max(64, min(self.batch_size, budget // per_frame))
+
+    def _stream(self, items: Sequence, eager: bool = False, cache_dest: bool = False):
+        """Iterate the device chunks of ``items`` (slices or frame lists).
+        Host sources stream on a prefetch worker, through a pinned ring on
+        the card; chunks the cache or a device-resident movie serves are
+        views. With ``cache_dest`` (the stats pass) a range inside the cache
+        being built is copied straight into it."""
+        items = list(items)
+
+        def dest_of(item):
+            if not cache_dest or self._cache is None or not isinstance(item, slice):
+                return None
+            a, b, _ = item.indices(self.shape[0])
+            return self._cache[a:b] if b <= self._cache.shape[0] else None
+
+        if self._device_resident or all(self._cache_serves(it) for it in items):
+            return (self._fetch(it)[0] for it in items)
+        on_card = self.device.type == "cuda"
+        depth = min(self._prefetch_depth, 2) if on_card else self._prefetch_depth
+        stager = _PinnedStager(self, depth + 2) if on_card else None
+
+        def load(item):
+            return self._fetch(item, stager, dest_of(item))
+
+        return _StagedChunks(items, load, stager, depth=depth, eager=eager)
+
+    def _iter_raw_chunks(self, chunk_frames: Optional[int] = None, merge_tail: bool = True,
+                         eager: bool = False, cache_dest: bool = False):
+        """Native-dtype frame chunks over the whole movie (loader.py:660-724),
+        ranges split at the cache boundary so each chunk is served wholly
+        from the card or wholly from the dataset."""
+        chunk_frames = chunk_frames or self._stream_chunk_frames()
+        ranges = _chunk_ranges(self.shape[0], chunk_frames, merge_tail=merge_tail)
+        c = self._cache_frames
+        if self._cache is not None and 0 < c < self.shape[0]:
+            ranges = [piece for a, b in ranges
+                      for piece in ([(a, c), (c, b)] if a < c < b else [(a, b)])]
+        return self._stream([slice(a, b) for a, b in ranges], eager=eager, cache_dest=cache_dest)
+
+    # -- the device movie cache -------------------------------------------------
+
+    def _plan_cache_frames(self) -> int:
+        """How many leading frames to keep on the device during the stats
+        pass (loader.py:535-583): ``CACHE_FRACTION`` of the free device
+        memory, in whole stats chunks; on the CPU (no memory query) all of
+        them with ``cache_movie=True``, none otherwise."""
+        if self._device_resident or not self._cache_policy:
+            return 0
+        t_total = self.shape[0]
+        if self.device.type != "cuda":
+            return t_total if self._cache_policy is True else 0
+        free, _ = torch.cuda.mem_get_info(self.device)
+        per_frame = self.n_pixels * torch.empty(0, dtype=self.stream_dtype).element_size()
+        n = min(t_total, int(free * CACHE_FRACTION) // per_frame)
+        if n < t_total:
+            n = (n // self.frame_constant) * self.frame_constant
+        # not worth the bookkeeping below a couple of stats chunks
+        if n < min(t_total, 2 * self.frame_constant):
+            return 0
+        return int(n)
+
+    def release_cache(self) -> None:
+        """Drop the movie cache (frees its device memory); later reads
+        stream from the dataset again (loader.py:585-598)."""
+        if self._cache is not None:
+            display(f"Releasing the device movie cache ({self._cache_frames} frames)")
+        self._cache = None
+        self._cache_frames = 0
+        if self._v_prefetch is not None:
+            # its chunk ranges were split at the old cache boundary
+            self._v_prefetch["iter"].close()
+            self._v_prefetch = None
+
+    def _cache_serves(self, frames) -> bool:
+        """True iff ``frames`` lies entirely inside the cached prefix (and
+        the cache is complete)."""
+        if self._cache is None or self._cache_frames == 0 or self._cache_building:
+            return False
+        n = self._cache_frames
+        if isinstance(frames, slice):
+            start, stop, step = frames.indices(self.shape[0])
+            return step == 1 and stop <= n
+        if isinstance(frames, (int, np.integer)):
+            return 0 <= int(frames) < n
+        arr = np.asarray(frames)
+        return arr.size > 0 and int(arr.min()) >= 0 and int(arr.max()) < n
+
+    # -- V-regression stream overlap ---------------------------------------------
+
+    def start_v_prefetch(self) -> bool:
+        """Start the V regression's chunk stream now (loader.py:728-764): its
+        disk reads and copies need nothing but the dataset, so they run
+        while the factorized SVD computes. False when the movie is
+        device-resident or wholly cached, or a stream is already pending."""
+        if self._device_resident or self._v_prefetch is not None:
+            return False
+        if 0 < self.shape[0] <= self._cache_frames:
+            return False
+        it = self._iter_raw_chunks(eager=True)
+        if not isinstance(it, _PrefetchIter):
+            return False
+        self._v_prefetch = {"iter": it, "cache_frames": self._cache_frames}
+        return True
+
+    def _take_v_prefetch(self):
+        """The pending stream, or None when there is none or the cache was
+        dropped after it started (loader.py:766-778)."""
+        h = self._v_prefetch
+        self._v_prefetch = None
+        if h is None:
+            return None
+        if h["cache_frames"] != self._cache_frames:
+            h["iter"].close()
+            return None
+        return h["iter"]
 
     # -- statistics -----------------------------------------------------------
+
+    def _run_stats_with_oom_retry(self) -> None:
+        """The statistics pass; on a device OOM while the cache was up, drop
+        the cache and run the pass again without it (loader.py:782-813)."""
+        for attempt in (0, 1):
+            try:
+                self._initialize_normalizers()
+                return
+            except Exception as e:  # noqa: BLE001
+                cache_was_up = self._cache is not None or self._cache_building
+                if not is_device_oom(e) or attempt or not cache_was_up:
+                    raise
+                display("WARNING: statistics pass hit device OOM; retrying without the movie cache")
+                self._cache_building = False
+                self.release_cache()
+                self._cache_policy = False
 
     def _initialize_normalizers(self) -> None:
         display("Computing video statistics (mean + noise sigma)")
@@ -150,20 +624,37 @@ class PMDLoader:
         mean_acc = torch.zeros((d1, d2), dtype=torch.float32, device=self.device)
         noise_acc = torch.zeros((d1, d2), dtype=torch.float32, device=self.device)
         noise_chunks = 0
+        cache_target = self._plan_cache_frames()
+        if cache_target:
+            self._cache = torch.empty((cache_target, d1, d2), dtype=self.stream_dtype,
+                                      device=self.device)
+        self._cache_building = cache_target > 0
+        pos = 0
         # Unmerged ranges: a tail shorter than MIN_NOISE_FRAMES adds to the
         # mean only, as the reference stats loop does.
-        for a, b in _chunk_ranges(t_total, self.frame_constant, merge_tail=False):
-            raw = self._load_raw(slice(a, b))
-            t_c = b - a
-            with_noise = normalizer_flag and t_c >= MIN_NOISE_FRAMES
-            m, sig = kernels.movie_stats(
-                raw.reshape(t_c, d1 * d2), t_total,
-                compute_noise=with_noise, nperseg=t_c if ref_compat else NPERSEG,
-            )
-            if with_noise:
-                noise_acc = noise_acc + sig.reshape(d1, d2)
-                noise_chunks += 1
-            mean_acc = mean_acc + m.reshape(d1, d2)
+        chunks = self._iter_raw_chunks(self.frame_constant, merge_tail=False, cache_dest=True)
+        try:
+            for raw in chunks:
+                t_c = raw.shape[0]
+                pos += t_c
+                if pos <= cache_target:
+                    self._cache_frames = pos
+                with_noise = normalizer_flag and t_c >= MIN_NOISE_FRAMES
+                m, sig = kernels.movie_stats(
+                    raw.reshape(t_c, d1 * d2), t_total,
+                    compute_noise=with_noise, nperseg=t_c if ref_compat else NPERSEG,
+                )
+                if with_noise:
+                    noise_acc = noise_acc + sig.reshape(d1, d2)
+                    noise_chunks += 1
+                mean_acc = mean_acc + m.reshape(d1, d2)
+        finally:
+            close = getattr(chunks, "close", None)
+            if close is not None:
+                close()
+        self._cache_building = False
+        if self._cache is not None:
+            display(f"Device movie cache: {self._cache_frames}/{t_total} frames (native dtype)")
         self.mean_img = mean_acc
         if normalizer_flag and noise_chunks > 0:
             std = noise_acc / np.float32(noise_chunks)
@@ -175,7 +666,12 @@ class PMDLoader:
 
     # -- background -----------------------------------------------------------
 
-    def _initialize_background(self, n_samples: int = 1000) -> None:
+    def _background_frames(self, n_samples: int = 1000) -> list:
+        t_total = self.shape[0]
+        n = min(n_samples, t_total)
+        return np.sort(self._np_rng.choice(t_total, size=n, replace=False)).tolist()
+
+    def _initialize_background(self) -> None:
         """Rank-``background_rank`` rSVD of <= 1000 random standardized
         frames (loader.py:944-975); basis rows follow ``order``."""
         if self.background_rank <= 0:
@@ -184,14 +680,12 @@ class PMDLoader:
             )
             return
         display("Computing low-rank background basis")
-        t_total = self.shape[0]
-        n = min(n_samples, t_total)
-        frames = np.sort(self._np_rng.choice(t_total, size=n, replace=False)).tolist()
+        frames = self._background_frames()
         d1, d2 = self.shape[1], self.shape[2]
         # frames-major, C-order pixels (the raw layout): the rSVD of the
         # (d, n) matrix is row-permutation equivariant, so only the (d, K)
         # basis is reordered to ``order`` -- no movie-sized transpose
-        x = self._load_raw(frames).reshape(n, d1 * d2).to(torch.float32)
+        x = self._load_raw(frames).reshape(len(frames), d1 * d2).to(torch.float32)
         x = (x - self.mean_img.reshape(-1)) / self.std_img.reshape(-1)
         u, _, _ = truncated_random_svd(x.T, self.background_rank, generator=self._generator)
         self.spatial_basis = _rows_from_c(u, d1, d2, self.order)
@@ -200,10 +694,39 @@ class PMDLoader:
 
     def temporal_crop_with_filter(self, frames) -> Tuple[torch.Tensor, torch.Tensor]:
         """Standardized, background-filtered init frames (d1, d2, T) and the
-        background temporal basis (K, T), on the device."""
-        return standardize_and_filter(
-            self._load_raw(frames), self.mean_img, self.std_img, self.spatial_basis, self.order
-        )
+        background temporal basis (K, T), on the device. Processed in
+        spans of ``_stream_chunk_frames`` frames (loader.py:994-1040), read
+        by the prefetch worker for host sources, each written into one
+        output buffer."""
+        frames = list(frames)
+        t = len(frames)
+        d1, d2 = self.shape[1], self.shape[2]
+        step = self._stream_chunk_frames()
+        spans = list(range(0, t, step))
+        contiguous = frames == list(range(frames[0], frames[0] + t))
+        items = [
+            slice(frames[0] + s, frames[0] + min(s + step, t)) if contiguous else frames[s : s + step]
+            for s in spans
+        ]
+        if len(spans) == 1:
+            return standardize_and_filter(
+                self._load_raw(items[0]), self.mean_img, self.std_img, self.spatial_basis, self.order
+            )
+        buf = torch.empty((d1, d2, t), dtype=torch.float32, device=self.device)
+        tb_chunks = []
+        chunks = self._stream(items)
+        try:
+            for start, raw in zip(spans, chunks):
+                filt, tb = standardize_and_filter(
+                    raw, self.mean_img, self.std_img, self.spatial_basis, self.order
+                )
+                buf[:, :, start : start + filt.shape[2]] = filt
+                tb_chunks.append(tb)
+        finally:
+            close = getattr(chunks, "close", None)
+            if close is not None:
+                close()
+        return buf, torch.cat(tb_chunks, dim=1)
 
     # -- streamed temporal regression -----------------------------------------
 
@@ -221,7 +744,13 @@ class PMDLoader:
         # K2's layout of the projector, made once for every chunk
         prepared = kernels.prepare_projector(a_c) if a_c.is_cuda else None
         results = []
-        for s, e in _chunk_ranges(self.shape[0], self._stream_chunk_frames()):
-            raw = self._load_raw(slice(s, e))
-            results.append(kernels.v_projection(raw.reshape(e - s, d1 * d2), a_c, c, prepared))
+        chunks = self._take_v_prefetch() or self._iter_raw_chunks()
+        try:
+            for raw in chunks:
+                t_c = raw.shape[0]
+                results.append(kernels.v_projection(raw.reshape(t_c, d1 * d2), a_c, c, prepared))
+        finally:
+            close = getattr(chunks, "close", None)
+            if close is not None:
+                close()
         return torch.cat(results, dim=1) if len(results) > 1 else results[0]

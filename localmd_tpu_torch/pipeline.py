@@ -1,7 +1,8 @@
 """End-to-end PMD pipeline on one device: ``localmd_decomposition``
 (counterpart of localmd_tpu/pipeline.py).
 
-  stats (K1) -> background rSVD -> frame sampling -> threshold Monte-Carlo
+  stats (K1, filling the device movie cache) -> background rSVD
+  -> frame sampling -> threshold Monte-Carlo
   -> standardize + background-filter the init frames
   -> batched block decomposition over the whole patch grid: one init
      window, or (``window_chunks`` below the init length) the multi-window
@@ -10,12 +11,20 @@
   -> factorized SVD (only_left) -> streamed V regression (K2)
   -> final SVD reformat -> PMDArray (frames through K3).
 
-The device is explicit: ``device="cuda"`` (the default) raises when CUDA
-is absent. Options the port does not run yet raise ``NotImplementedError``.
+The movie may be in memory, a tensor or a file (``dataset.as_dataset``);
+files stream through the loader's pinned ring. With ``checkpoint_path``
+each stage -- ``stats``, ``background``, ``thresholds``, ``blocks`` (and its
+per-batch ``blocks.part*``), ``projector``, ``v`` -- persists its outputs
+and a rerun with the same configuration resumes after the last one
+(``checkpoint.PipelineCheckpoint``). The device is explicit:
+``device="cuda"`` (the default) raises when CUDA is absent. Options the port
+does not run yet raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import gc
+import hashlib
 import math
 import time
 from typing import Callable, Optional, Tuple
@@ -25,6 +34,7 @@ import torch
 
 from localmd_tpu_torch import config
 from localmd_tpu_torch.blocksparse import BlockSparseMatrix
+from localmd_tpu_torch.checkpoint import PipelineCheckpoint
 from localmd_tpu_torch.dataset import as_dataset
 from localmd_tpu_torch.engine import (
     effective_window_length,
@@ -47,7 +57,14 @@ from localmd_tpu_torch.ops.tiling import (
     update_block_sizes,
 )
 from localmd_tpu_torch.pmd_array import PMDArray
-from localmd_tpu_torch.utils import display, free_bytes, make_generator, normal
+from localmd_tpu_torch.utils import (
+    display,
+    free_bytes,
+    is_device_oom,
+    make_generator,
+    normal,
+    stage_seeds,
+)
 from localmd_tpu_torch.utils.device import TRANSIENT_FLOOR_BYTES
 
 
@@ -121,23 +138,26 @@ def localmd_decomposition(
     """Run the PMD compression/denoising pipeline on ``device``.
 
     The signature is the JAX package's (pipeline.py:139-172) plus
-    ``device``. ``dtype``, ``num_workers``, ``pixel_batch_size`` and
-    ``cache_movie`` are accepted and inert (in-memory sources only);
-    ``mesh``, ``checkpoint_path``, ``profile_dir``, ``aot_warm=True``,
-    denoisers and ``matmul_precision`` other than "highest" raise
-    ``NotImplementedError``.
+    ``device``. ``dataset_obj`` is an array, a tensor, a path (.tif/.tiff/
+    .npy) or a dataset object. ``num_workers`` sets the prefetch depth and
+    the native reader's threads; ``cache_movie`` ("auto", True or False)
+    the device movie cache; ``checkpoint_path`` stage checkpoints.
+    ``dtype`` and ``pixel_batch_size`` are accepted and inert; ``mesh``,
+    ``profile_dir``, ``aot_warm=True``, denoisers and ``matmul_precision``
+    other than "highest" raise ``NotImplementedError``.
 
     The result carries ``pipeline_timings`` (seconds per stage, each stage
     fenced with ``torch.cuda.synchronize`` on the card),
     ``pipeline_ranks`` (the JAX package's: ``final`` is the width of ``s``,
-    the kept count is ``rank``) and ``pipeline_windows`` (init windows
-    and, per block batch, the windows run before the early stop).
+    the kept count is ``rank``), ``pipeline_windows`` (init windows and,
+    per block batch, the windows run before the early stop) and
+    ``pipeline_cache`` (cached frames, total frames, and the loader's
+    pinned host->device copies and bytes).
     """
     dev = config.resolve_device(device)
     config.apply()
     _unsupported(
         mesh=mesh is not None,
-        checkpoint_path=checkpoint_path is not None,
         profile_dir=profile_dir is not None,
         aot_warm=aot_warm is True,
         spatial_denoiser=spatial_denoiser is not None,
@@ -163,7 +183,31 @@ def localmd_decomposition(
         t0[0] = now
 
     np_rng = np.random.RandomState(seed) if seed is not None else np.random
-    gen = make_generator(seed, dev)
+    seeds = stage_seeds(seed, ("thresholds", "blocks", "prune"))
+
+    # content-sensitive arguments are part of the resume fingerprint
+    # (pipeline.py:309-334)
+    pixel_weighting_token = None
+    if pixel_weighting is not None:
+        pw = np.ascontiguousarray(np.asarray(pixel_weighting, dtype=np.float32))
+        pixel_weighting_token = hashlib.sha256(pw.tobytes()).hexdigest()[:16]
+    ckpt = PipelineCheckpoint(
+        checkpoint_path,
+        dict(
+            shape=(t_total, d1, d2), block_sizes=tuple(block_sizes), frame_range=frame_range,
+            max_components=max_components, background_rank=background_rank,
+            sim_conf=sim_conf, max_consecutive_failures=max_consecutive_failures,
+            rank_prune=rank_prune, rank_prune_factor=rank_prune_factor,
+            temporal_avg_factor=temporal_avg_factor, spatial_avg_factor=spatial_avg_factor,
+            order=order, window_chunks=window_chunks, seed=seed, sim_iters=sim_iters,
+            welch_compat=welch_compat, pixel_weighting=pixel_weighting_token,
+        ),
+    )
+    precomputed = {}
+    for stage in ("stats", "background"):
+        if ckpt.has(stage):
+            display(f"Resuming: {stage} stage loaded from checkpoint")
+            precomputed.update(ckpt.load(stage))
 
     load_obj = PMDLoader(
         dataset,
@@ -175,7 +219,14 @@ def localmd_decomposition(
         seed=seed,
         welch_compat=welch_compat,
         np_rng=np_rng,
+        num_workers=num_workers,
+        precomputed=precomputed or None,
+        cache_movie=cache_movie,
     )
+    if not ckpt.has("stats"):
+        ckpt.save("stats", mean_img=load_obj.mean_img, std_img=load_obj.std_img)
+    if not ckpt.has("background"):
+        ckpt.save("background", spatial_basis=load_obj.spatial_basis)
     _mark("stats_and_background")
 
     if window_chunks is None:
@@ -192,19 +243,27 @@ def localmd_decomposition(
 
     b1, b2 = update_block_sizes(tuple(block_sizes), (d1, d2))
 
-    display(f"Running threshold simulations for blocks {b1} x {b2} x {window_chunks}")
-    # as many simulated noise blocks per batch as 1 GiB holds: few, large
-    # batches keep the Monte-Carlo from being launch-bound
-    sim_batch = max(1, min(sim_iters, TRANSIENT_FLOOR_BYTES // (b1 * b2 * window_chunks * 4)))
-    spatial_threshold, temporal_threshold = threshold_heuristic(
-        (b1, b2, window_chunks),
-        num_comps=1,
-        iters=sim_iters,
-        percentile_threshold=sim_conf,
-        generator=gen,
-        sim_batch=sim_batch,
-        device=dev,
-    )
+    if ckpt.has("thresholds"):
+        display("Resuming: thresholds loaded from checkpoint")
+        thr = ckpt.load("thresholds")
+        spatial_threshold = float(thr["spatial_threshold"])
+        temporal_threshold = float(thr["temporal_threshold"])
+    else:
+        display(f"Running threshold simulations for blocks {b1} x {b2} x {window_chunks}")
+        # as many simulated noise blocks per batch as 1 GiB holds: few,
+        # large batches keep the Monte-Carlo from being launch-bound
+        sim_batch = max(1, min(sim_iters, TRANSIENT_FLOOR_BYTES // (b1 * b2 * window_chunks * 4)))
+        spatial_threshold, temporal_threshold = threshold_heuristic(
+            (b1, b2, window_chunks),
+            num_comps=1,
+            iters=sim_iters,
+            percentile_threshold=sim_conf,
+            generator=make_generator(seeds["thresholds"], dev),
+            sim_batch=sim_batch,
+            device=dev,
+        )
+        ckpt.save("thresholds", spatial_threshold=spatial_threshold,
+                  temporal_threshold=temporal_threshold)
     _mark("thresholds")
 
     t_init = len(frames)
@@ -230,66 +289,119 @@ def localmd_decomposition(
         )
     crop_avg_constant = (t_init // temporal_avg_factor) * temporal_avg_factor
 
-    # Standardize + filter only the frames the block stage reads (each
-    # frame's result is independent of the others, so this equals the JAX
-    # package's load-then-crop).
-    display("Loading and filtering initialization frames")
-    data, temporal_basis_crop = load_obj.temporal_crop_with_filter(frames[:crop_avg_constant])
-    if pixel_weighting is not None:
-        data = data * torch.as_tensor(
-            np.asarray(pixel_weighting, dtype=np.float32), device=dev
-        )[:, :, None]
-
     # -- batched block decomposition -----------------------------------------
     grid = block_grid(d1, d2, (b1, b2), order)
     n_blocks = grid.n_blocks
     window_len = min(window_chunks, crop_avg_constant)
     single_window = window_len >= crop_avg_constant
     # every (window,) block's sketch is drawn up front over the global grid,
-    # so results do not depend on the batch size below
+    # so results do not depend on the batch size or on which blocks a
+    # resumed run still has to compute
     if single_window:
         n_windows, sketch_frames = 1, crop_avg_constant
     else:
         wl_eff = effective_window_length(window_len, crop_avg_constant, temporal_avg_factor)
         n_windows, sketch_frames = window_count(crop_avg_constant, wl_eff), wl_eff
-    sketches = normal(
-        (sketch_frames // temporal_avg_factor, max_components + DEFAULT_OVERSAMPLES),
-        gen, dev, batch=(n_windows, n_blocks),
-    )
-    per_block_bytes = b1 * b2 * crop_avg_constant * 4 * 4
-    free = free_bytes(dev)
-    budget = max(int(1e9), int(0.4 * free)) if free is not None else int(1e9)
-    bb = max(1, min(block_batch_size, n_blocks, max(16, budget // per_block_bytes)))
-    display(
-        f"Decomposing {n_blocks} overlapping blocks ({b1}x{b2}, max "
-        f"{max_components} comps/block, {n_windows} window(s)) in batches of {bb}"
-    )
-    panels_parts, counts_parts, temporal_parts, windows_run = [], [], [], []
-    for s in range(0, n_blocks, bb):
-        sl = slice(s, min(s + bb, n_blocks))
-        if single_window:
-            acc, cnt, v_fit = window0_chunk_step(
-                data, grid.starts[sl], sketches[0, sl], b1, b2, max_components,
-                temporal_avg_factor, spatial_avg_factor,
-                spatial_threshold, temporal_threshold,
-                max_consecutive_failures,
-            )
-            windows_run.append(1)
+    windows_run: list = []
+    blocks_ckpt = ckpt.has("blocks")
+    if blocks_ckpt:
+        display("Resuming: blockwise decomposition loaded from checkpoint")
+        loaded = ckpt.load("blocks")
+        panels = torch.as_tensor(loaded["panels"], device=dev)
+        counts = np.asarray(loaded["counts"])
+        v_blocks = torch.as_tensor(loaded["v_blocks"], device=dev)
+        temporal_basis_crop = torch.as_tensor(loaded["temporal_basis_crop"], device=dev)
+    else:
+        sketches = normal(
+            (sketch_frames // temporal_avg_factor, max_components + DEFAULT_OVERSAMPLES),
+            make_generator(seeds["blocks"], dev), dev, batch=(n_windows, n_blocks),
+        )
+        # Standardize + filter only the frames the block stage reads (each
+        # frame's result is independent of the others, so this equals the
+        # JAX package's load-then-crop).
+        display("Loading and filtering initialization frames")
+        try:
+            data, temporal_basis_crop = load_obj.temporal_crop_with_filter(frames[:crop_avg_constant])
+        except Exception as e:  # noqa: BLE001
+            # the movie cache left too little memory for the init buffer:
+            # drop it and retry (pipeline.py:598-607)
+            if not is_device_oom(e) or load_obj._cache is None:
+                raise
+            display("WARNING: init-frame load hit device OOM; retrying without the movie cache")
+            load_obj.release_cache()
+            data, temporal_basis_crop = load_obj.temporal_crop_with_filter(frames[:crop_avg_constant])
+        if pixel_weighting is not None:
+            data = data * torch.as_tensor(
+                np.asarray(pixel_weighting, dtype=np.float32), device=dev
+            )[:, :, None]
+
+        per_block_bytes = b1 * b2 * crop_avg_constant * 4 * 4
+        free = free_bytes(dev)
+        budget = max(int(1e9), int(0.4 * free)) if free is not None else int(1e9)
+        bb = max(1, min(block_batch_size, n_blocks, max(16, budget // per_block_bytes)))
+        display(
+            f"Decomposing {n_blocks} overlapping blocks ({b1}x{b2}, max "
+            f"{max_components} comps/block, {n_windows} window(s)) in batches of {bb}"
+        )
+
+        def run_batch(idx: np.ndarray, ids: torch.Tensor):
+            """One batch of block ids, on the host and on the device (any ids:
+            the sketches are per block)."""
+            if single_window:
+                acc, cnt, v_fit = window0_chunk_step(
+                    data, grid.starts[idx], sketches[0].index_select(0, ids), b1, b2,
+                    max_components, temporal_avg_factor, spatial_avg_factor,
+                    spatial_threshold, temporal_threshold, max_consecutive_failures,
+                )
+                windows_run.append(1)
+            else:
+                acc, cnt, v_fit, ran = windowed_pmd_batched(
+                    extract_patches(data, grid.starts[idx], b1, b2), sketches.index_select(1, ids),
+                    window_len, max_components, spatial_threshold, temporal_threshold,
+                    max_consecutive_failures, temporal_avg_factor, spatial_avg_factor,
+                )
+                windows_run.append(ran)
+            return acc, cnt, v_fit
+
+        parts = []  # (ids, panels, counts, v_blocks), in any order
+        if checkpoint_path is not None:
+            # per-batch parts (pipeline.py:895-942): a rerun computes only
+            # the blocks no part holds
+            for st in ckpt.matching_stages("blocks.part"):
+                d = ckpt.load(st)
+                parts.append((d["idx"],) + tuple(torch.as_tensor(d[k], device=dev)
+                                                  for k in ("panels", "counts", "v_blocks")))
+            done = np.concatenate([p[0] for p in parts]) if parts else np.empty(0, np.int64)
+            missing = np.setdiff1d(np.arange(n_blocks), done)
+            if done.size:
+                display(f"Resuming block stage: {n_blocks - missing.size}/{n_blocks} "
+                        "blocks from per-batch checkpoints")
         else:
-            acc, cnt, v_fit, ran = windowed_pmd_batched(
-                extract_patches(data, grid.starts[sl], b1, b2), sketches[:, sl],
-                window_len, max_components, spatial_threshold, temporal_threshold,
-                max_consecutive_failures, temporal_avg_factor, spatial_avg_factor,
-            )
-            windows_run.append(ran)
-        panels_parts.append(acc)
-        counts_parts.append(cnt)
-        temporal_parts.append(v_fit)
-    del data  # movie-sized; everything below works from the block fits
-    panels = torch.cat(panels_parts, dim=0)
-    counts = torch.cat(counts_parts).cpu().numpy()
-    v_blocks = torch.cat(temporal_parts, dim=0)
-    del panels_parts, temporal_parts
+            missing = np.arange(n_blocks)
+        # one upload: a copy from pageable memory waits for the stream, and
+        # one per batch would stall the host between batches
+        missing_dev = torch.as_tensor(missing, device=dev)
+        for s in range(0, missing.size, bb):
+            idx = missing[s : s + bb]
+            acc, cnt, v_fit = run_batch(idx, missing_dev[s : s + bb])
+            if checkpoint_path is not None:
+                ckpt.save(f"blocks.part{int(idx[0]):06d}", idx=idx, panels=acc, counts=cnt,
+                          v_blocks=v_fit)
+            parts.append((idx, acc, cnt, v_fit))
+        del data  # movie-sized; everything below works from the block fits
+        panels, counts, v_blocks = (torch.cat([p[k] for p in parts], dim=0) for k in (1, 2, 3))
+        all_idx = np.concatenate([p[0] for p in parts])
+        if not np.array_equal(all_idx, np.arange(n_blocks)):
+            # a resumed run's parts come in any order
+            perm = torch.as_tensor(np.argsort(all_idx), device=dev)
+            panels, counts, v_blocks = (x.index_select(0, perm) for x in (panels, counts, v_blocks))
+        counts = counts.cpu().numpy()
+        del parts
+        ckpt.save("blocks", panels=panels, counts=counts, v_blocks=v_blocks,
+                  temporal_basis_crop=temporal_basis_crop)
+        # the whole-stage checkpoint supersedes the per-batch parts
+        for st in ckpt.matching_stages("blocks.part"):
+            ckpt.discard(st)
 
     # -- pyramid-weight + normalize + assemble U -----------------------------
     weights_flat = flatten_image(torch.as_tensor(grid.weights), "F").to(dev)
@@ -316,27 +428,59 @@ def localmd_decomposition(
 
     # -- factorized SVD / rank prune ----------------------------------------
     k_bg = u.dense_basis.shape[1]
-    if rank_prune:
-        min_dim = min(total_rank + k_bg, v_cropped.shape[1])
-        random_mat = normal(
-            (v_cropped.shape[1], int(min_dim * rank_prune_factor)), gen, dev
+
+    def _compute_projector():
+        if ckpt.has("projector"):
+            display("Resuming: mixing matrix loaded from checkpoint")
+            return torch.as_tensor(ckpt.load("projector")["p"], device=dev)
+        if rank_prune:
+            min_dim = min(total_rank + k_bg, v_cropped.shape[1])
+            random_mat = normal(
+                (v_cropped.shape[1], int(min_dim * rank_prune_factor)),
+                make_generator(seeds["prune"], dev), dev,
+            )
+            target_v = v_cropped @ random_mat
+        else:
+            target_v = v_cropped
+        p_ = compute_lowrank_factorized_svd(
+            u, target_v, only_left=True, expected_rank=total_rank + k_bg
         )
-        target_v = v_cropped @ random_mat
-    else:
-        target_v = v_cropped
-    p = compute_lowrank_factorized_svd(
-        u, target_v, only_left=True, expected_rank=total_rank + k_bg
-    )
-    del v_cropped, target_v
-    display(f"Rank after reduction: <= {p.shape[1]}")
-    _mark("factorized_svd")
+        ckpt.save("projector", p=p_)
+        return p_
 
-    display("Running streaming V regression over the full movie")
-    v = load_obj.v_projection(u, p)
-    _mark("v_regression")
-
-    display("Final SVD reformat")
-    r, s_vals, vt, s_keep = final_svd_reformat(p, v, rel_tol=final_rank_tol)
+    # The projector, the V regression and the reformat share one OOM-retry
+    # scope: on a device OOM the movie cache goes, the projector is made
+    # again from the same seed and the frames stream again
+    # (pipeline.py:1314-1376).
+    v_resumed = ckpt.has("v")
+    if not v_resumed:
+        # the V regression's disk reads and copies overlap the factorized SVD
+        load_obj.start_v_prefetch()
+    for attempt in (0, 1):
+        try:
+            p = _compute_projector()
+            display(f"Rank after reduction: <= {p.shape[1]}")
+            _mark("factorized_svd")
+            if v_resumed:
+                display("Resuming: V regression loaded from checkpoint")
+                v = torch.as_tensor(ckpt.load("v")["v"], device=dev)
+            else:
+                display("Running streaming V regression over the full movie")
+                v = load_obj.v_projection(u, p)
+            _mark("v_regression")
+            display("Final SVD reformat")
+            r, s_vals, vt, s_keep = final_svd_reformat(p, v, rel_tol=final_rank_tol)
+            break
+        except Exception as e:  # noqa: BLE001
+            if not is_device_oom(e) or load_obj._cache is None or attempt:
+                raise
+            display("WARNING: factorized SVD / V regression hit device OOM; "
+                    "dropping the movie cache and streaming again")
+            load_obj.release_cache()  # also closes a pending V prefetch
+            gc.collect()
+    del v_cropped
+    if not v_resumed:
+        ckpt.save("v", v=v)
     _mark("final_reformat")
     display(f"Matrix decomposition completed (final rank {int(s_keep.sum())})")
 
@@ -353,4 +497,9 @@ def localmd_decomposition(
         "final": int(s_vals.shape[0]),
     }
     out.pipeline_windows = {"n_windows": n_windows, "run_per_batch": windows_run}
+    out.pipeline_cache = {
+        "cached_frames": int(load_obj._cache_frames),
+        "total_frames": int(t_total),
+        **load_obj.transfers,
+    }
     return out

@@ -1,11 +1,16 @@
 """PMDArray -- lazy array view over the compressed movie ``[U R] s Vt``
 (counterpart of localmd_tpu/pmd_array.py).
 
-Slicing (``pmd[frames, rows, cols]``) follows the reference semantics
-through the host CSR path (pmd_array.py:532-589): the blocked U is compacted
-to scipy CSR with ``k2_keep`` dropping pruned singular-value slots. Device
-frames come from ``reconstruct_frames``, which runs K3 chunk by chunk and
-never builds the full-T (R s) V product.
+Slicing (``pmd[frames, rows, cols]``) follows the reference semantics. While
+the device factors are live it runs on their device (``_getitem_device``,
+pmd_array.py:364-499): only the blocks that meet the requested ROI are
+touched -- a batched ``torch.bmm`` of their panels and temporal slices,
+placed by ``index_put_(accumulate=True)`` with rows and columns outside the
+ROI dropped -- and the frame axis is cut into chunks whose buffers fit the
+device's transient budget. Arrays built from host factors (.npz, scipy)
+or closed ones slice through the host CSR path (pmd_array.py:532-589).
+``reconstruct_frames`` runs K3 chunk by chunk and never builds the full-T
+(R s) V product; ``export_tiff`` streams it into a TIFF.
 """
 
 from __future__ import annotations
@@ -20,8 +25,46 @@ from localmd_tpu_torch.blocksparse import BlockSparseMatrix
 from localmd_tpu_torch.config import resolve_device
 from localmd_tpu_torch.ops import kernels
 from localmd_tpu_torch.ops.tiling import BlockGrid, unflatten_fov
+from localmd_tpu_torch.utils.device import transient_budget_bytes
 
 RECON_CHUNK_FRAMES = 512
+_CLOSED = (
+    "PMDArray was closed with materialize=False before its host factors "
+    "were materialized; no data remains"
+)
+
+# Per-chunk budget of device slicing's transient buffers: the device's
+# transient budget (memory / 16, 1 GiB floor) unless a number here pins it
+# (tests, debugging).
+_SLICE_CANVAS_BUDGET_BYTES = None
+
+
+def _slice_canvas_budget(device) -> int:
+    if _SLICE_CANVAS_BUDGET_BYTES is not None:
+        return _SLICE_CANVAS_BUDGET_BYTES
+    return transient_budget_bytes(device)
+
+
+def _roi_reconstruct(panels_sub, t_sub, starts_rel, bg_rows, bg_t, b1, b2, h, w):
+    """Standardized reconstruction of an (h, w) ROI from the blocks that
+    meet it (pmd_array.py:57-94): a batched panel product, placed by
+    ``index_put_(accumulate=True)``; entries outside the ROI go to one
+    spare row that is dropped. Plus the dense background term.
+
+    panels_sub (k, b1*b2, S) F-order panel rows; t_sub (k, S, f); starts_rel
+    (k, 2) block origins relative to the ROI origin (may be negative or
+    reach past it); bg_rows (h*w, K); bg_t (K, f). Returns (h, w, f)."""
+    dev = panels_sub.device
+    f = t_sub.shape[-1]
+    contrib = torch.bmm(panels_sub, t_sub)                     # (k, p, f)
+    rr = starts_rel[:, 0, None] + torch.arange(b1, device=dev)  # (k, b1)
+    cc = starts_rel[:, 1, None] + torch.arange(b2, device=dev)  # (k, b2)
+    # F-order panel row i + j * b1 lies at (rr[i], cc[j]): index (k, b2, b1)
+    inside = ((rr >= 0) & (rr < h))[:, None, :] & ((cc >= 0) & (cc < w))[:, :, None]
+    flat = torch.where(inside, rr[:, None, :] * w + cc[:, :, None], h * w)
+    canvas = torch.zeros((h * w + 1, f), dtype=torch.float32, device=dev)
+    canvas.index_put_((flat.reshape(-1),), contrib.reshape(-1, f), accumulate=True)
+    return (canvas[: h * w] + bg_rows @ bg_t).reshape(h, w, f)
 
 
 def _host(x) -> np.ndarray:
@@ -43,6 +86,7 @@ class PMDArray:
         std_img,
         counts: Optional[np.ndarray] = None,
         k2_keep: Optional[np.ndarray] = None,
+        device=None,
     ):
         """
         Args:
@@ -56,6 +100,9 @@ class PMDArray:
             k2_keep: optional (K2,) mask of kept singular-value slots; the
                 pipeline zeroes pruned values of ``s`` instead of compacting
                 R and V, and host factors compact through this mask.
+            device: with a scipy ``u``, the device on which
+                ``reconstruct_frames`` runs (the CSR factors are moved
+                there on its first call); None keeps it on the host path.
         """
         self.order = data_order
         self.num_frames, self.fov_dim1, self.fov_dim2 = (int(x) for x in data_shape)
@@ -96,6 +143,8 @@ class PMDArray:
         self._rs_dev = None
         self._panels_c = None
         self._recon_plan = None
+        self._csr_device = None if device is None else resolve_device(device)
+        self._csr_dev = None
         self.row_indices = np.arange(self.fov_dim1 * self.fov_dim2).reshape(
             (self.fov_dim1, self.fov_dim2), order=self.order
         )
@@ -141,6 +190,8 @@ class PMDArray:
 
     def _ensure_csr(self):
         if self._u_csr is None:
+            if self._blocksparse is None:
+                raise RuntimeError(_CLOSED)
             self._u_csr, self._col_map = self._blocksparse.to_csr(self._counts)
         return self._u_csr
 
@@ -152,6 +203,8 @@ class PMDArray:
     def r(self) -> np.ndarray:
         if self._r_compact is None:
             self._ensure_csr()
+            if self._r_padded is None:
+                raise RuntimeError(_CLOSED)
             rc = _host(self._r_padded)[self._col_map, :]
             if self._k2_keep is not None:
                 rc = rc[:, self._k2_keep]
@@ -161,6 +214,8 @@ class PMDArray:
     @property
     def s(self) -> np.ndarray:
         if self._s_host is None:
+            if self._s_src is None:
+                raise RuntimeError(_CLOSED)
             sh = _host(self._s_src)
             if self._k2_keep is not None:
                 sh = sh[self._k2_keep]
@@ -170,6 +225,8 @@ class PMDArray:
     @property
     def v(self) -> np.ndarray:
         if self._v_host is None:
+            if self._v_src is None:
+                raise RuntimeError(_CLOSED)
             vh = _host(self._v_src)
             if self._k2_keep is not None:
                 vh = vh[self._k2_keep]
@@ -179,12 +236,16 @@ class PMDArray:
     @property
     def mean_img(self) -> np.ndarray:
         if self._mean_host is None:
+            if self._mean_src is None:
+                raise RuntimeError(_CLOSED)
             self._mean_host = _host(self._mean_src)
         return self._mean_host
 
     @property
     def var_img(self) -> np.ndarray:
         if self._var_host is None:
+            if self._var_src is None:
+                raise RuntimeError(_CLOSED)
             self._var_host = _host(self._var_src)
         return self._var_host
 
@@ -204,7 +265,10 @@ class PMDArray:
     def rank(self) -> int:
         if self._k2_keep is not None:
             return int(self._k2_keep.sum())
-        return int(np.shape(self._s_src)[0])
+        src = self._s_host if self._s_src is None else self._s_src
+        if src is None:
+            raise RuntimeError(_CLOSED)
+        return int(np.shape(src)[0])
 
     @property
     def _combined_temporal(self) -> np.ndarray:
@@ -212,6 +276,14 @@ class PMDArray:
         if self._combined_temporal_host is None:
             self._combined_temporal_host = (self.r * self.s[None, :]).dot(self.v)
         return self._combined_temporal_host
+
+    def _rs(self) -> torch.Tensor:
+        """(R_padded, K2) = R * s on the factors' device, made once."""
+        if self._rs_dev is None:
+            dev = self._blocksparse.panels.device
+            s = torch.tensor(_host(self._s_src), dtype=torch.float32, device=dev)
+            self._rs_dev = torch.as_tensor(self._r_padded, device=dev) * s[None, :]
+        return self._rs_dev
 
     # -- device reconstruction (K3) --------------------------------------------
 
@@ -221,22 +293,49 @@ class PMDArray:
         (R s) V[:, chunk] and runs K3 -- no full-T product is cached."""
         frame_indices = np.atleast_1d(np.asarray(frame_indices))
         if self._blocksparse is None:
+            if self._csr_device is not None and self._v_src is not None:
+                return self._reconstruct_csr(frame_indices)
             out = self._getitem_host((frame_indices, slice(None), slice(None)))
             return torch.as_tensor(out.reshape((-1, self.fov_dim1, self.fov_dim2)))
-        u = self._blocksparse
-        dev = u.panels.device
-        if self._rs_dev is None:
-            s = torch.as_tensor(_host(self._s_src), dtype=torch.float32, device=dev)
-            self._rs_dev = torch.as_tensor(self._r_padded, device=dev) * s[None, :]
+        dev = self._blocksparse.panels.device
+        rs = self._rs()
         v = torch.as_tensor(self._v_src, device=dev)
         std = torch.as_tensor(self._var_src, device=dev)[..., None]
         mean = torch.as_tensor(self._mean_src, device=dev)[..., None]
         parts = []
         for s0 in range(0, len(frame_indices), RECON_CHUNK_FRAMES):
             sub = torch.as_tensor(frame_indices[s0 : s0 + RECON_CHUNK_FRAMES], device=dev)
-            temporal = self._rs_dev @ v.index_select(1, sub)          # (R, f)
+            temporal = rs @ v.index_select(1, sub)                   # (R, f)
             movie = self._reconstruct_standardized(temporal) * std + mean
-            parts.append(movie.permute(2, 0, 1))
+            parts.append(movie.permute(2, 0, 1).contiguous())
+        return torch.cat(parts, dim=0) if len(parts) > 1 else parts[0]
+
+    def _reconstruct_csr(self, frame_indices: np.ndarray) -> torch.Tensor:
+        """``reconstruct_frames`` of an array built from a scipy U (a .npz)
+        with a ``device``: the host path's U @ ((R s) V[:, frames]) x std +
+        mean as a sparse CSR product there, chunk by chunk. The factors
+        move to the device on the first call and are kept until ``close``."""
+        dev = self._csr_device
+        if self._csr_dev is None:
+            u = self._ensure_csr()
+            self._csr_dev = (
+                torch.sparse_csr_tensor(
+                    torch.as_tensor(u.indptr, dtype=torch.int64),
+                    torch.as_tensor(u.indices, dtype=torch.int64),
+                    torch.as_tensor(u.data, dtype=torch.float32), size=u.shape,
+                ).to(dev),
+                torch.as_tensor((self.r * self.s[None, :]).astype(np.float32), device=dev),
+                torch.as_tensor(self.v.astype(np.float32), device=dev),
+                torch.as_tensor(self.var_img.astype(np.float32), device=dev)[..., None],
+                torch.as_tensor(self.mean_img.astype(np.float32), device=dev)[..., None],
+            )
+        u, rs, v, std, mean = self._csr_dev
+        parts = []
+        for s0 in range(0, len(frame_indices), RECON_CHUNK_FRAMES):
+            sub = torch.as_tensor(frame_indices[s0 : s0 + RECON_CHUNK_FRAMES], device=dev)
+            img = unflatten_fov(u @ (rs @ v.index_select(1, sub)), self.fov_dim1, self.fov_dim2,
+                                self.order)
+            parts.append((img * std + mean).permute(2, 0, 1).contiguous())
         return torch.cat(parts, dim=0) if len(parts) > 1 else parts[0]
 
     def _reconstruct_standardized(self, temporal: torch.Tensor) -> torch.Tensor:
@@ -262,6 +361,139 @@ class PMDArray:
         if u.dense_basis.shape[1]:
             img = img + unflatten_fov(u.dense_basis @ temporal[nb:], d1, d2, self.order)
         return img
+
+    # -- device slicing -----------------------------------------------------------
+
+    def _device_temporal(self, frame_idx) -> torch.Tensor:
+        """(R_padded, f) = (R * s) V[:, frame_idx], computed per call: slicing
+        never builds the (R_padded, T) product (pmd_array.py:364-376)."""
+        v = torch.as_tensor(self._v_src, device=self._blocksparse.panels.device)
+        index = torch.as_tensor(np.asarray(frame_idx, dtype=np.int64), device=v.device)
+        return self._rs() @ v.index_select(1, index)
+
+    def _normalize_key3(self, key):
+        """Split a __getitem__ key into (frames, k1, k2) with the reference's
+        validation (key order [frames, dim1, dim2])."""
+        if len(key) > 3:
+            raise ValueError("Too many indices in __getitem__")
+        frames = key[0]
+        k1 = key[1] if len(key) > 1 else slice(None)
+        k2 = key[2] if len(key) > 2 else slice(None)
+        if frames is None or k1 is None or k2 is None:
+            raise ValueError("Cannot use None for indexing")
+        return frames, k1, k2
+
+    def _pixel_coords(self, used_rows: np.ndarray):
+        """(row, col) image coordinates of global flat pixel ids."""
+        if self.order == "F":
+            return used_rows % self.fov_dim1, used_rows // self.fov_dim1
+        return used_rows // self.fov_dim2, used_rows % self.fov_dim2
+
+    def _roi_blocks(self, used_rows: np.ndarray):
+        """The ROI bounding box (r0, c0, h, w) of the selected pixels and
+        the ids of the blocks that meet it."""
+        r, c = self._pixel_coords(used_rows)
+        r0, r1 = int(r.min()), int(r.max()) + 1
+        c0, c1 = int(c.min()), int(c.max()) + 1
+        b1, b2 = self._blocksparse.block_shape
+        st = np.asarray(self._blocksparse.starts)
+        hit = np.nonzero(
+            (st[:, 0] < r1) & (st[:, 0] + b1 > r0) & (st[:, 1] < c1) & (st[:, 1] + b2 > c0)
+        )[0]
+        return r0, c0, r1 - r0, c1 - c0, hit
+
+    def _slice_pixel_extent(self, used_rows: np.ndarray) -> int:
+        """Pixels of the ROI canvas a slicing chunk allocates: the bounding
+        box of the selection, however few of its pixels are selected
+        (pmd_array.py:390-408)."""
+        _, _, h, w, _ = self._roi_blocks(used_rows)
+        return h * w
+
+    def _slice_frame_bytes(self, used_rows: np.ndarray) -> int:
+        """Device bytes one frame of a slicing chunk allocates: the ROI
+        canvas and its background product (``_slice_pixel_extent`` each),
+        the hit blocks' (k, b1*b2) product -- about four canvases at 50%
+        overlap, which a canvas-only budget (pmd_array.py:491-492) leaves
+        out -- and the temporal column."""
+        _, _, _, _, hit = self._roi_blocks(used_rows)
+        u = self._blocksparse
+        b1, b2 = u.block_shape
+        return 4 * (2 * self._slice_pixel_extent(used_rows) + len(hit) * b1 * b2 + 2 * u.shape[1])
+
+    def _slice_device_chunk(self, used_rows: np.ndarray, frame_idx) -> torch.Tensor:
+        """Standardized (no mean/std) device reconstruction of the pixels in
+        ``used_rows`` (host int array, any shape, global flat ids in
+        ``self.order``) for the frames ``frame_idx`` -> (*used_rows.shape, f)."""
+        u = self._blocksparse
+        dev = u.panels.device
+        temporal = self._device_temporal(frame_idx)            # (R_padded, f)
+        nb = u.n_block_cols
+        f = temporal.shape[1]
+        b1, b2 = u.block_shape
+        r0, c0, h, w, hit = self._roi_blocks(used_rows)
+        hit_t = torch.as_tensor(hit, device=dev)
+        t_blocks = temporal[:nb].reshape(u.n_blocks, u.slots, f)
+        starts_rel = torch.as_tensor(
+            np.asarray(u.starts, dtype=np.int64)[hit] - np.array([r0, c0]), device=dev
+        )
+        ids = torch.as_tensor(self.row_indices[r0 : r0 + h, c0 : c0 + w].reshape(-1), device=dev)
+        canvas = _roi_reconstruct(
+            u.panels.index_select(0, hit_t), t_blocks.index_select(0, hit_t), starts_rel,
+            u.dense_basis.index_select(0, ids), temporal[nb:], b1, b2, h, w,
+        )
+        r, c = self._pixel_coords(used_rows)
+        rel = torch.as_tensor(((r - r0) * w + (c - c0)).reshape(-1), device=dev)
+        return canvas.reshape(h * w, f).index_select(0, rel).reshape(used_rows.shape + (f,))
+
+    def _selection(self, key):
+        """(used_rows, mean_used, var_used, frame_idx) of a key, normalized
+        with numpy on the small ``row_indices`` grid, so fancy pairing,
+        slices, negatives and bounds errors are numpy's own, as on the
+        host path."""
+        frames, k1, k2 = self._normalize_key3(key)
+        k1 = self._parse_int_to_list(k1)
+        k2 = self._parse_int_to_list(k2)
+        used_rows = np.asarray(self.row_indices[k1, k2])
+        frame_idx = np.atleast_1d(np.arange(self.num_frames)[self._parse_int_to_list(frames)])
+        return used_rows, self.mean_img[k1, k2], self.var_img[k1, k2], frame_idx
+
+    def _getitem_device(self, key) -> np.ndarray:
+        """Reference slicing semantics run on the factors' device
+        (pmd_array.py:464-499): only the blocks that meet the ROI are
+        touched, never the CSR export; the frame axis goes in chunks whose
+        buffers fit ``_slice_canvas_budget``."""
+        used_rows, mean_used, var_used, frame_idx = self._selection(key)
+        n_f = int(frame_idx.size)
+        if used_rows.size == 0 or n_f == 0:
+            return np.zeros((n_f,) + used_rows.shape, dtype=np.float32)
+        dev = self._blocksparse.panels.device
+        per_chunk = max(1, _slice_canvas_budget(dev) // self._slice_frame_bytes(used_rows))
+        var_dev = torch.as_tensor(np.asarray(var_used, dtype=np.float32), device=dev)[..., None]
+        mean_dev = torch.as_tensor(np.asarray(mean_used, dtype=np.float32), device=dev)[..., None]
+        parts = []
+        for s in range(0, n_f, per_chunk):
+            std = self._slice_device_chunk(used_rows, frame_idx[s : s + per_chunk])
+            parts.append(_host(torch.movedim(std * var_dev + mean_dev, -1, 0).contiguous()))
+        return parts[0] if len(parts) == 1 else np.concatenate(parts, axis=0)
+
+    def slice_device(self, *key) -> torch.Tensor:
+        """Like ``pmd[frames, rows, cols]``, but the result stays a tensor
+        on the factors' device, frames first and not squeezed
+        (pmd_array.py:501-528); needs the device factors (before
+        ``close()``)."""
+        if self._blocksparse is None:
+            raise RuntimeError(
+                "slice_device needs the device factors; this PMDArray was "
+                "built from host factors or already closed — use __getitem__"
+            )
+        used_rows, mean_used, var_used, frame_idx = self._selection(key)
+        dev = self._blocksparse.panels.device
+        if used_rows.size == 0 or frame_idx.size == 0:
+            return torch.zeros((int(frame_idx.size),) + used_rows.shape, device=dev)
+        var_dev = torch.as_tensor(np.asarray(var_used, dtype=np.float32), device=dev)[..., None]
+        mean_dev = torch.as_tensor(np.asarray(mean_used, dtype=np.float32), device=dev)[..., None]
+        std = self._slice_device_chunk(used_rows, frame_idx)
+        return torch.movedim(std * var_dev + mean_dev, -1, 0).contiguous()
 
     # -- host slicing (reference semantics) --------------------------------------
 
@@ -303,7 +535,88 @@ class PMDArray:
             raise ValueError("Cannot use None for indexing")
         if not isinstance(key, tuple):
             key = (key,)
+        if self._blocksparse is not None:
+            # device factors live: slice on their device, no CSR export
+            return self._getitem_device(key).squeeze().astype(self.dtype)
         return self._getitem_host(key).squeeze().astype(self.dtype)
+
+    # -- resource management ----------------------------------------------------
+
+    def close(self, materialize: bool = True) -> None:
+        """Release the device buffers of this array (pmd_array.py:593-647):
+        the block panels, mixing matrix, V, and the port's own device
+        caches (R s, the C-order panels, K3's block lists).
+
+        With ``materialize=True`` the host factors are made first, so
+        slicing keeps working through the host CSR path. With
+        ``materialize=False`` nothing is copied to the host: the array is
+        unusable afterwards unless its host factors were made earlier.
+        Sources that are numpy arrays (npz- or scipy-built arrays) hold no
+        device memory and survive."""
+        if self._blocksparse is not None:
+            if materialize:
+                self._ensure_csr()
+                _ = self.r, self.v
+            self._blocksparse = None
+        elif materialize and self._v_host is None and self._v_src is not None:
+            _ = self.v
+        if materialize:
+            # per-factor guards keep close() idempotent after an earlier
+            # close(materialize=False), e.g. the context manager's __exit__
+            if self._s_host is not None or self._s_src is not None:
+                _ = self.s
+            if self._mean_host is not None or self._mean_src is not None:
+                _ = self.mean_img
+            if self._var_host is not None or self._var_src is not None:
+                _ = self.var_img
+        self._rs_dev = None
+        self._panels_c = None
+        self._recon_plan = None
+        self._csr_dev = None
+        self._r_padded = None
+
+        def _survivor(src, host):
+            if host is not None:
+                return host
+            return src if isinstance(src, np.ndarray) else None
+
+        self._v_src = _survivor(self._v_src, self._v_host)
+        self._s_src = _survivor(self._s_src, self._s_host)
+        self._mean_src = _survivor(self._mean_src, self._mean_host)
+        self._var_src = _survivor(self._var_src, self._var_host)
+
+    def __enter__(self) -> "PMDArray":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self.close()
+
+    # -- export -----------------------------------------------------------------
+
+    def export_tiff(self, filename: str, frames=None, chunk_frames: int = RECON_CHUNK_FRAMES,
+                    dtype="float32") -> None:
+        """Write the denoised (reconstructed) movie as a multipage TIFF
+        (pmd_array.py:657-692): ``reconstruct_frames`` (K3) chunk by chunk
+        into ``io.tiff.write_tiff_stream``, so the movie is never whole in
+        host memory. An integer ``dtype`` (e.g. "uint16") rounds and clips
+        to its range."""
+        from localmd_tpu_torch.io.tiff import write_tiff_stream
+
+        frame_idx = np.atleast_1d(
+            np.arange(self.num_frames) if frames is None else np.asarray(frames)
+        )
+        out_dt = np.dtype(dtype)
+
+        def _gen():
+            for s in range(0, len(frame_idx), chunk_frames):
+                chunk = self.reconstruct_frames(frame_idx[s : s + chunk_frames])
+                if out_dt.kind in ("u", "i"):
+                    # np.rint's round-half-to-even and np.clip, on the device
+                    info = np.iinfo(out_dt)
+                    chunk = torch.round(chunk).clamp_(info.min, info.max)
+                yield from _host(chunk).astype(out_dt)
+
+        write_tiff_stream(filename, _gen(), (len(frame_idx), self.fov_dim1, self.fov_dim2), out_dt)
 
     # -- serialization ----------------------------------------------------------
 
@@ -313,7 +626,7 @@ class PMDArray:
         save_decomposition(filename, self)
 
     @classmethod
-    def from_npz(cls, filename: str) -> "PMDArray":
+    def from_npz(cls, filename: str, device=None) -> "PMDArray":
         from localmd_tpu_torch.serialization import load_decomposition
 
-        return load_decomposition(filename)
+        return load_decomposition(filename, device)

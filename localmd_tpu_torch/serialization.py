@@ -32,7 +32,9 @@ def save_decomposition(filename: str, movie: PMDArray) -> None:
     )
 
 
-def load_decomposition(filename: str) -> PMDArray:
+def load_decomposition(filename: str, device=None) -> PMDArray:
+    """The factors of a .npz as a host PMDArray; with ``device`` its
+    ``reconstruct_frames`` runs there."""
     data = np.load(filename, allow_pickle=True)
     fmt = str(np.asarray(data["U_format"]))
     if fmt.lower() != "csr":
@@ -52,4 +54,5 @@ def load_decomposition(filename: str) -> PMDArray:
         str(np.asarray(data["fov_order"])),
         data["mean_img"],
         data["noise_var_img"],
+        device=device,
     )

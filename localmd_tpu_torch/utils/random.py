@@ -68,3 +68,14 @@ def make_generator(seed: Optional[int], device) -> torch.Generator:
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
     return gen
+
+
+def stage_seeds(seed: Optional[int], names: Tuple[str, ...]) -> dict:
+    """One generator seed per pipeline stage, drawn from ``seed`` (or from
+    numpy's global RNG when it is None): like the JAX package's key splits
+    (pipeline.py:552, 667, 1130), each stage's draws stay the same whether
+    or not an earlier stage ran or was loaded from a checkpoint."""
+    if seed is None:
+        seed = int(np.random.randint(0, np.iinfo(np.int32).max))
+    states = np.random.SeedSequence(int(seed)).generate_state(len(names))
+    return {name: int(s) for name, s in zip(names, states)}

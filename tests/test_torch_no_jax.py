@@ -43,11 +43,24 @@ def test_package_has_the_ported_modules():
         "__init__.py", "config.py", "utils/random.py", "ops/tiling.py", "ops/pooling.py",
         "ops/roughness.py", "ops/noise.py", "ops/linalg.py", "ops/kernels.py", "ops/_build.py",
         "dataset.py", "loader.py", "engine.py", "blocksparse.py", "factorization.py",
-        "pipeline.py", "pmd_array.py", "serialization.py",
+        "pipeline.py", "pmd_array.py", "serialization.py", "checkpoint.py", "volumetric.py",
+        "cli.py", "io/__init__.py", "io/tiff.py", "io/native.py", "utils/device.py",
     ]:
         assert mod in names, mod
-    for src in ("movie_stats.cu", "v_projection.cu", "block_reconstruct.cu", "jacobi_eigh.cu"):
+    for src in ("movie_stats.cu", "v_projection.cu", "block_reconstruct.cu", "jacobi_eigh.cu",
+                "fastio.cpp"):
         assert os.path.exists(os.path.join(PKG, "csrc", src)), src
+
+
+def test_native_reader_builds_from_the_port_source_into_its_build_dir():
+    """io/native.py compiles the port's own csrc/fastio.cpp into
+    localmd_tpu_torch/_build/, never the JAX package's cpp/libfastio.so."""
+    from localmd_tpu_torch.io import native
+
+    assert native.SRC == os.path.join(PKG, "csrc", "fastio.cpp")
+    assert native.BUILD_DIR == os.path.join(PKG, "_build")
+    assert os.path.dirname(native.library_path()) == native.BUILD_DIR
+    assert "cpp" not in os.path.relpath(native.library_path(), ROOT).split(os.sep)[:1]
 
 
 @pytest.mark.parametrize(
@@ -121,6 +134,27 @@ def test_wrappers_raise_on_non_cpu_tensors_without_cuda(call):
                 torch.zeros(1, 2, dtype=torch.int32, **meta), [np.array([0])], (10, 10), (10, 10),
             )
     assert kernels.launch_counts() == before
+
+
+@pytest.mark.parametrize("entry", ["cli_compress", "cli_export", "volumetric"])
+def test_cli_and_volumetric_default_to_the_card(entry, tmp_path, monkeypatch):
+    """The CLI (``--device cuda`` by default) and ``volumetric_decomposition``
+    raise without CUDA instead of running on the CPU."""
+    from localmd_tpu_torch import volumetric_decomposition
+    from localmd_tpu_torch.cli import main as cli_main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    movie = np.zeros((300, 20, 20), np.uint16)
+    raw = str(tmp_path / "m.bin")
+    movie.tofile(raw)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        if entry == "cli_compress":
+            cli_main(["compress", raw, str(tmp_path / "o.npz"), "--raw-shape", "300", "20", "20",
+                      "--frame-range", "300"])
+        elif entry == "cli_export":
+            cli_main(["export", str(tmp_path / "o.npz"), str(tmp_path / "r.npy")])
+        else:
+            volumetric_decomposition([movie], (10, 10), frame_range=300)
 
 
 def test_pipeline_device_is_explicit(monkeypatch):

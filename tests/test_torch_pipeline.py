@@ -231,7 +231,7 @@ def test_npz_round_trips_between_packages(runs, tmp_path):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(mesh=object()), dict(checkpoint_path="x"), dict(aot_warm=True),
+    dict(mesh=object()), dict(aot_warm=True),
     dict(profile_dir="x"), dict(spatial_denoiser=lambda x: x),
     dict(temporal_denoiser=lambda x: x), dict(matmul_precision="bfloat16"),
 ])

@@ -43,10 +43,24 @@ Phases (each prints one progress line; any failure raises, exit code != 0):
    slicing against the host path on five keys, ``export_tiff`` read back
    exactly, ``close(materialize=False)`` freeing the factors, and the CLI
    (compress, info, export) in subprocesses against an in-process run.
+9. the call's options and the quality tools at full width:
+   ``sim.two_photon_movie(512, 512, 2048)`` made on the card and run with
+   bench.py's configuration, then ``metrics`` (compression ratio, both
+   relative errors, the residual-to-noise ratio in (0.3, 3)) and
+   ``compute_qc_images`` with the PMDArray as source (K3); the same movie
+   with the torch denoiser pair (finite, rank >= 1, K1, K2 and K4
+   launched), and the golden movie with the denoisers and the committed
+   sketches on the card against the CPU (<= 1e-4); the same movie with
+   ``matmul_precision="tensorfloat32"`` (``rel_error_centered`` within 1.1x
+   of the "highest" run's, the setting restored), with ``profile_dir`` (a
+   Chrome trace with CUDA kernel events), the .npz round trip through
+   ``load_decomposition`` with no device (on the card, <= 1e-5 of the
+   in-process frames), and ``widefield_movie()`` and ``voltage_movie()``
+   made on the card, timed.
 
 The last two lines are a JSON object with one entry per kernel (its
-launches summed over the runs of phases 4, 7 and 8, each counted from 0)
-and the result line ``{"ok": true, "device": {...}}``.
+launches summed over the runs of phases 4, 7, 8 and 9, each counted from
+0) and the result line ``{"ok": true, "device": {...}}``.
 
 Run from the repository root: ``python3 chip_smoke.py`` (one card; phase 8
 needs ~19 GB of free temporary disk, or prints its cut). ``--phases 0,1,2``
@@ -83,7 +97,7 @@ KERNELS = {
     "jacobi_eigh": ("localmd_tpu_torch/csrc/jacobi_eigh.cu",
                     "scripts/ablate_jacobi_kernel.py:103"),
 }
-ALL_PHASES = (0, 1, 2, 3, 4, 5, 6, 7, 8)
+ALL_PHASES = (0, 1, 2, 3, 4, 5, 6, 7, 8, 9)
 # K4's cases: the shapes the paths give it -- the rSVD Gram (256 and 225
 # blocks, k = 30), svd_gram_left (k = 20), the threshold Monte-Carlo (131
 # simulations, k = 11, odd), the background rSVD (k = 25) -- and k = 64
@@ -751,6 +765,177 @@ def phase_from_disk(frames=None) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the call's options, metrics, sim and diagnostics
+# ---------------------------------------------------------------------------
+
+def torch_temporal(traces):
+    """(r, t) coarse traces: a 3-tap moving average (tests/test_torch_options.py)."""
+    import torch
+
+    return (traces + torch.roll(traces, 1, dims=-1) + torch.roll(traces, -1, dims=-1)) / 3.0
+
+
+def torch_spatial(frames):
+    """(r, b1, b2) component images: a 3-tap average along the rows."""
+    import torch
+
+    return (frames + torch.roll(frames, 1, 1) + torch.roll(frames, -1, 1)) / 3.0
+
+
+def counted(fn):
+    """(result, launches of each kernel inside ``fn()``, counted from 0)."""
+    from localmd_tpu_torch.ops import kernels
+
+    kernels.reset_launch_counts()
+    out = fn()
+    return out, kernels.launch_counts()
+
+
+def add_launches(total: dict, more: dict) -> dict:
+    return {name: total.get(name, 0) + n for name, n in more.items()}
+
+
+def golden_with_denoisers(device: str):
+    """The golden movie through the pipeline with the denoiser pair and the
+    committed sketches, thresholds pinned (phase 3's settings, but no
+    background): with a rank-2 background removed from this rank-4 movie,
+    two of each block's four coarse components are noise of nearly equal
+    singular values, and the spatial denoiser, acting per component, then
+    depends on the eigh's rotation inside that space (LAPACK against K4's
+    twin on the CPU: 2.6e-4 apart); without it the routes agree to 3e-6
+    (tests/test_torch_options.py)."""
+    import localmd_tpu_torch.pipeline as port_pipeline
+    from localmd_tpu_torch.utils.random import sketch_override
+
+    sketches = np.load(GOLDEN_SKETCHES)
+    movie, T, R = golden_movie()
+    saved = port_pipeline.threshold_heuristic
+    port_pipeline.threshold_heuristic = lambda *a, **k: (1e9, 1e9)
+    try:
+        with sketch_override(lambda shape: sketches["x".join(str(int(x)) for x in shape)]):
+            pmd = port_pipeline.localmd_decomposition(
+                movie, (16, 16), frame_range=T, max_components=R, background_rank=0,
+                temporal_avg_factor=4, welch_compat="reference", seed=0, final_rank_tol=0.0,
+                spatial_denoiser=torch_spatial, temporal_denoiser=torch_temporal, device=device,
+            )
+    finally:
+        port_pipeline.threshold_heuristic = saved
+    return pmd.reconstruct_frames(np.arange(T)).cpu()
+
+
+def phase_options() -> dict:
+    """Phase 9. Returns the launch counts of its pipeline runs and of the
+    metrics and QC pass, each counted from 0 just before it."""
+    import torch
+
+    from bench_torch import timed_run
+    from localmd_tpu_torch import diagnostics, load_decomposition, metrics, sim
+
+    log("phase 9 options, metrics, sim and diagnostics: sim.two_photon_movie 512x512x2048")
+    movie, secs = timed(lambda: sim.two_photon_movie(512, 512, 2048, seed=0))
+    log(f"  two_photon_movie(512, 512, 2048): {secs:.3f} s; mean {float(movie.mean()):.3f}, "
+        f"std {float(movie.std()):.3f}")
+    check(tuple(movie.shape) == (2048, 512, 512) and movie.is_cuda, "sim movie shape or device")
+
+    (pmd, secs, peak), launches = counted(lambda: timed_run(movie))
+    log(f"  sim movie, bench.py's configuration: {secs:.4f} s, peak {peak:.2f} GiB, ranks "
+        f"{pmd.pipeline_ranks}, kept {pmd.rank}; launches {launches}")
+    check(pmd.rank >= 1, "sim movie: rank 0")
+
+    def quality():
+        return [timed(lambda: metrics.compression_ratio(pmd)),
+                timed(lambda: metrics.reconstruction_error(pmd, movie)),
+                timed(lambda: metrics.residual_noise_ratio(pmd, movie)),
+                timed(lambda: diagnostics.compute_qc_images(movie, pmd))]
+
+    parts, quality_launches = counted(quality)
+    (ratio, err, rnr, qc), secs = zip(*parts)
+    log(f"  metrics and QC: compression_ratio {ratio:.3f} ({secs[0]:.3f} s, the host CSR export "
+        f"of U), rel_error {err['rel_error']:.6f}, rel_error_centered "
+        f"{err['rel_error_centered']:.6f} ({secs[1]:.3f} s), residual_noise_ratio {rnr:.6f} "
+        f"({secs[2]:.3f} s); compute_qc_images {secs[3]:.3f} s, image means "
+        + ", ".join(f"{k} {float(np.mean(v)):.4f}" for k, v in qc.items())
+        + f"; launches {quality_launches}")
+    check(0.3 < rnr < 3.0, f"residual_noise_ratio {rnr} outside (0.3, 3)")
+    check(all(v.shape == (512, 512) and np.isfinite(v).all() for v in qc.values()),
+          "QC images not finite")
+    check(quality_launches["block_reconstruct"] > 0, "metrics and QC never launched K3")
+    launches = add_launches(launches, quality_launches)
+
+    (pmd_den, secs, _), den_launches = counted(lambda: timed_run(
+        movie, spatial_denoiser=torch_spatial, temporal_denoiser=torch_temporal))
+    frames = pmd_den.reconstruct_frames(np.arange(512))
+    log(f"  denoisers: {secs:.4f} s, ranks {pmd_den.pipeline_ranks}, kept {pmd_den.rank}; "
+        f"launches {den_launches}")
+    check(pmd_den.rank >= 1 and bool(torch.isfinite(frames).all()), "denoiser run: rank or frames")
+    for name in ("movie_stats", "v_projection", "jacobi_eigh"):
+        check(den_launches[name] > 0, f"denoiser run never launched {name}")
+    launches = add_launches(launches, den_launches)
+    del pmd_den, frames
+    card, cpu = golden_with_denoisers("cuda"), golden_with_denoisers("cpu")
+    err_golden = rel_fro(card, cpu)
+    log(f"  denoisers on the golden movie, card vs CPU: rel Frobenius {err_golden:.3e}")
+    check(err_golden <= 1e-4, f"denoiser golden run: card vs CPU {err_golden}")
+
+    (pmd_tf32, secs, _), tf32_launches = counted(lambda: timed_run(
+        movie, matmul_precision="tensorfloat32"))
+    err_tf32 = metrics.reconstruction_error(pmd_tf32, movie)
+    restored = (torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32)
+    log(f"  matmul_precision tensorfloat32: {secs:.4f} s, ranks {pmd_tf32.pipeline_ranks}, kept "
+        f"{pmd_tf32.rank}, rel_error_centered {err_tf32['rel_error_centered']:.6f} (highest "
+        f"{err['rel_error_centered']:.6f}); after the call {restored}")
+    check(np.isfinite(err_tf32["rel_error_centered"])
+          and err_tf32["rel_error_centered"] <= 1.1 * err["rel_error_centered"],
+          "tensorfloat32 run's error")
+    check(restored == ("highest", False), f"matmul precision not restored: {restored}")
+    launches = add_launches(launches, tf32_launches)
+    del pmd_tf32
+
+    trace_dir = tempfile.mkdtemp(prefix="chip_smoke_profile_")
+    try:
+        _, secs, _ = timed_run(movie, profile_dir=trace_dir)
+        (name,) = os.listdir(trace_dir)
+        with open(os.path.join(trace_dir, name)) as f:
+            events = json.load(f)["traceEvents"]
+        kernel_names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+        from bench_torch import PORT_KERNEL_NAMES
+
+        seen = {k: sum(any(d in n for d in names) for n in kernel_names)
+                for k, names in PORT_KERNEL_NAMES.items()}
+        log(f"  profile_dir: {secs:.4f} s, {name} with {len(events)} events, "
+            f"{len(kernel_names)} CUDA kernel events; the port's kernels in it: {seen}")
+        check(len(kernel_names) > 0, "the profiler trace lists no CUDA kernel event")
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+
+    npz_dir = tempfile.mkdtemp(prefix="chip_smoke_npz_")
+    try:
+        path = os.path.join(npz_dir, "sim.npz")
+        pmd.to_npz(path)
+        loaded = load_decomposition(path)
+        sample = np.arange(0, 2048, 4)
+        err_npz = rel_fro(loaded.reconstruct_frames(sample), pmd.reconstruct_frames(sample))
+        log(f"  .npz round trip: load_decomposition(path) on {loaded.device}, 512 frames rel "
+            f"Frobenius {err_npz:.3e}")
+        check(loaded.device.type == "cuda" and loaded._csr_dev is not None,
+              "load_decomposition did not reconstruct on the card")
+        check(err_npz <= 1e-5, f".npz round trip error {err_npz}")
+    finally:
+        shutil.rmtree(npz_dir, ignore_errors=True)
+    del pmd, movie
+    torch.cuda.empty_cache()
+
+    for label, make in (("widefield_movie() 1024x1024x1024", sim.widefield_movie),
+                        ("voltage_movie() 256x256x20000", sim.voltage_movie)):
+        other, secs = timed(make)
+        log(f"  {label}: {secs:.3f} s, shape {tuple(other.shape)}, mean {float(other.mean()):.3f}")
+        check(other.is_cuda and bool(torch.isfinite(other).all()), f"{label}: not finite")
+        del other
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(map(str, ALL_PHASES)),
@@ -843,6 +1028,13 @@ def main(argv=None) -> int:
             check(n > 0, f"the from-disk path never launched {name}")
         if launches is not None:
             launches = {name: launches[name] + launches_8[name] for name in launches}
+    if 9 in phases:
+        launches_9 = phase_options()
+        log(f"  launches of phase 9: {launches_9}")
+        for name, n in launches_9.items():
+            check(n > 0, f"phase 9 never launched {name}")
+        if launches is not None:
+            launches = add_launches(launches, launches_9)
 
     if phases != set(ALL_PHASES):
         log(f"partial run (phases {sorted(phases)}): no result line")

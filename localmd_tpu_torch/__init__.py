@@ -7,7 +7,11 @@ are hand-written CUDA C++ for sm_90a (``csrc/``), built with nvcc at first
 use; on CPU tensors each wrapper takes its plain PyTorch version. Movies
 come from memory, tensors or files (``dataset``), streamed through pinned
 host buffers; ``python -m localmd_tpu_torch.cli`` compresses, describes
-and exports from the command line.
+and exports from the command line. ``metrics``, ``sim`` and
+``diagnostics`` give quality numbers, synthetic movies and QC images; the
+reference's module names (``decomposition``, ``diagnostic_plots``,
+``evaluation``, ``pmd_loader``, ``pmdarray``, ``preprocessing_utils``) are
+bound as attributes of the package.
 """
 
 from localmd_tpu_torch import config
@@ -35,6 +39,17 @@ from localmd_tpu_torch.pipeline import localmd_decomposition  # noqa: E402
 from localmd_tpu_torch.pmd_array import PMDArray  # noqa: E402
 from localmd_tpu_torch.serialization import load_decomposition, save_decomposition  # noqa: E402
 from localmd_tpu_torch.volumetric import VolumetricPMD, volumetric_decomposition  # noqa: E402
+
+# the reference's submodule names as attributes of the package, as
+# localmd_tpu/__init__.py:35-42 binds them
+from localmd_tpu_torch import (  # noqa: E402,F401
+    decomposition,
+    diagnostic_plots,
+    evaluation,
+    pmd_loader,
+    pmdarray,
+    preprocessing_utils,
+)
 
 __version__ = "0.1.0"
 

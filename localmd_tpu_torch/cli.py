@@ -36,7 +36,8 @@ def _add_compress(sub):
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--checkpoint", default=None, help="checkpoint path prefix")
     p.add_argument("--matmul-precision", default=None,
-                   help='"highest" only (the port computes fp32 products in full precision)')
+                   help="torch's fp32 matmul precision for the call: highest (default), "
+                        "tensorfloat32/high or bfloat16/medium")
     p.add_argument("--raw-shape", nargs=3, type=int, default=None,
                    help="T d1 d2 for headerless raw binary input")
     p.add_argument("--raw-dtype", default="uint16")

@@ -5,7 +5,8 @@ The JAX package pins ``Precision.HIGHEST`` on every parity-critical product
 ops/linalg.py:253). The port's counterpart is plain IEEE fp32 everywhere:
 TF32 stays off for matmuls and convolutions, and the fp32 matmul precision
 is "highest". Importing the package applies this (``apply()``), and so
-does every ``localmd_decomposition`` call.
+does every ``localmd_decomposition`` call, inside
+``matmul_precision_scope``, which restores the caller's setting on exit.
 
 The device is always explicit: ``resolve_device("cuda")`` raises when CUDA
 is absent instead of quietly running on the CPU.
@@ -13,7 +14,20 @@ is absent instead of quietly running on the CPU.
 
 from __future__ import annotations
 
+import contextlib
+from typing import Optional
+
 import torch
+
+# the JAX package's ``matmul_precision`` names (jax.default_matmul_precision)
+# and torch's own, mapped onto torch's fp32 matmul precision
+MATMUL_PRECISIONS = {
+    "highest": "highest",
+    "tensorfloat32": "high",
+    "high": "high",
+    "bfloat16": "medium",
+    "medium": "medium",
+}
 
 
 def apply() -> None:
@@ -33,3 +47,40 @@ def resolve_device(device) -> torch.device:
             "pass device='cpu' explicitly to run on the CPU"
         )
     return dev
+
+
+def torch_matmul_precision(name: Optional[str]) -> Optional[str]:
+    """torch's fp32 matmul precision for a ``matmul_precision`` name (None
+    stays None); raises ``ValueError`` for a name it does not know."""
+    if name is None:
+        return None
+    if name not in MATMUL_PRECISIONS:
+        raise ValueError(
+            f"matmul_precision must be one of {sorted(MATMUL_PRECISIONS)} or None, got {name!r}"
+        )
+    return MATMUL_PRECISIONS[name]
+
+
+@contextlib.contextmanager
+def matmul_precision_scope(precision: Optional[str] = None):
+    """Apply the port's policy (``apply()``) and then ``precision`` (torch's
+    name, None keeps "highest") for the body, as ``jax.default_matmul_precision``
+    scopes a call (pipeline.py:233-234). On every exit, an exception
+    included, the caller's fp32 matmul precision and both TF32 flags come
+    back: the flags first and the precision last, the order ``apply()``
+    uses, since torch refuses to read a precision that a later flag
+    contradicts."""
+    saved = (
+        torch.get_float32_matmul_precision(),
+        torch.backends.cuda.matmul.allow_tf32,
+        torch.backends.cudnn.allow_tf32,
+    )
+    try:
+        apply()
+        if precision is not None:
+            torch.set_float32_matmul_precision(precision)
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved[1]
+        torch.backends.cudnn.allow_tf32 = saved[2]
+        torch.set_float32_matmul_precision(saved[0])

@@ -492,6 +492,20 @@ class TensorMovie:
 DeviceMovie = TensorMovie
 
 
+def read_frames_f32(dataset, frames, device) -> torch.Tensor:
+    """The frames ``frames`` (a slice or ids) of a dataset (``as_dataset``'s
+    result) as a (t, d1, d2) float32 tensor on ``device``: read once, moved
+    in the stored dtype, cast there."""
+    chunk = dataset[frames]
+    if not isinstance(chunk, torch.Tensor):
+        chunk = np.asarray(chunk)
+        if not chunk.dtype.isnative or chunk.dtype.kind not in "biuf":
+            chunk = chunk.astype(np.float32)
+        chunk = torch.from_numpy(np.ascontiguousarray(chunk))
+    chunk = chunk.to(device).to(torch.float32)
+    return chunk[None] if chunk.dim() == 2 else chunk
+
+
 def as_dataset(obj):
     """Normalize user input (PMDDataset | ndarray | tensor | path |
     duck-typed object), as dataset.py:447-469."""

@@ -1,5 +1,5 @@
 """Batched per-block PMD decomposition (counterpart of localmd_tpu/engine.py,
-gather path with identity denoisers).
+gather path).
 
 - ``single_block_md_batched``: the first-window decomposition of a batch of
   blocks (engine.py:76-147).
@@ -17,12 +17,18 @@ gather path with identity denoisers).
   cutoffs (engine.py:911-1053); ``jnp.percentile`` becomes
   ``torch.quantile`` with linear interpolation.
 
-``vmap`` is an explicit leading block axis throughout.
+``vmap`` is an explicit leading block axis throughout, except for the
+user's denoisers: they are written for one block and mapped over the block
+axis with ``torch.func.vmap``, as the JAX package maps them with
+``jax.vmap``. A denoiser must be made of pure torch operations: no
+``.item()`` or other read of a value to the host, no in-place write to its
+input, no data-dependent Python control flow. ``torch.func.vmap`` raises
+for such a denoiser; nothing catches that and falls back to a loop.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -51,6 +57,12 @@ def _bin_consecutive(x: torch.Tensor, factor: int) -> torch.Tensor:
     return x.reshape(*lead, t // factor, factor).mean(dim=-1)
 
 
+def identity(x: torch.Tensor) -> torch.Tensor:
+    """The denoiser that changes nothing (engine.py:67-68); ``None`` in
+    ``localmd_decomposition`` maps to it."""
+    return x
+
+
 def single_block_md_batched(
     blocks: torch.Tensor,
     sketches: torch.Tensor,
@@ -59,11 +71,16 @@ def single_block_md_batched(
     spatial_avg_factor: int,
     spatial_threshold,
     temporal_threshold,
+    spatial_denoiser: Callable = identity,
+    temporal_denoiser: Callable = identity,
 ):
     """First-window decomposition of every block at once.
 
     blocks: (n, b1, b2, t) standardized patches; sketches: (n, t', k) rSVD
     sketches for the binned (t' = t // temporal_avg_factor) coarse problem.
+    ``temporal_denoiser`` maps one block's (r, t) coarse traces to the same
+    shape, ``spatial_denoiser`` one block's (r, b1, b2) component images;
+    each is mapped over the block axis (engine.py:84-131).
     Returns u (n, b1*b2, r) F-order orthonormal bases, decisions (n, r)
     int32 and v (n, r, t) with the singular values folded in."""
     _, b1, b2, _ = blocks.shape
@@ -72,11 +89,22 @@ def single_block_md_batched(
     down_avg = _bin_consecutive(down_flat, temporal_avg_factor)
     u_coarse = batched_truncated_random_svd(down_avg, max_rank, sketch=sketches)[0]
     v_coarse = u_coarse.transpose(-1, -2) @ down_flat                # (n, r, t)
-    # any orthonormal basis of v_coarse's row space serves (engine.py:111-121)
-    v_basis = cholesky_qr2(v_coarse.transpose(-1, -2)).transpose(-1, -2)
+    if temporal_denoiser is not identity:
+        v_coarse = torch.func.vmap(temporal_denoiser)(v_coarse)
+    # any orthonormal basis of v_coarse's row space serves, unless a spatial
+    # denoiser acts per component on the images this basis defines: then
+    # the Gram SVD's basis, as the JAX package keeps it (engine.py:111-123)
+    if spatial_denoiser is identity:
+        v_basis = cholesky_qr2(v_coarse.transpose(-1, -2)).transpose(-1, -2)
+    else:
+        v_basis = svd_gram_left(v_coarse)[2]
 
     blocks_flat = flatten_fov(blocks)                                # (n, p, t)
     spatial_proj = blocks_flat @ v_basis.transpose(-1, -2)           # (n, p, r)
+    if spatial_denoiser is not identity:
+        proj_img = unflatten_fov(spatial_proj, b1, b2)               # (n, b1, b2, r)
+        proj_img = torch.func.vmap(lambda im: spatial_denoiser(im.movedim(-1, 0)))(proj_img)
+        spatial_proj = flatten_fov(proj_img.movedim(1, -1))          # (n, r, b1, b2) -> (n, p, r)
     u_final = cholesky_qr2(spatial_proj)
     v_new = u_final.transpose(-1, -2) @ blocks_flat                  # (n, r, t)
     v_left, v_sing, v_right = svd_gram_left(v_new)
@@ -169,6 +197,8 @@ def window0_chunk_step(
     spatial_threshold,
     temporal_threshold,
     max_consecutive_failures: int,
+    spatial_denoiser: Callable = identity,
+    temporal_denoiser: Callable = identity,
     t_used: int = 0,
 ):
     """One batch of blocks: patch gather -> decomposition -> failure filter
@@ -179,7 +209,7 @@ def window0_chunk_step(
         patches = patches[..., :t_used]
     u, decisions, v = single_block_md_batched(
         patches, sketches, max_rank, temporal_avg_factor, spatial_avg_factor,
-        spatial_threshold, temporal_threshold,
+        spatial_threshold, temporal_threshold, spatial_denoiser, temporal_denoiser,
     )
     n = patches.shape[0]
     acc = torch.zeros((n, b1 * b2, max_rank), dtype=patches.dtype, device=patches.device)
@@ -194,11 +224,12 @@ def window0_chunk_step(
 def _md_pack_step(
     window, sketches, acc, counts, max_rank, temporal_avg_factor, spatial_avg_factor,
     spatial_threshold, temporal_threshold, max_consecutive_failures,
+    spatial_denoiser: Callable = identity, temporal_denoiser: Callable = identity,
 ):
     """Window-0 decomposition + failure filter + packing: (acc, counts)."""
     u, decisions, _ = single_block_md_batched(
         window, sketches, max_rank, temporal_avg_factor, spatial_avg_factor,
-        spatial_threshold, temporal_threshold,
+        spatial_threshold, temporal_threshold, spatial_denoiser, temporal_denoiser,
     )
     return pack_components(u, decisions, acc, counts, max_consecutive_failures)
 
@@ -217,6 +248,8 @@ def _fallback_rerun(
     spatial_avg_factor: int,
     spatial_threshold,
     temporal_threshold,
+    spatial_denoiser: Callable = identity,
+    temporal_denoiser: Callable = identity,
 ):
     """Replace the residual results of blocks that still hold no component
     with the full two-stage kernel's (reference decomposition.py:476-488).
@@ -232,7 +265,8 @@ def _fallback_rerun(
     kw = dict(
         max_rank=max_rank, temporal_avg_factor=temporal_avg_factor,
         spatial_avg_factor=spatial_avg_factor, spatial_threshold=spatial_threshold,
-        temporal_threshold=temporal_threshold,
+        temporal_threshold=temporal_threshold, spatial_denoiser=spatial_denoiser,
+        temporal_denoiser=temporal_denoiser,
     )
     if fallback_cap < n and n_zero <= fallback_cap:
         idx = torch.argsort((~is_zero).to(torch.int8), stable=True)[:fallback_cap]
@@ -277,6 +311,8 @@ def windowed_pmd_batched(
     max_consecutive_failures: int,
     temporal_avg_factor: int,
     spatial_avg_factor: int,
+    spatial_denoiser: Callable = identity,
+    temporal_denoiser: Callable = identity,
     mesh=None,
 ) -> WindowedPMDResult:
     """Windowed blockwise PMD over a batch of blocks (engine.py:843-903).
@@ -287,7 +323,9 @@ def windowed_pmd_batched(
     ``min(w * wl, t - wl)`` and extracts residual components against the
     accumulated basis, blocks still at zero components re-running the full
     kernel on that window's sketch; the loop stops once every block is full.
-    The temporal components are the whole crop projected on the bases."""
+    The temporal components are the whole crop projected on the bases. The
+    denoisers reach every run of the two-stage kernel; the residual kernel
+    takes none, as in the JAX package."""
     if mesh is not None:
         raise NotImplementedError(
             "localmd_tpu_torch does not support mesh yet; see ROADMAP.md "
@@ -301,13 +339,15 @@ def windowed_pmd_batched(
     kw = dict(
         max_rank=max_rank, temporal_avg_factor=temporal_avg_factor,
         spatial_avg_factor=spatial_avg_factor, spatial_threshold=spatial_threshold,
-        temporal_threshold=temporal_threshold,
+        temporal_threshold=temporal_threshold, spatial_denoiser=spatial_denoiser,
+        temporal_denoiser=temporal_denoiser,
     )
     acc = torch.zeros((n, b1 * b2, max_rank), dtype=blocks.dtype, device=blocks.device)
     counts = torch.zeros((n,), dtype=torch.int32, device=blocks.device)
     acc, counts = _md_pack_step(
         blocks[..., :wl], sketches[0], acc, counts, max_rank, temporal_avg_factor,
         spatial_avg_factor, spatial_threshold, temporal_threshold, max_consecutive_failures,
+        spatial_denoiser, temporal_denoiser,
     )
     fallback_cap = max(1, n // 8)
     w = 1

@@ -690,6 +690,18 @@ class PMDLoader:
         u, _, _ = truncated_random_svd(x.T, self.background_rank, generator=self._generator)
         self.spatial_basis = _rows_from_c(u, d1, d2, self.order)
 
+    # -- raw and standardized crops -------------------------------------------
+
+    def temporal_crop(self, frames) -> torch.Tensor:
+        """(d1, d2, T) float32 frames (a slice or ids) on the loader's device
+        (loader.py:522-525)."""
+        return self._load_raw(frames).to(torch.float32).permute(1, 2, 0)
+
+    def temporal_crop_standardized(self, frames) -> torch.Tensor:
+        """(d1, d2, T) frames standardized with the loader's statistics,
+        (x - mean) / std (loader.py:988-992); no background filter."""
+        return (self.temporal_crop(frames) - self.mean_img[..., None]) / self.std_img[..., None]
+
     # -- standardized init frames ---------------------------------------------
 
     def temporal_crop_with_filter(self, frames) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -106,3 +106,37 @@ def get_mean_and_noise(movie: torch.Tensor, mean_divisor) -> Tuple[torch.Tensor,
 def get_mean_and_noise_ref_compat(movie: torch.Tensor, mean_divisor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunk mean + reference-effective sigma (nperseg = T)."""
     return get_mean_chunk(movie, mean_divisor), welch_noise_estimate_ref_compat(movie)
+
+
+# -- per-trace helpers of the reference's preprocessing_utils, batched over
+#    leading dims (ops/noise.py:193-230) ----------------------------------------
+
+# the reference's name (preprocessing_utils.py:28); a single (T,) trace is
+# the degenerate batch
+get_noise_estimate = welch_noise_estimate
+
+
+def get_mean(trace: torch.Tensor) -> torch.Tensor:
+    """Per-trace mean: (..., T) -> (...,)."""
+    return trace.mean(dim=-1)
+
+
+def center(traces: torch.Tensor) -> torch.Tensor:
+    """Subtract each trace's mean: (..., T) -> (..., T)."""
+    return traces - traces.mean(dim=-1, keepdim=True)
+
+
+def center_and_noise_normalize(traces: torch.Tensor) -> torch.Tensor:
+    """Center each trace and divide it by its Welch noise sigma; T >= 256."""
+    centered = center(traces)
+    return centered / welch_noise_estimate(centered)[..., None]
+
+
+def standardize_block(block: torch.Tensor) -> torch.Tensor:
+    """Center and noise-normalize every pixel of a (d1, d2, T) block."""
+    return center_and_noise_normalize(block)
+
+
+def center_and_get_noise_estimate(movie: torch.Tensor, mean: torch.Tensor) -> torch.Tensor:
+    """Noise sigma image of a (d1, d2, T) movie given its (d1, d2) mean."""
+    return welch_noise_estimate(movie - mean[..., None])

@@ -9,6 +9,31 @@ import numpy as np
 import torch
 
 
+def l1_norm(data: torch.Tensor) -> torch.Tensor:
+    """Overall L1 norm (roughness.py:28-30)."""
+    return data.abs().sum()
+
+
+def trend_filter_stat(trace: torch.Tensor) -> torch.Tensor:
+    """Sum of absolute second differences of traces (..., T) -> (...,)
+    (roughness.py:33-37; unused by the pipeline)."""
+    second_diff = 2.0 * trace[..., 1:-1] - trace[..., :-2] - trace[..., 2:]
+    return second_diff.abs().sum(dim=-1)
+
+
+def total_variation_stat(img: torch.Tensor) -> torch.Tensor:
+    """8-neighbour total variation of images (..., d1, d2) -> (...,)
+    (roughness.py:40-52; unused by the pipeline)."""
+    centre = img[..., 1:-1, 1:-1]
+    acc = torch.zeros_like(centre)
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            if dy or dx:
+                shifted = img[..., 1 + dy : img.shape[-2] - 1 + dy, 1 + dx : img.shape[-1] - 1 + dx]
+                acc = acc + (centre - shifted).abs()
+    return acc.sum(dim=(-2, -1))
+
+
 def spatial_roughness_stat(u: torch.Tensor) -> torch.Tensor:
     """Roughness of images ``u`` shaped (..., d1, d2) -> (...,)."""
     vert = (u[..., 1:, :] - u[..., :-1, :]).abs()

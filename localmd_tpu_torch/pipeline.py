@@ -16,16 +16,19 @@ files stream through the loader's pinned ring. With ``checkpoint_path``
 each stage -- ``stats``, ``background``, ``thresholds``, ``blocks`` (and its
 per-batch ``blocks.part*``), ``projector``, ``v`` -- persists its outputs
 and a rerun with the same configuration resumes after the last one
-(``checkpoint.PipelineCheckpoint``). The device is explicit:
-``device="cuda"`` (the default) raises when CUDA is absent. Options the port
-does not run yet raise ``NotImplementedError``.
+(``checkpoint.PipelineCheckpoint``); the denoisers are part of that
+fingerprint by their content (``_fn_token``). The device is explicit:
+``device="cuda"`` (the default) raises when CUDA is absent. ``mesh`` raises
+``NotImplementedError`` until the port has ``parallel/``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import hashlib
 import math
+import os
 import time
 from typing import Callable, Optional, Tuple
 
@@ -38,6 +41,7 @@ from localmd_tpu_torch.checkpoint import PipelineCheckpoint
 from localmd_tpu_torch.dataset import as_dataset
 from localmd_tpu_torch.engine import (
     effective_window_length,
+    identity,
     threshold_heuristic,
     window0_chunk_step,
     window_count,
@@ -91,13 +95,82 @@ def identify_window_chunks(
     return net_frames
 
 
-def _unsupported(**kwargs) -> None:
-    for name, bad in kwargs.items():
-        if bad:
-            raise NotImplementedError(
-                f"localmd_tpu_torch does not support {name} yet; see ROADMAP.md "
-                "(use the JAX package localmd_tpu for it)"
-            )
+def _value_token(v, depth: int = 0) -> bytes:
+    """Content bytes of a value captured by a denoiser, for the checkpoint
+    fingerprint (pipeline.py:80-114). ``repr`` would truncate large arrays
+    and embed per-process addresses; a tensor is hashed by its bytes on the
+    host."""
+    if depth > 3:
+        return b"<deep>"
+    if v is None or isinstance(v, (bool, int, float, complex, str, bytes)):
+        return repr(v).encode()
+    if isinstance(v, np.generic):
+        return b"ns" + str(v.dtype).encode() + v.tobytes()
+    if isinstance(v, np.ndarray):
+        return b"nd" + str(v.shape).encode() + str(v.dtype).encode() + v.tobytes()
+    if isinstance(v, torch.Tensor):
+        host = v.detach().cpu().contiguous()
+        return (b"tt" + str(tuple(host.shape)).encode() + str(host.dtype).encode()
+                + host.reshape(-1).view(torch.uint8).numpy().tobytes())
+    if isinstance(v, (tuple, list)):
+        return b"[" + b",".join(_value_token(x, depth + 1) for x in v) + b"]"
+    if isinstance(v, dict):
+        return b"{" + b",".join(
+            _value_token(k, depth + 1) + b":" + _value_token(x, depth + 1)
+            for k, x in sorted(v.items(), key=lambda kv: repr(kv[0]))
+        ) + b"}"
+    code = getattr(v, "__code__", None)
+    if code is not None:  # a captured function: its content, not its id
+        token = code.co_code + repr(code.co_consts).encode()
+        defaults = getattr(v, "__defaults__", None)
+        if defaults:
+            token += _value_token(tuple(defaults), depth + 1)
+        return token
+    # any other object: its type alone (stable across processes)
+    return repr(type(v)).encode()
+
+
+def _fn_token(fn) -> Optional[str]:
+    """Fingerprint token of a denoiser (pipeline.py:117-136): its qualified
+    name and a hash of its bytecode, constants, defaults and closure
+    values, so a changed body, constant, default or captured value (a
+    tensor included) invalidates the resumable stages."""
+    if fn is None:
+        return None
+    name = f"{getattr(fn, '__module__', '?')}.{getattr(fn, '__qualname__', repr(fn))}"
+    code = getattr(fn, "__code__", None)
+    if code is not None:
+        payload = code.co_code + repr(code.co_consts).encode()
+        defaults = getattr(fn, "__defaults__", None)
+        if defaults:
+            payload += _value_token(tuple(defaults))
+        for cell in getattr(fn, "__closure__", None) or ():
+            try:
+                payload += _value_token(cell.cell_contents)
+            except ValueError:  # an empty cell
+                payload += b"<empty>"
+        name += ":" + hashlib.sha256(payload).hexdigest()[:12]
+    return name
+
+
+@contextlib.contextmanager
+def _profile_scope(profile_dir: Optional[str], dev: torch.device):
+    """With ``profile_dir``, profile the body with ``torch.profiler`` (CPU
+    activity, and CUDA activity on the card) and write a Chrome trace into
+    the directory, made if missing (pipeline.py:209-212 writes a jax
+    profiler trace)."""
+    if profile_dir is None:
+        yield
+        return
+    os.makedirs(profile_dir, exist_ok=True)
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(
+        profile_dir, f"localmd_decomposition.{os.getpid()}.{time.time_ns()}.pt.trace.json"
+    ))
 
 
 def localmd_decomposition(
@@ -142,9 +215,27 @@ def localmd_decomposition(
     .npy) or a dataset object. ``num_workers`` sets the prefetch depth and
     the native reader's threads; ``cache_movie`` ("auto", True or False)
     the device movie cache; ``checkpoint_path`` stage checkpoints.
-    ``dtype`` and ``pixel_batch_size`` are accepted and inert; ``mesh``,
-    ``profile_dir``, ``aot_warm=True``, denoisers and ``matmul_precision``
-    other than "highest" raise ``NotImplementedError``.
+    ``dtype`` and ``pixel_batch_size`` are accepted and inert; ``mesh``
+    raises ``NotImplementedError``.
+
+    ``spatial_denoiser`` / ``temporal_denoiser`` (None: ``engine.identity``)
+    are written for one block -- (r, b1, b2) component images and (r, t)
+    coarse traces, each returned in the same shape -- and mapped over the
+    block axis with ``torch.func.vmap`` (see ``engine``: pure torch
+    operations, no ``.item()``, no in-place write to the input). A spatial
+    denoiser other than ``identity`` replaces CholeskyQR2 with the Gram SVD
+    in the block stage, as in the JAX package.
+
+    ``matmul_precision`` ("highest", "tensorfloat32" or "high", "bfloat16"
+    or "medium"; None is "highest") sets torch's fp32 matmul precision for
+    the whole call and restores the caller's afterwards. Only the port's
+    ``torch.matmul``-class products follow it; K1-K4 stay 3xTF32 and the
+    cuSOLVER eighs stay fp32.
+
+    ``profile_dir`` runs the call under ``torch.profiler`` and writes a
+    Chrome trace there. ``aot_warm`` is accepted and changes nothing: the
+    port has no ahead-of-time warm-up, and the JAX package's results are
+    the same either way (pipeline.py:203-207).
 
     The result carries ``pipeline_timings`` (seconds per stage, each stage
     fenced with ``torch.cuda.synchronize`` on the card),
@@ -155,15 +246,32 @@ def localmd_decomposition(
     pinned host->device copies and bytes).
     """
     dev = config.resolve_device(device)
-    config.apply()
-    _unsupported(
-        mesh=mesh is not None,
-        profile_dir=profile_dir is not None,
-        aot_warm=aot_warm is True,
-        spatial_denoiser=spatial_denoiser is not None,
-        temporal_denoiser=temporal_denoiser is not None,
-        matmul_precision=matmul_precision not in (None, "highest"),
-    )
+    precision = config.torch_matmul_precision(matmul_precision)
+    if mesh is not None:
+        raise NotImplementedError(
+            "localmd_tpu_torch does not support mesh yet; see ROADMAP.md "
+            "(use the JAX package localmd_tpu for it)"
+        )
+    with config.matmul_precision_scope(precision), _profile_scope(profile_dir, dev):
+        return _decompose(
+            dataset_obj, block_sizes, frame_range, max_components, background_rank, sim_conf,
+            frame_batch_size, num_workers, max_consecutive_failures, rank_prune,
+            rank_prune_factor, temporal_avg_factor, spatial_avg_factor, order, window_chunks,
+            compute_normalizer, pixel_weighting, spatial_denoiser, temporal_denoiser, seed,
+            block_batch_size, sim_iters, final_rank_tol, checkpoint_path, welch_compat,
+            cache_movie, dev,
+        )
+
+
+def _decompose(
+    dataset_obj, block_sizes, frame_range, max_components, background_rank, sim_conf,
+    frame_batch_size, num_workers, max_consecutive_failures, rank_prune, rank_prune_factor,
+    temporal_avg_factor, spatial_avg_factor, order, window_chunks, compute_normalizer,
+    pixel_weighting, spatial_denoiser, temporal_denoiser, seed, block_batch_size, sim_iters,
+    final_rank_tol, checkpoint_path, welch_compat, cache_movie, dev: torch.device,
+) -> PMDArray:
+    """The body of ``localmd_decomposition`` on the resolved device, inside
+    its precision and profiler scopes."""
     dataset = as_dataset(dataset_obj)
     t_total, d1, d2 = (int(s) for s in dataset.shape)
     check_fov_size((d1, d2))
@@ -201,8 +309,12 @@ def localmd_decomposition(
             temporal_avg_factor=temporal_avg_factor, spatial_avg_factor=spatial_avg_factor,
             order=order, window_chunks=window_chunks, seed=seed, sim_iters=sim_iters,
             welch_compat=welch_compat, pixel_weighting=pixel_weighting_token,
+            spatial_denoiser=_fn_token(spatial_denoiser),
+            temporal_denoiser=_fn_token(temporal_denoiser),
         ),
     )
+    sden = spatial_denoiser if spatial_denoiser is not None else identity
+    tden = temporal_denoiser if temporal_denoiser is not None else identity
     precomputed = {}
     for stage in ("stats", "background"):
         if ckpt.has(stage):
@@ -351,14 +463,14 @@ def localmd_decomposition(
                 acc, cnt, v_fit = window0_chunk_step(
                     data, grid.starts[idx], sketches[0].index_select(0, ids), b1, b2,
                     max_components, temporal_avg_factor, spatial_avg_factor,
-                    spatial_threshold, temporal_threshold, max_consecutive_failures,
+                    spatial_threshold, temporal_threshold, max_consecutive_failures, sden, tden,
                 )
                 windows_run.append(1)
             else:
                 acc, cnt, v_fit, ran = windowed_pmd_batched(
                     extract_patches(data, grid.starts[idx], b1, b2), sketches.index_select(1, ids),
                     window_len, max_components, spatial_threshold, temporal_threshold,
-                    max_consecutive_failures, temporal_avg_factor, spatial_avg_factor,
+                    max_consecutive_failures, temporal_avg_factor, spatial_avg_factor, sden, tden,
                 )
                 windows_run.append(ran)
             return acc, cnt, v_fit

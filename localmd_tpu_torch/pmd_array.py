@@ -254,6 +254,15 @@ class PMDArray:
         return np.float32
 
     @property
+    def device(self) -> torch.device:
+        """Where ``reconstruct_frames`` runs and returns its frames: the
+        block panels' device, a .npz array's ``device``, else the CPU (the
+        host path)."""
+        if self._blocksparse is not None:
+            return self._blocksparse.panels.device
+        return self._csr_device if self._csr_device is not None else torch.device("cpu")
+
+    @property
     def shape(self) -> Tuple[int, int, int]:
         return (self.num_frames, self.fov_dim1, self.fov_dim2)
 
@@ -626,7 +635,9 @@ class PMDArray:
         save_decomposition(filename, self)
 
     @classmethod
-    def from_npz(cls, filename: str, device=None) -> "PMDArray":
+    def from_npz(cls, filename: str, device="cuda") -> "PMDArray":
+        """``serialization.load_decomposition``: the card unless
+        ``device="cpu"`` (or None, the host path) is passed."""
         from localmd_tpu_torch.serialization import load_decomposition
 
         return load_decomposition(filename, device)

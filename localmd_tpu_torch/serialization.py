@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import scipy.sparse
 
+from localmd_tpu_torch.config import resolve_device
 from localmd_tpu_torch.pmd_array import PMDArray
 
 
@@ -32,9 +33,13 @@ def save_decomposition(filename: str, movie: PMDArray) -> None:
     )
 
 
-def load_decomposition(filename: str, device=None) -> PMDArray:
-    """The factors of a .npz as a host PMDArray; with ``device`` its
-    ``reconstruct_frames`` runs there."""
+def load_decomposition(filename: str, device="cuda") -> PMDArray:
+    """The factors of a .npz as a PMDArray whose ``reconstruct_frames`` runs
+    on ``device`` (a sparse CSR product there): the card unless
+    ``device="cpu"`` is passed; raises without CUDA. ``device=None`` keeps
+    the numpy host path. Slicing always runs on the host."""
+    if device is not None:
+        device = resolve_device(device)
     data = np.load(filename, allow_pickle=True)
     fmt = str(np.asarray(data["U_format"]))
     if fmt.lower() != "csr":

@@ -90,7 +90,7 @@ def test_npz_reconstruct_frames_on_a_device_equals_the_host_path(tmp_path, order
         localmd_decomposition(movie, (10, 12), frame_range=600, max_components=3,
                               background_rank=1, temporal_avg_factor=4, sim_iters=10, seed=0,
                               order=order, device="cpu").to_npz(npz)
-    host, dev = PMDArray.from_npz(npz), PMDArray.from_npz(npz, device="cpu")
+    host, dev = PMDArray.from_npz(npz, device=None), PMDArray.from_npz(npz, device="cpu")
     frames = np.r_[5:600, 0:5, 7]                 # two chunks of 512
     got = dev.reconstruct_frames(frames)
     assert got.shape == (len(frames), 20, 24) and dev._csr_dev is not None

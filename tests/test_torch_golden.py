@@ -89,6 +89,6 @@ def test_golden_loads_through_port_npz_loader():
     from localmd_tpu_torch import load_decomposition
 
     golden = np.load(GOLDEN, allow_pickle=True)
-    view = load_decomposition(GOLDEN)
+    view = load_decomposition(GOLDEN, device="cpu")
     np.testing.assert_allclose(view[:, :, :], golden["recon"], atol=2e-3)
     np.testing.assert_allclose(to_np(view.reconstruct_frames([0, 7])), golden["recon"][[0, 7]], atol=2e-3)

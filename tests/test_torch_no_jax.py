@@ -1,7 +1,9 @@
 """The port stands alone: no module under localmd_tpu_torch/ imports jax or
 the localmd_tpu package (checked on the source, since sys.modules proves
-nothing where jax is pre-imported), and the CUDA wrappers raise on a
-non-CPU tensor they cannot launch on rather than falling back."""
+nothing where jax is pre-imported), none imports matplotlib at its top (the
+machine with the card has none), the CUDA wrappers raise on a non-CPU
+tensor they cannot launch on rather than falling back, and every entry
+point runs on the card unless it is given ``device="cpu"``."""
 
 import ast
 import os
@@ -45,6 +47,9 @@ def test_package_has_the_ported_modules():
         "dataset.py", "loader.py", "engine.py", "blocksparse.py", "factorization.py",
         "pipeline.py", "pmd_array.py", "serialization.py", "checkpoint.py", "volumetric.py",
         "cli.py", "io/__init__.py", "io/tiff.py", "io/native.py", "utils/device.py",
+        "metrics.py", "sim.py", "diagnostics.py", "diagnostic_plots.py", "compat.py",
+        "decomposition.py", "evaluation.py", "preprocessing_utils.py", "pmd_loader.py",
+        "pmdarray.py", "utils/keys.py",
     ]:
         assert mod in names, mod
     for src in ("movie_stats.cu", "v_projection.cu", "block_reconstruct.cu", "jacobi_eigh.cu",
@@ -70,6 +75,35 @@ def test_native_reader_builds_from_the_port_source_into_its_build_dir():
 def test_module_imports_no_jax(path):
     bad = [m for m in _imported_roots(path) if m in FORBIDDEN]
     assert not bad, f"{path} imports {bad}"
+
+
+def _top_level_imports(path):
+    """Roots imported by the module's own top-level statements (not inside
+    a function or class body)."""
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in tree.body:
+        if isinstance(node, ast.Import):
+            yield from (alias.name.split(".")[0] for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize(
+    "path", sorted(_py_files()) + [os.path.join(ROOT, s) for s in SCRIPTS],
+    ids=lambda p: os.path.relpath(p, PKG if p.startswith(PKG + os.sep) else ROOT),
+)
+def test_module_imports_no_matplotlib_at_its_top(path):
+    assert "matplotlib" not in set(_top_level_imports(path))
+
+
+def test_importing_the_package_loads_no_matplotlib():
+    import subprocess
+    import sys
+
+    code = "import sys, localmd_tpu_torch; print('matplotlib' in sys.modules)"
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=ROOT,
+                         timeout=120)
+    assert out.returncode == 0 and out.stdout.strip().splitlines()[-1] == "False", out.stderr
 
 
 def test_kernel_build_targets_sm90a():
@@ -168,11 +202,16 @@ def test_pipeline_device_is_explicit(monkeypatch):
         localmd_decomposition(movie, (10, 10), frame_range=300, device="cuda")
 
 
-@pytest.mark.parametrize("entry", ["from_reference_state", "threshold_heuristic"])
-def test_entry_points_default_to_the_card(entry, monkeypatch):
-    """The two entry points that once ran on the CPU by default now take
-    the card and raise without CUDA; ``device="cpu"`` runs them here."""
-    from localmd_tpu_torch import PMDArray, engine
+ENTRY_POINTS = ["from_reference_state", "threshold_heuristic", "load_decomposition", "from_npz",
+                "reconstruction_error", "make_correlation_image", "two_photon_movie"]
+
+
+@pytest.mark.parametrize("entry", ENTRY_POINTS)
+def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
+    """The entry points that once ran on the CPU by default, and this
+    slice's new ones, take the card and raise without CUDA;
+    ``device="cpu"`` runs them here."""
+    from localmd_tpu_torch import PMDArray, diagnostics, engine, load_decomposition, metrics, sim
     from localmd_tpu_torch.ops.tiling import BlockGrid
 
     grid = BlockGrid(20, 20, (10, 10))
@@ -183,10 +222,20 @@ def test_entry_points_default_to_the_card(entry, monkeypatch):
         s=np.ones(3), v=np.zeros((3, t)), k2_keep=None, mean_img=np.zeros((20, 20)),
         std_img=np.ones((20, 20)),
     )
-    if entry == "from_reference_state":
-        call = lambda **kw: PMDArray.from_reference_state(state, **kw)
-    else:
-        call = lambda **kw: engine.threshold_heuristic((10, 10, t), iters=4, sim_batch=4, **kw)
+    npz = str(tmp_path / "d.npz")
+    on_cpu = PMDArray.from_reference_state(state, device="cpu")
+    on_cpu.to_npz(npz)
+    movie = np.random.default_rng(0).standard_normal((t, 20, 20)).astype(np.float32)
+    call = {
+        "from_reference_state": lambda **kw: PMDArray.from_reference_state(state, **kw),
+        "threshold_heuristic": lambda **kw: engine.threshold_heuristic((10, 10, t), iters=4,
+                                                                       sim_batch=4, **kw),
+        "load_decomposition": lambda **kw: load_decomposition(npz, **kw),
+        "from_npz": lambda **kw: PMDArray.from_npz(npz, **kw),
+        "reconstruction_error": lambda **kw: metrics.reconstruction_error(on_cpu, movie, **kw),
+        "make_correlation_image": lambda **kw: diagnostics.make_correlation_image(movie, **kw),
+        "two_photon_movie": lambda **kw: sim.two_photon_movie(20, 20, t, n_cells=3, **kw),
+    }[entry]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for kwargs in ({}, dict(device="cuda")):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -194,8 +243,17 @@ def test_entry_points_default_to_the_card(entry, monkeypatch):
     out = call(device="cpu")
     if entry == "from_reference_state":
         assert out.shape == (t, 20, 20) and out._blocksparse.panels.device.type == "cpu"
-    else:
+    elif entry == "threshold_heuristic":
         assert all(np.isfinite(x) for x in out)
+    elif entry in ("load_decomposition", "from_npz"):
+        assert out.device.type == "cpu" and out._csr_device is not None
+        assert tuple(out.reconstruct_frames([0, 3]).shape) == (2, 20, 20) and out._csr_dev is not None
+    elif entry == "reconstruction_error":
+        assert out["frames"] == t and np.isfinite(out["rel_error"])
+    elif entry == "make_correlation_image":
+        assert out.shape == (20, 20) and np.isfinite(out).all()
+    else:
+        assert tuple(out.shape) == (t, 20, 20) and out.device.type == "cpu"
 
 
 def test_numerics_policy_has_tf32_off():

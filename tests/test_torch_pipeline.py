@@ -222,19 +222,15 @@ def test_npz_round_trips_between_packages(runs, tmp_path):
     _, jax_pmd, port_pmd = runs["order_c"]
     jax_file = str(tmp_path / "jax.npz")
     jax_pmd.to_npz(jax_file)
-    from_jax = port_load(jax_file)
+    from_jax = port_load(jax_file, device="cpu")
     assert rel_fro(from_jax[:, :, :], jax_pmd[:, :, :]) <= 1e-5
     port_file = str(tmp_path / "port.npz")
     port_pmd.to_npz(port_file)
     assert rel_fro(jax_load(port_file)[:, :, :], port_pmd[:, :, :]) <= 1e-5
-    assert rel_fro(port_load(port_file)[:, :, :], port_pmd[:, :, :]) <= 1e-5
+    assert rel_fro(port_load(port_file, device="cpu")[:, :, :], port_pmd[:, :, :]) <= 1e-5
 
 
-@pytest.mark.parametrize("kwargs", [
-    dict(mesh=object()), dict(aot_warm=True),
-    dict(profile_dir="x"), dict(spatial_denoiser=lambda x: x),
-    dict(temporal_denoiser=lambda x: x), dict(matmul_precision="bfloat16"),
-])
+@pytest.mark.parametrize("kwargs", [dict(mesh=object())])
 def test_unsupported_options_raise(kwargs):
     from localmd_tpu_torch import localmd_decomposition
 

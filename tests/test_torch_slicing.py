@@ -215,7 +215,7 @@ def test_close_keeps_npz_loaded_arrays_usable(tmp_path):
     pmd.to_npz(path)
     before = pmd[5]
     for materialize in (True, False):
-        loaded = PMDArray.from_npz(path)
+        loaded = PMDArray.from_npz(path, device="cpu")
         loaded.close(materialize=materialize)
         assert loaded.rank == pmd.rank
         np.testing.assert_allclose(loaded[5], before, atol=1e-4)

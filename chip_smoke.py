@@ -57,15 +57,32 @@ Phases (each prints one progress line; any failure raises, exit code != 0):
    ``load_decomposition`` with no device (on the card, <= 1e-5 of the
    in-process frames), and ``widefield_movie()`` and ``voltage_movie()``
    made on the card, timed.
+10. the mesh path (``parallel``): bench.py's configuration on its
+   512 x 512 x 2048 float32 movie, made on the card in every rank, first
+   in this process on one device (cold, then warm: the reference), then
+   with ``mesh=parallel.make_mesh()`` in two launches of ranks, each rank
+   a subprocess of this script with a time limit: (a) one rank on NCCL,
+   whose factorized SVD takes ``sharded_gram_quadratic``'s reduce-scatter
+   and all-reduce; (b) two ranks on gloo sharing the one card, with the
+   block stage split and both movie passes striped. Each rank runs cold,
+   then warm twice, the second with the launch counts from 0, then
+   ``reconstruct_frames`` on 512 sampled frames (K3). Checks:
+   ``pipeline_ranks`` and the kept rank of the reference, the sampled
+   frames within 1e-6 relative Frobenius of the reference's (the card gave
+   them bit for bit; on this white movie a rounding change in the block
+   fits moves the kept subspace by ~1e-3), every rank's factors equal to rank 0's bit for bit,
+   K1-K4 launched in every rank; prints each rank's warm wall time and
+   stages beside the reference's.
 
 The last two lines are a JSON object with one entry per kernel (its
-launches summed over the runs of phases 4, 7, 8 and 9, each counted from
-0) and the result line ``{"ok": true, "device": {...}}``.
+launches summed over the runs of phases 4, 7, 8, 9 and 10, each counted
+from 0) and the result line ``{"ok": true, "device": {...}}``.
 
 Run from the repository root: ``python3 chip_smoke.py`` (one card; phase 8
 needs ~19 GB of free temporary disk, or prints its cut). ``--phases 0,1,2``
-runs a subset (the result line needs all of them); ``--frames T`` sets
-phase 8's T.
+runs a subset (the result line needs all of them), ``--phases 0,1,10`` the
+mesh path alone; ``--frames T`` sets phase 8's T. ``--mesh-rank`` is the
+entry point of phase 10's rank processes.
 Repeated warm timings and a profile: ``bench_torch.py``.
 """
 
@@ -97,7 +114,7 @@ KERNELS = {
     "jacobi_eigh": ("localmd_tpu_torch/csrc/jacobi_eigh.cu",
                     "scripts/ablate_jacobi_kernel.py:103"),
 }
-ALL_PHASES = (0, 1, 2, 3, 4, 5, 6, 7, 8, 9)
+ALL_PHASES = (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10)
 # K4's cases: the shapes the paths give it -- the rSVD Gram (256 and 225
 # blocks, k = 30), svd_gram_left (k = 20), the threshold Monte-Carlo (131
 # simulations, k = 11, odd), the background rSVD (k = 25) -- and k = 64
@@ -936,12 +953,189 @@ def phase_options() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the mesh path
+# ---------------------------------------------------------------------------
+
+MESH_SAMPLE = np.sort(np.random.default_rng(0).choice(2048, 512, replace=False))
+MESH_LAUNCHES = (("a", 1, "nccl"), ("b", 2, "gloo"))
+MESH_RANK_TIMEOUT = 300        # seconds for one launch of ranks, then all are killed
+MESH_GROUP_TIMEOUT = 120       # seconds a collective may wait for the other ranks
+
+
+def _digest(x) -> str:
+    import hashlib
+
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().contiguous().numpy()
+    return hashlib.sha256(np.ascontiguousarray(x).tobytes()).hexdigest()
+
+
+def mesh_rank(world: int, rank: int, port: int, backend: str, out_dir: str) -> int:
+    """One rank of phase 10: join the group, make the movie on this rank's
+    card, run the mesh path cold and warm, write the warm run's numbers,
+    launch counts and factor digests (rank 0 also its sampled frames)."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    from bench_torch import make_movie, timed_run
+    from localmd_tpu_torch import config
+    from localmd_tpu_torch.ops import kernels
+    from localmd_tpu_torch.parallel import make_mesh
+
+    config.apply()
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world, timeout=timedelta(seconds=MESH_GROUP_TIMEOUT))
+    try:
+        mesh = make_mesh(device="cuda")
+        movie, _ = make_movie("float32")
+        _, cold, _ = timed_run(movie, mesh=mesh)
+        _, warm_1, _ = timed_run(movie, mesh=mesh)
+        kernels.reset_launch_counts()
+        pmd, warm, peak = timed_run(movie, mesh=mesh)
+        recon = pmd.reconstruct_frames(MESH_SAMPLE)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        u = pmd._blocksparse
+        result = dict(
+            world=world, rank=rank, backend=dist.get_backend(mesh.get_group()),
+            device=str(torch.device("cuda", torch.cuda.current_device())), cold=cold,
+            warm=[warm_1, warm], peak_gib=peak, stages=pmd.pipeline_timings, ranks=pmd.pipeline_ranks, kept=pmd.rank,
+            windows=pmd.pipeline_windows, launches=launches,
+            digests={name: _digest(x) for name, x in (
+                ("panels", u.panels), ("dense_basis", u.dense_basis), ("r", pmd._r_padded),
+                ("s", pmd._s_src), ("v", pmd._v_src), ("mean", pmd.mean_img),
+                ("std", pmd.var_img), ("recon", recon))},
+        )
+        if rank == 0:
+            torch.save(recon.cpu(), os.path.join(out_dir, f"recon_w{world}.pt"))
+        with open(os.path.join(out_dir, f"w{world}_r{rank}.json"), "w") as f:
+            json.dump(result, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _launch_ranks(world: int, backend: str, out_dir: str) -> list:
+    """Start ``world`` rank processes of this script and wait for them all
+    within ``MESH_RANK_TIMEOUT``; on a timeout or a failed rank kill every
+    rank and raise with the end of its log."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = []
+    for rank in range(world):
+        log_file = open(os.path.join(out_dir, f"w{world}_r{rank}.log"), "w")
+        env = {**os.environ, "LOCAL_RANK": str(rank)}
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mesh-rank", str(world), str(rank),
+             str(port), backend, out_dir],
+            cwd=HERE, env=env, stdout=log_file, stderr=subprocess.STDOUT), log_file))
+    deadline = time.monotonic() + MESH_RANK_TIMEOUT
+    try:
+        for proc, _ in procs:
+            proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for proc, log_file in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log_file.close()
+    for rank, (proc, log_file) in enumerate(procs):
+        if proc.returncode != 0:
+            with open(log_file.name) as f:
+                tail = f.read()[-4000:]
+            raise AssertionError(f"mesh rank {rank} of {world} ({backend}) exited "
+                                 f"{proc.returncode} (killed at {MESH_RANK_TIMEOUT} s if -9):\n{tail}")
+    results = []
+    for rank in range(world):
+        with open(os.path.join(out_dir, f"w{world}_r{rank}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+def phase_mesh() -> dict:
+    """Phase 10. Returns the launch counts of the ranks' warm runs and
+    read-backs, summed over every rank of both launches."""
+    import torch
+
+    from bench_torch import make_movie, timed_run
+
+    log("phase 10 mesh path 512x512x2048 float32 (bench.make_movie): one device, then "
+        "mesh (a) 1 rank NCCL, (b) 2 ranks gloo on the one card")
+    movie, _ = make_movie("float32")
+    _, cold, _ = timed_run(movie)
+    _, warm_1, _ = timed_run(movie)
+    ref, warm, _ = timed_run(movie)
+    ref_recon = ref.reconstruct_frames(MESH_SAMPLE)
+    log(f"  one device (reference): cold {cold:.4f} s, warm {warm_1:.4f} / {warm:.4f} s; stages "
+        + json.dumps({k: round(v, 4) for k, v in ref.pipeline_timings.items()})
+        + f"; ranks {ref.pipeline_ranks}, kept {ref.rank}")
+    ref_ranks, ref_kept = ref.pipeline_ranks, ref.rank
+    del movie, ref
+    torch.cuda.empty_cache()
+    launches: dict = {}
+    failed = []   # every check of both launches is made and printed before any raises
+
+    def expect(ok: bool, what: str) -> None:
+        if not ok:
+            log(f"    FAILED: {what}")
+            failed.append(what)
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        for label, world, backend in MESH_LAUNCHES:
+            t0 = time.perf_counter()
+            results = _launch_ranks(world, backend, out_dir)
+            log(f"  ({label}) {world} rank(s) on {backend}: launch to exit {time.perf_counter() - t0:.1f} s")
+            for res in results:
+                log(f"    rank {res['rank']} on {res['device']} ({res['backend']}): cold "
+                    f"{res['cold']:.4f} s, warm {res['warm'][0]:.4f} / {res['warm'][1]:.4f} s, peak "
+                    f"{res['peak_gib']:.2f} GiB; "
+                    "stages " + json.dumps({k: round(v, 4) for k, v in res["stages"].items()})
+                    + f"; ranks {res['ranks']}, kept {res['kept']}, windows {res['windows']}; "
+                    f"launches {res['launches']}")
+                expect(res["backend"] == backend, f"({label}) rank {res['rank']}: backend {res['backend']}")
+                expect(res["ranks"] == ref_ranks and res["kept"] == ref_kept,
+                       f"({label}) rank {res['rank']}: ranks {res['ranks']} / {res['kept']} vs "
+                       f"{ref_ranks} / {ref_kept}")
+                for name, n in res["launches"].items():
+                    expect(n > 0, f"({label}) rank {res['rank']} never launched {name}")
+                    launches[name] = launches.get(name, 0) + n
+                expect(res["digests"] == results[0]["digests"],
+                       f"({label}) rank {res['rank']}'s factors differ from rank 0's")
+            recon = torch.load(os.path.join(out_dir, f"recon_w{world}.pt")).to(ref_recon.device)
+            err = rel_fro(recon, ref_recon)
+            log(f"    512 sampled frames (K3) against one device: rel Frobenius {err:.3e}; "
+                f"equal: {bool(torch.equal(recon, ref_recon))}; collectives staged through the "
+                "host: none (gloo and NCCL take the card's tensors)")
+            expect(err <= 1e-6, f"({label}) reconstruction error {err}")
+            del recon
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    del ref_recon
+    torch.cuda.empty_cache()
+    check(not failed, "phase 10: " + "; ".join(failed))
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(map(str, ALL_PHASES)),
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--frames", type=int, default=None,
                     help="T of phase 8's movie (default 30000, cut to the free disk)")
+    ap.add_argument("--mesh-rank", nargs=5, default=None,
+                    metavar=("WORLD", "RANK", "PORT", "BACKEND", "OUT_DIR"),
+                    help="run one rank of phase 10 (started by phase 10 itself)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -953,6 +1147,9 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    if args.mesh_rank:
+        world, rank, port, backend, out_dir = args.mesh_rank
+        return mesh_rank(int(world), int(rank), int(port), backend, out_dir)
     from bench_torch import card_line, make_movie
     from localmd_tpu_torch import config
     from localmd_tpu_torch.ops import _build, kernels
@@ -1035,6 +1232,11 @@ def main(argv=None) -> int:
             check(n > 0, f"phase 9 never launched {name}")
         if launches is not None:
             launches = add_launches(launches, launches_9)
+    if 10 in phases:
+        launches_10 = phase_mesh()
+        log(f"  launches of phase 10 (every rank's warm run and read-back): {launches_10}")
+        if launches is not None:
+            launches = add_launches(launches, launches_10)
 
     if phases != set(ALL_PHASES):
         log(f"partial run (phases {sorted(phases)}): no result line")

@@ -32,6 +32,32 @@ def _block_group_size(p: int, m: int) -> int:
     return max(8, int(TRANSIENT_FLOOR_BYTES // (p * max(m, 1) * 4)))
 
 
+def coset_order(cosets, lo: int, hi: int) -> Tuple[np.ndarray, list]:
+    """(ids, bounds): the block ids in [lo, hi), minus ``lo``, in coset
+    order, and each coset's [start, end) in that order."""
+    parts = [ids[(ids >= lo) & (ids < hi)] - lo for ids in (np.asarray(c, np.int64) for c in cosets)]
+    return np.concatenate(parts), np.cumsum([0] + [len(x) for x in parts]).tolist()
+
+
+def coset_overlap_add(panels: torch.Tensor, rows: torch.Tensor, x_block: torch.Tensor,
+                      n_pixels: int, bounds: list) -> torch.Tensor:
+    """The (n_pixels, m) canvas of every block's ``panels[b] @ x_block[b]``
+    scatter-added at ``rows[b]``, the blocks in coset order: a batched panel
+    matmul and one ``index_add_`` per group of blocks inside a coset. A
+    coset's blocks are disjoint, so no pixel meets two blocks of one
+    ``index_add_``: the card's atomic adds land in a fixed order (coset by
+    coset) and the result is the same on every run."""
+    m = x_block.shape[-1]
+    out = torch.zeros((n_pixels, m), dtype=torch.float32, device=x_block.device)
+    g = _block_group_size(panels.shape[1], m)
+    for a, b in zip(bounds[:-1], bounds[1:]):
+        for s in range(a, b, g):
+            e = min(s + g, b)
+            contrib = panels[s:e] @ x_block[s:e]                        # (g, p, m)
+            out.index_add_(0, rows[s:e].reshape(-1), contrib.reshape(-1, m))
+    return out
+
+
 @dataclass
 class BlockSparseMatrix:
     """U = [block panels | dense background basis], shape (n_pixels, R).
@@ -76,30 +102,20 @@ class BlockSparseMatrix:
         [start, end) in it. Made on the first product and kept, so every
         coset is a contiguous slice and no product gathers the panels."""
         if self._by_coset is None:
-            order = np.concatenate([np.asarray(ids, dtype=np.int64) for ids in self.cosets])
+            order, bounds = coset_order(self.cosets, 0, self.n_blocks)
             perm = torch.as_tensor(order, device=self.panels.device)
-            bounds = np.cumsum([0] + [len(ids) for ids in self.cosets]).tolist()
             self._by_coset = (self.panels.index_select(0, perm), self.rows.index_select(0, perm),
                               perm, bounds)
         return self._by_coset
 
     def matmul(self, x: torch.Tensor) -> torch.Tensor:
-        """U @ x for x (R, m) -> (n_pixels, m): a batched panel matmul per
-        block group, scatter-added by ``rows``. The groups follow the
-        cosets, whose blocks are disjoint: no pixel meets two blocks of one
-        ``index_add_``, so the card's atomic adds land in a fixed order
-        (coset by coset) and the product is the same on every run."""
+        """U @ x for x (R, m) -> (n_pixels, m): the blocks' part by
+        ``coset_overlap_add`` (the same on every run), then the background."""
         nb = self.n_block_cols
         m = x.shape[-1]
         panels, rows, perm, bounds = self._coset_layout()
         x_block = x[:nb].reshape(self.n_blocks, self.slots, m).index_select(0, perm)
-        out = torch.zeros((self.n_pixels, m), dtype=torch.float32, device=x.device)
-        g = _block_group_size(self.panels.shape[1], m)
-        for a, b in zip(bounds[:-1], bounds[1:]):
-            for s in range(a, b, g):
-                e = min(s + g, b)
-                contrib = panels[s:e] @ x_block[s:e]                    # (g, p, m)
-                out.index_add_(0, rows[s:e].reshape(-1), contrib.reshape(-1, m))
+        out = coset_overlap_add(panels, rows, x_block, self.n_pixels, bounds)
         if self.dense_basis.shape[1]:
             out = out + self.dense_basis @ x[nb:]
         return out

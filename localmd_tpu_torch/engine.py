@@ -12,7 +12,9 @@ gather path).
   blocks (engine.py:250-301); the JAX package's CPU reference path.
 - ``windowed_pmd_batched``: the multi-window block stage (engine.py:593-903)
   as a Python loop over windows, with the host reading two scalars per
-  window (early stop, fallback tier) where JAX keeps them on the device.
+  window (early stop, fallback tier) where JAX keeps them on the device;
+  with ``mesh`` the blocks are split over the ranks
+  (``parallel.sharded_windowed_pmd``).
 - ``threshold_heuristic``: the noise-null Monte-Carlo for the roughness
   cutoffs (engine.py:911-1053); ``jnp.percentile`` becomes
   ``torch.quantile`` with linear interpolation.
@@ -48,6 +50,8 @@ from localmd_tpu_torch.ops.roughness import (
     temporal_roughness_stat,
 )
 from localmd_tpu_torch.ops.tiling import extract_patches, flatten_fov, unflatten_fov
+from localmd_tpu_torch.parallel.multihost import validate_multihost_mesh
+from localmd_tpu_torch.parallel.sharded import sharded_windowed_pmd
 from localmd_tpu_torch.utils.random import normal
 
 
@@ -325,17 +329,43 @@ def windowed_pmd_batched(
     kernel on that window's sketch; the loop stops once every block is full.
     The temporal components are the whole crop projected on the bases. The
     denoisers reach every run of the two-stage kernel; the residual kernel
-    takes none, as in the JAX package."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "localmd_tpu_torch does not support mesh yet; see ROADMAP.md "
-            "(use the JAX package localmd_tpu for it)"
-        )
+    takes none, as in the JAX package. With ``mesh`` (``parallel.make_mesh``)
+    the blocks are split over its ranks (``parallel.sharded_windowed_pmd``);
+    n must be divisible by the mesh size."""
     n, b1, b2, t = blocks.shape
     wl = effective_window_length(window_length, t, temporal_avg_factor)
     n_windows = window_count(t, wl)
     if tuple(sketches.shape[:2]) != (n_windows, n):
         raise ValueError(f"sketches shape {tuple(sketches.shape[:2])} != {(n_windows, n)}")
+    if mesh is not None:
+        validate_multihost_mesh(mesh)
+        return sharded_windowed_pmd(
+            mesh, blocks, sketches, spatial_threshold, temporal_threshold,
+            n_windows=n_windows, window_length=wl, max_rank=max_rank,
+            temporal_avg_factor=temporal_avg_factor, spatial_avg_factor=spatial_avg_factor,
+            max_consecutive_failures=max_consecutive_failures,
+            spatial_denoiser=spatial_denoiser, temporal_denoiser=temporal_denoiser,
+        )
+    return _windowed_loop(
+        blocks, sketches, wl, n_windows, max_rank, spatial_threshold, temporal_threshold,
+        max_consecutive_failures, temporal_avg_factor, spatial_avg_factor, spatial_denoiser,
+        temporal_denoiser,
+    )
+
+
+def _windowed_loop(
+    blocks, sketches, wl, n_windows, max_rank, spatial_threshold, temporal_threshold,
+    max_consecutive_failures, temporal_avg_factor, spatial_avg_factor,
+    spatial_denoiser: Callable = identity, temporal_denoiser: Callable = identity,
+    agree: Optional[Callable] = None,
+) -> WindowedPMDResult:
+    """The window loop of ``windowed_pmd_batched`` (engine.py:693-790), the
+    host reading two scalars a window: ``[-min(counts), zero-count
+    blocks]``. ``agree`` (the mesh path's all-reduce, max) makes them the
+    ranks' common values, so every rank stops and picks the fallback tier
+    together; ``fallback_cap`` stays this rank's n // 8, as inside JAX's
+    ``shard_map``."""
+    n, b1, b2, t = blocks.shape
     kw = dict(
         max_rank=max_rank, temporal_avg_factor=temporal_avg_factor,
         spatial_avg_factor=spatial_avg_factor, spatial_threshold=spatial_threshold,
@@ -353,8 +383,11 @@ def windowed_pmd_batched(
     w = 1
     while w < n_windows:
         is_zero = counts == 0
-        least, n_zero = torch.stack([counts.min(), is_zero.sum().to(counts.dtype)]).tolist()
-        if least >= max_rank:
+        stat = torch.stack([-counts.min(), is_zero.sum().to(counts.dtype)])
+        if agree is not None:
+            stat = agree(stat)
+        neg_least, n_zero = stat.tolist()
+        if -neg_least >= max_rank:
             break
         start = min(w * wl, t - wl)
         window = blocks[..., start : start + wl]

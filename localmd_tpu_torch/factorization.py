@@ -3,7 +3,9 @@
 
 The (m, m) quadratic form ``right.T (U.T U) right`` comes from blocked panel
 products (``BlockSparseMatrix.gram_quadratic``); zero-padded slot columns of
-U give exact-zero eigenvalues that a relative cut drops.
+U give exact-zero eigenvalues that a relative cut drops. With a mesh the
+quadratic form splits the block panels over its ranks
+(``parallel.sharded_gram_quadratic``).
 """
 
 from __future__ import annotations
@@ -16,8 +18,30 @@ import torch
 
 from localmd_tpu_torch.blocksparse import BlockSparseMatrix
 from localmd_tpu_torch.ops.linalg import eigh_descending, projected_svd, subspace_eigh
+from localmd_tpu_torch.parallel.mesh import pad_to_multiple
+from localmd_tpu_torch.parallel.sharded import sharded_gram_quadratic
 
 DEFAULT_COL_CHUNK = 1024
+
+
+def _gram_quadratic_mesh(u: BlockSparseMatrix, right: torch.Tensor, mesh,
+                         col_chunk: int = DEFAULT_COL_CHUNK) -> torch.Tensor:
+    """right^T (U^T U) right with the block panels split over ``mesh``
+    (factorization.py:59-93): the block axis, and the matching rows of
+    ``right``, padded with zeros to a multiple of the mesh size (zero panels
+    add nothing; they form one more group after U's cosets)."""
+    world = mesh.size()
+    n = u.n_blocks
+    pad = pad_to_multiple(n, world) - n
+    panels, rows, cosets = u.panels, u.rows, tuple(u.cosets)
+    if pad:
+        panels = torch.cat([panels, panels.new_zeros((pad,) + tuple(panels.shape[1:]))])
+        rows = torch.cat([rows, rows.new_zeros((pad, rows.shape[1]))])
+        nb = u.n_block_cols
+        right = torch.cat([right[:nb], right.new_zeros((pad * u.slots, right.shape[1])), right[nb:]])
+        cosets += (np.arange(n, n + pad),)
+    return sharded_gram_quadratic(mesh, panels, rows, u.dense_basis, right, u.n_pixels,
+                                  col_chunk=col_chunk, cosets=cosets)
 
 
 def eigh_plan(m: int, k: int) -> Tuple[str, int]:
@@ -34,6 +58,7 @@ def compute_lowrank_factorized_svd(
     v: torch.Tensor,
     only_left: bool = False,
     col_chunk: int = DEFAULT_COL_CHUNK,
+    mesh=None,
     expected_rank: int = None,
 ):
     """SVD of the low-rank product ``u @ v`` (factorization.py:115-200).
@@ -41,12 +66,17 @@ def compute_lowrank_factorized_svd(
     Returns P ((R, r'), U @ P orthonormal) if ``only_left`` else (P', s, Vt)
     with (U P') s Vt = U V. With ``expected_rank`` the top ``expected_rank``
     directions are kept and rank-deficient ones zeroed on the device;
-    without it the positive-eigenvalue cut runs on the host."""
+    without it the positive-eigenvalue cut runs on the host. With ``mesh``
+    the Gram quadratic form is split over its ranks and every rank gets it
+    whole."""
     r_cols = u.shape[1]
     t = v.shape[1]
     # work in V's row space when U has more columns than V has frames
     right = v if r_cols > t else torch.eye(r_cols, dtype=v.dtype, device=v.device)
-    quad = u.gram_quadratic(right, col_chunk=col_chunk)
+    if mesh is not None:
+        quad = _gram_quadratic_mesh(u, right, mesh, col_chunk=col_chunk)
+    else:
+        quad = u.gram_quadratic(right, col_chunk=col_chunk)
     m = quad.shape[0]
 
     if expected_rank is not None:

@@ -22,6 +22,13 @@ streamed V regression, host->device streaming and the device movie cache
   device memory holds; the init frames, the background frames and the V
   regression then read those frames from the card -- contiguous ranges as
   views -- instead of streaming them again.
+- With a mesh of more than one rank (``parallel``), each rank streams its
+  own stripe of the movie in both passes: whole stats chunks
+  (``partition_chunks_for_host``), whose three accumulators are then
+  all-gathered and summed in rank order, and a ceil-division stripe of
+  frames for the V regression (``partition_ranges_for_host``), whose
+  columns are all-gathered. The movie cache is off there: it holds a
+  prefix of the movie, which a rank's stripe is not (loader.py:826-834).
 """
 
 from __future__ import annotations
@@ -39,6 +46,11 @@ from localmd_tpu_torch.ops import kernels
 from localmd_tpu_torch.ops.linalg import truncated_random_svd
 from localmd_tpu_torch.ops.noise import NPERSEG
 from localmd_tpu_torch.ops.tiling import flatten_fov, flatten_image, unflatten_fov
+from localmd_tpu_torch.parallel.multihost import (
+    all_gather_into,
+    replicate_frame_sharded,
+    world_and_rank,
+)
 from localmd_tpu_torch.utils import display, is_device_oom, make_generator, transient_budget_bytes
 
 MIN_NOISE_FRAMES = 256   # reference min_allowed_frames
@@ -61,6 +73,51 @@ def _chunk_ranges(total: int, chunk: int, merge_tail: bool = True) -> List[Tuple
     ranges = [(i * chunk, (i + 1) * chunk) for i in range(n_chunks - 2)]
     ranges.append(((n_chunks - 2) * chunk, total))
     return ranges
+
+
+def partition_ranges_for_host(
+    ranges: List[Tuple[int, int]], host_index: int, host_count: int
+) -> List[Tuple[int, int]]:
+    """This rank's contiguous stripe of frames (loader.py:79-114): frames
+    ``[h * ceil(T / H), min((h + 1) * ceil(T / H), T))``, chunks split at
+    the stripe's edges, so the stripes in rank order are the whole movie
+    and each rank's V columns are one ceil-division shard. Trailing ranks
+    may get an empty stripe. Only for passes whose per-chunk results do
+    not depend on the chunk boundaries (the V regression)."""
+    if host_count <= 1:
+        return list(ranges)
+    if not 0 <= host_index < host_count:
+        raise ValueError(f"host_index {host_index} outside [0, {host_count})")
+    total = sum(b - a for a, b in ranges)
+    shard = -(-total // host_count)
+    lo = min(host_index * shard, total)
+    hi = min(lo + shard, total)
+    out: List[Tuple[int, int]] = []
+    acc = 0
+    for a, b in ranges:
+        n = b - a
+        s, e = max(acc, lo), min(acc + n, hi)
+        if s < e:
+            out.append((a + (s - acc), a + (e - acc)))
+        acc += n
+    return out
+
+
+def partition_chunks_for_host(
+    ranges: List[Tuple[int, int]], host_index: int, host_count: int
+) -> List[Tuple[int, int]]:
+    """This rank's contiguous run of whole chunks, ``ceil(n_chunks / H)``
+    of them (loader.py:117-144): the statistics pass's partition, since the
+    Welch sigma is averaged per chunk, a short tail adds to the mean only
+    and the reference mode's nperseg is the chunk length, so every rank
+    must see the single-rank loop's chunk boundaries. Trailing ranks may
+    get an empty stripe."""
+    if host_count <= 1:
+        return list(ranges)
+    if not 0 <= host_index < host_count:
+        raise ValueError(f"host_index {host_index} outside [0, {host_count})")
+    per = -(-len(ranges) // host_count)
+    return list(ranges[host_index * per : (host_index + 1) * per])
 
 
 class _PrefetchIter:
@@ -339,6 +396,7 @@ class PMDLoader:
         num_workers: Optional[int] = None,
         precomputed: Optional[dict] = None,
         cache_movie="auto",
+        mesh=None,
     ):
         if welch_compat not in ("scipy", "reference"):
             raise ValueError(
@@ -357,6 +415,8 @@ class PMDLoader:
         self.welch_compat = welch_compat
         self._compute_normalizer = compute_normalizer
         self._np_rng = np_rng if np_rng is not None else np.random
+        # the ranks the two passes are striped over (parallel.make_mesh)
+        self._mesh = mesh
         self._generator = make_generator(seed, self.device)
         self.stream_dtype = self._stream_dtype()
         # the movie cache (loader.py:448-466): "auto" caches as many leading
@@ -509,12 +569,18 @@ class PMDLoader:
         return _StagedChunks(items, load, stager, depth=depth, eager=eager)
 
     def _iter_raw_chunks(self, chunk_frames: Optional[int] = None, merge_tail: bool = True,
-                         eager: bool = False, cache_dest: bool = False):
+                         eager: bool = False, cache_dest: bool = False, host_partition=None):
         """Native-dtype frame chunks over the whole movie (loader.py:660-724),
         ranges split at the cache boundary so each chunk is served wholly
-        from the card or wholly from the dataset."""
+        from the card or wholly from the dataset. With more than one rank,
+        ``host_partition`` "chunks" streams this rank's whole chunks and
+        "frames" its stripe of frames."""
         chunk_frames = chunk_frames or self._stream_chunk_frames()
         ranges = _chunk_ranges(self.shape[0], chunk_frames, merge_tail=merge_tail)
+        world, rank = world_and_rank(self._mesh)
+        if host_partition and world > 1:
+            part = partition_chunks_for_host if host_partition == "chunks" else partition_ranges_for_host
+            ranges = part(ranges, rank, world)
         c = self._cache_frames
         if self._cache is not None and 0 < c < self.shape[0]:
             ranges = [piece for a, b in ranges
@@ -580,7 +646,7 @@ class PMDLoader:
             return False
         if 0 < self.shape[0] <= self._cache_frames:
             return False
-        it = self._iter_raw_chunks(eager=True)
+        it = self._iter_raw_chunks(eager=True, host_partition="frames")
         if not isinstance(it, _PrefetchIter):
             return False
         self._v_prefetch = {"iter": it, "cache_frames": self._cache_frames}
@@ -624,6 +690,10 @@ class PMDLoader:
         mean_acc = torch.zeros((d1, d2), dtype=torch.float32, device=self.device)
         noise_acc = torch.zeros((d1, d2), dtype=torch.float32, device=self.device)
         noise_chunks = 0
+        world, _ = world_and_rank(self._mesh)
+        if world > 1 and self._cache_policy:
+            display("multi-rank run: device movie cache disabled (per-rank stats stripes)")
+            self._cache_policy = False
         cache_target = self._plan_cache_frames()
         if cache_target:
             self._cache = torch.empty((cache_target, d1, d2), dtype=self.stream_dtype,
@@ -632,7 +702,8 @@ class PMDLoader:
         pos = 0
         # Unmerged ranges: a tail shorter than MIN_NOISE_FRAMES adds to the
         # mean only, as the reference stats loop does.
-        chunks = self._iter_raw_chunks(self.frame_constant, merge_tail=False, cache_dest=True)
+        chunks = self._iter_raw_chunks(self.frame_constant, merge_tail=False, cache_dest=True,
+                                       host_partition="chunks")
         try:
             for raw in chunks:
                 t_c = raw.shape[0]
@@ -652,6 +723,20 @@ class PMDLoader:
             close = getattr(chunks, "close", None)
             if close is not None:
                 close()
+        if world > 1:
+            # the only statistics traffic between ranks: each rank's two
+            # images and chunk count, summed in rank order (loader.py:902-922)
+            # so every rank gets the same bits
+            n_pix = d1 * d2
+            mine = torch.cat([mean_acc.reshape(-1), noise_acc.reshape(-1),
+                              torch.tensor([float(noise_chunks)], device=self.device)])
+            parts = all_gather_into(self._mesh, mine[None])               # (world, 2 P + 1)
+            total = parts[0]
+            for r in range(1, world):
+                total = total + parts[r]
+            mean_acc = total[:n_pix].reshape(d1, d2)
+            noise_acc = total[n_pix : 2 * n_pix].reshape(d1, d2)
+            noise_chunks = int(total[-1])
         self._cache_building = False
         if self._cache is not None:
             display(f"Device movie cache: {self._cache_frames}/{t_total} frames (native dtype)")
@@ -743,7 +828,9 @@ class PMDLoader:
     # -- streamed temporal regression -----------------------------------------
 
     def v_projection(self, u, p: torch.Tensor) -> torch.Tensor:
-        """V = P^T U^T standardize(movie), the second full pass: (r', T)."""
+        """V = P^T U^T standardize(movie), the second full pass: (r', T).
+        With a mesh each rank streams its stripe of frames and the stripes
+        are gathered, so every rank returns the whole V (loader.py:1070-1227)."""
         d1, d2 = self.shape[1], self.shape[2]
         std_flat = flatten_image(self.std_img, self.order)
         mean_flat = flatten_image(self.mean_img, self.order)
@@ -756,7 +843,7 @@ class PMDLoader:
         # K2's layout of the projector, made once for every chunk
         prepared = kernels.prepare_projector(a_c) if a_c.is_cuda else None
         results = []
-        chunks = self._take_v_prefetch() or self._iter_raw_chunks()
+        chunks = self._take_v_prefetch() or self._iter_raw_chunks(host_partition="frames")
         try:
             for raw in chunks:
                 t_c = raw.shape[0]
@@ -765,4 +852,12 @@ class PMDLoader:
             close = getattr(chunks, "close", None)
             if close is not None:
                 close()
-        return torch.cat(results, dim=1) if len(results) > 1 else results[0]
+        if len(results) == 1:
+            v = results[0]
+        elif results:
+            v = torch.cat(results, dim=1)
+        else:  # a trailing rank's empty stripe
+            v = c.new_zeros((c.shape[0], 0))
+        if self._mesh is None:
+            return v
+        return replicate_frame_sharded(self._mesh, v, self.shape[0])

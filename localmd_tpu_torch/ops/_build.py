@@ -5,13 +5,17 @@ started together), and the objects link into one shared library with a
 plain C interface, loaded with ``ctypes``. The build runs at
 first use, into ``localmd_tpu_torch/_build/`` (git-ignored), keyed on a
 hash of the sources and flags, so a fresh checkout builds once and later
-processes reuse the library. ``torch.utils.cpp_extension`` is not used:
+processes reuse the library. Processes that start cold together (one rank
+per device) build once: the build holds an ``fcntl`` lock on
+``_build/build.lock``, and the others wait on it and then load the first
+one's library. ``torch.utils.cpp_extension`` is not used:
 including PyTorch's headers makes a build take minutes instead of seconds.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -74,12 +78,22 @@ def build() -> str:
     """Compile the kernels if the library for the current sources is
     missing; return its path. ``last_build`` records the seconds spent (in
     all, and until each source's nvcc finished) and the compiler's output
-    (``-Xptxas -v``: registers, shared memory, spills per kernel)."""
+    (``-Xptxas -v``: registers, shared memory, spills per kernel). The
+    check and the build run under the build directory's lock; an ``flock``
+    ends with its process, so a killed build leaves no stale lock."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     path = os.path.join(BUILD_DIR, f"liblocalmd_kernels_{_digest()}.so")
-    if os.path.exists(path):
-        last_build.update(path=path, seconds=0.0, cached=True)
-        return path
+    with open(os.path.join(BUILD_DIR, "build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(path):
+            last_build.update(path=path, seconds=0.0, cached=True)
+            return path
+        return _compile(path)
+
+
+def _compile(path: str) -> str:
+    """One nvcc per source, all started together, then the link into
+    ``path`` (written under a temporary name and renamed)."""
     tmp = f"{path}.{os.getpid()}.tmp"
     objs = [f"{tmp}.{os.path.splitext(name)[0]}.o" for name in SOURCES]
     t0 = time.perf_counter()

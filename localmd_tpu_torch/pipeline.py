@@ -18,8 +18,13 @@ per-batch ``blocks.part*``), ``projector``, ``v`` -- persists its outputs
 and a rerun with the same configuration resumes after the last one
 (``checkpoint.PipelineCheckpoint``); the denoisers are part of that
 fingerprint by their content (``_fn_token``). The device is explicit:
-``device="cuda"`` (the default) raises when CUDA is absent. ``mesh`` raises
-``NotImplementedError`` until the port has ``parallel/``.
+``device="cuda"`` (the default) raises when CUDA is absent.
+
+With ``mesh`` (``parallel.make_mesh()``: one rank per device, every rank
+making the same call) the block batches are split over the ranks and, with
+more than one rank, the statistics pass and the V regression are striped
+over them; every rank returns the same ``PMDArray`` (``parallel.multihost``
+sets out the stages).
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import hashlib
 import math
 import os
 import time
+from functools import partial
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -60,6 +66,13 @@ from localmd_tpu_torch.ops.tiling import (
     flatten_image,
     update_block_sizes,
 )
+from localmd_tpu_torch.parallel.mesh import pad_to_multiple
+from localmd_tpu_torch.parallel.multihost import (
+    agree_int_min,
+    validate_multihost_mesh,
+    world_and_rank,
+)
+from localmd_tpu_torch.parallel.sharded import sharded_window0_chunk_step
 from localmd_tpu_torch.pmd_array import PMDArray
 from localmd_tpu_torch.utils import (
     display,
@@ -215,8 +228,15 @@ def localmd_decomposition(
     .npy) or a dataset object. ``num_workers`` sets the prefetch depth and
     the native reader's threads; ``cache_movie`` ("auto", True or False)
     the device movie cache; ``checkpoint_path`` stage checkpoints.
-    ``dtype`` and ``pixel_batch_size`` are accepted and inert; ``mesh``
-    raises ``NotImplementedError``.
+    ``dtype`` and ``pixel_batch_size`` are accepted and inert.
+
+    ``mesh`` (``parallel.make_mesh()``, a 1-D ``DeviceMesh`` over every
+    rank of a ``torch.distributed`` job) splits each block batch over the
+    ranks; with more than one rank each rank also streams its own stripe
+    of the movie in the statistics pass and the V regression, the cache is
+    off, ``checkpoint_path`` raises and a device OOM is not retried (one
+    rank retrying alone would leave the others waiting). A job of more
+    than one rank must pass a mesh, and every rank gets the same result.
 
     ``spatial_denoiser`` / ``temporal_denoiser`` (None: ``engine.identity``)
     are written for one block -- (r, b1, b2) component images and (r, t)
@@ -247,11 +267,18 @@ def localmd_decomposition(
     """
     dev = config.resolve_device(device)
     precision = config.torch_matmul_precision(matmul_precision)
+    # fail before any streaming: a wrong mesh would otherwise surface only
+    # at the first collective, after the statistics pass (pipeline.py:283-299)
+    validate_multihost_mesh(mesh)
     if mesh is not None:
-        raise NotImplementedError(
-            "localmd_tpu_torch does not support mesh yet; see ROADMAP.md "
-            "(use the JAX package localmd_tpu for it)"
-        )
+        if mesh.device_type != dev.type:
+            raise ValueError(f"mesh is on {mesh.device_type!r} devices but device={device!r}")
+        if mesh.size() > 1 and checkpoint_path is not None:
+            raise ValueError(
+                "checkpoint_path is not supported with a mesh of more than one rank: "
+                "every rank would write the same stage files. Run with "
+                "checkpoint_path=None, or checkpoint a one-rank run."
+            )
     with config.matmul_precision_scope(precision), _profile_scope(profile_dir, dev):
         return _decompose(
             dataset_obj, block_sizes, frame_range, max_components, background_rank, sim_conf,
@@ -259,7 +286,7 @@ def localmd_decomposition(
             rank_prune_factor, temporal_avg_factor, spatial_avg_factor, order, window_chunks,
             compute_normalizer, pixel_weighting, spatial_denoiser, temporal_denoiser, seed,
             block_batch_size, sim_iters, final_rank_tol, checkpoint_path, welch_compat,
-            cache_movie, dev,
+            cache_movie, mesh, dev,
         )
 
 
@@ -268,10 +295,11 @@ def _decompose(
     frame_batch_size, num_workers, max_consecutive_failures, rank_prune, rank_prune_factor,
     temporal_avg_factor, spatial_avg_factor, order, window_chunks, compute_normalizer,
     pixel_weighting, spatial_denoiser, temporal_denoiser, seed, block_batch_size, sim_iters,
-    final_rank_tol, checkpoint_path, welch_compat, cache_movie, dev: torch.device,
+    final_rank_tol, checkpoint_path, welch_compat, cache_movie, mesh, dev: torch.device,
 ) -> PMDArray:
     """The body of ``localmd_decomposition`` on the resolved device, inside
     its precision and profiler scopes."""
+    world, _ = world_and_rank(mesh)
     dataset = as_dataset(dataset_obj)
     t_total, d1, d2 = (int(s) for s in dataset.shape)
     check_fov_size((d1, d2))
@@ -334,6 +362,7 @@ def _decompose(
         num_workers=num_workers,
         precomputed=precomputed or None,
         cache_movie=cache_movie,
+        mesh=mesh,
     )
     if not ckpt.has("stats"):
         ckpt.save("stats", mean_img=load_obj.mean_img, std_img=load_obj.std_img)
@@ -436,8 +465,9 @@ def _decompose(
             data, temporal_basis_crop = load_obj.temporal_crop_with_filter(frames[:crop_avg_constant])
         except Exception as e:  # noqa: BLE001
             # the movie cache left too little memory for the init buffer:
-            # drop it and retry (pipeline.py:598-607)
-            if not is_device_oom(e) or load_obj._cache is None:
+            # drop it and retry (pipeline.py:598-607); never on one rank
+            # alone (the cache is off there anyway)
+            if not is_device_oom(e) or load_obj._cache is None or world > 1:
                 raise
             display("WARNING: init-frame load hit device OOM; retrying without the movie cache")
             load_obj.release_cache()
@@ -451,6 +481,10 @@ def _decompose(
         free = free_bytes(dev)
         budget = max(int(1e9), int(0.4 * free)) if free is not None else int(1e9)
         bb = max(1, min(block_batch_size, n_blocks, max(16, budget // per_block_bytes)))
+        if mesh is not None:
+            # whole shares for every rank, and one batch size for all: each
+            # rank read its own free memory (pipeline.py:703-712)
+            bb = agree_int_min(pad_to_multiple(bb, world), mesh)
         display(
             f"Decomposing {n_blocks} overlapping blocks ({b1}x{b2}, max "
             f"{max_components} comps/block, {n_windows} window(s)) in batches of {bb}"
@@ -458,9 +492,17 @@ def _decompose(
 
         def run_batch(idx: np.ndarray, ids: torch.Tensor):
             """One batch of block ids, on the host and on the device (any ids:
-            the sketches are per block)."""
+            the sketches are per block). With a mesh the batch is padded with
+            block 0 to a multiple of the mesh size and the padding's outputs
+            are dropped (pipeline.py:879-884)."""
+            n_real = len(idx)
+            pad = pad_to_multiple(n_real, world) - n_real
+            if pad:
+                idx = np.concatenate([idx, np.zeros(pad, idx.dtype)])
+                ids = torch.cat([ids, ids.new_zeros(pad)])
             if single_window:
-                acc, cnt, v_fit = window0_chunk_step(
+                step = window0_chunk_step if mesh is None else partial(sharded_window0_chunk_step, mesh)
+                acc, cnt, v_fit = step(
                     data, grid.starts[idx], sketches[0].index_select(0, ids), b1, b2,
                     max_components, temporal_avg_factor, spatial_avg_factor,
                     spatial_threshold, temporal_threshold, max_consecutive_failures, sden, tden,
@@ -471,9 +513,10 @@ def _decompose(
                     extract_patches(data, grid.starts[idx], b1, b2), sketches.index_select(1, ids),
                     window_len, max_components, spatial_threshold, temporal_threshold,
                     max_consecutive_failures, temporal_avg_factor, spatial_avg_factor, sden, tden,
+                    mesh=mesh,
                 )
                 windows_run.append(ran)
-            return acc, cnt, v_fit
+            return acc[:n_real], cnt[:n_real], v_fit[:n_real]
 
         parts = []  # (ids, panels, counts, v_blocks), in any order
         if checkpoint_path is not None:
@@ -554,8 +597,11 @@ def _decompose(
             target_v = v_cropped @ random_mat
         else:
             target_v = v_cropped
+        # with more than one rank every rank holds the gathered panels and
+        # the Gram runs whole on each (pipeline.py:1294-1301)
         p_ = compute_lowrank_factorized_svd(
-            u, target_v, only_left=True, expected_rank=total_rank + k_bg
+            u, target_v, only_left=True, mesh=mesh if world == 1 else None,
+            expected_rank=total_rank + k_bg,
         )
         ckpt.save("projector", p=p_)
         return p_
@@ -584,7 +630,7 @@ def _decompose(
             r, s_vals, vt, s_keep = final_svd_reformat(p, v, rel_tol=final_rank_tol)
             break
         except Exception as e:  # noqa: BLE001
-            if not is_device_oom(e) or load_obj._cache is None or attempt:
+            if not is_device_oom(e) or load_obj._cache is None or attempt or world > 1:
                 raise
             display("WARNING: factorized SVD / V regression hit device OOM; "
                     "dropping the movie cache and streaming again")

@@ -17,6 +17,7 @@ import torch
 
 from localmd_tpu_torch.config import resolve_device
 from localmd_tpu_torch.dataset import ZStackArray, as_dataset
+from localmd_tpu_torch.parallel.multihost import validate_multihost_mesh
 from localmd_tpu_torch.pipeline import localmd_decomposition
 from localmd_tpu_torch.pmd_array import PMDArray
 from localmd_tpu_torch.utils import display
@@ -109,16 +110,19 @@ def volumetric_decomposition(
       ``device="cpu"``; raises without CUDA).
 
     With ``checkpoint_path=``, plane z checkpoints at
-    ``{checkpoint_path}_plane{z}``. ``mesh`` raises ``NotImplementedError``.
+    ``{checkpoint_path}_plane{z}``. With ``mesh=`` (``parallel.make_mesh``)
+    the planes run one at a time, each split over the mesh's ranks
+    (volumetric.py:113-123); ``devices=`` with it raises.
 
     Args:
         stack: ZStackArray, or a sequence of per-plane (T, d1, d2) movies.
         Remaining args as :func:`localmd_tpu_torch.localmd_decomposition`.
     """
-    if kwargs.get("mesh") is not None:
-        raise NotImplementedError(
-            "localmd_tpu_torch does not support mesh yet; see ROADMAP.md "
-            "(use the JAX package localmd_tpu for it)"
+    validate_multihost_mesh(kwargs.get("mesh"))
+    if devices and kwargs.get("mesh") is not None:
+        raise ValueError(
+            "devices= (plane-parallel) and mesh= (block-sharded) are mutually "
+            "exclusive; pick one scale-out axis"
         )
     if isinstance(stack, ZStackArray):
         planes = stack.planes

@@ -5,7 +5,7 @@ setup(
     version="0.3.0",
     description="TPU-native localized Penalized Matrix Decomposition for functional imaging",
     packages=find_packages(exclude=("tests",)),
-    package_data={"localmd_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
+    package_data={"localmd_tpu_torch": ["csrc/*.cu", "csrc/*.cuh", "csrc/*.cpp"]},
     python_requires=">=3.10",
     install_requires=[
         "numpy",

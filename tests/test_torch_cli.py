@@ -246,7 +246,7 @@ def test_volumetric_devices_equal_the_sequential_run(tmp_path):
     assert rel_fro(par[0:10], seq[0:10]) <= 1e-6
     for z in range(3):
         assert os.path.exists(str(tmp_path / f"ck_plane{z}.v.npz"))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         volumetric_decomposition(planes, (10, 10), mesh=object(), device="cpu", **kw)
     par.close()
     assert all(p._blocksparse is None for p in par.planes)

@@ -24,7 +24,7 @@ from localmd_tpu.ops.linalg import sketch_override as jax_sketch_override
 from localmd_tpu_torch.utils.random import sketch_override
 
 NAMESPACES = ["decomposition", "diagnostic_plots", "evaluation", "pmd_loader", "pmdarray",
-              "preprocessing_utils", "ops"]
+              "preprocessing_utils", "ops", "parallel"]
 
 
 def _sketch(shape):
@@ -43,7 +43,7 @@ def test_namespace_all_equals_the_jax_file(name):
 def test_namespaces_are_bound_on_the_package():
     import localmd_tpu_torch as localmd
 
-    for name in NAMESPACES[:-1]:
+    for name in NAMESPACES[:-2]:
         assert getattr(localmd, name).__name__ == f"localmd_tpu_torch.{name}"
     assert localmd.decomposition.localmd_decomposition is localmd.localmd_decomposition
     assert localmd.pmdarray.PMDArray is localmd.PMDArray

@@ -49,7 +49,8 @@ def test_package_has_the_ported_modules():
         "cli.py", "io/__init__.py", "io/tiff.py", "io/native.py", "utils/device.py",
         "metrics.py", "sim.py", "diagnostics.py", "diagnostic_plots.py", "compat.py",
         "decomposition.py", "evaluation.py", "preprocessing_utils.py", "pmd_loader.py",
-        "pmdarray.py", "utils/keys.py",
+        "pmdarray.py", "utils/keys.py", "parallel/__init__.py", "parallel/mesh.py",
+        "parallel/multihost.py", "parallel/sharded.py",
     ]:
         assert mod in names, mod
     for src in ("movie_stats.cu", "v_projection.cu", "block_reconstruct.cu", "jacobi_eigh.cu",
@@ -137,9 +138,47 @@ def test_build_compiles_each_source_at_once_then_links(tmp_path, monkeypatch):
     assert len(compiles) == len(_build.SOURCES) == 4
     assert all("arch=compute_90a,code=sm_90a" in c for c in compiles)
     assert calls[-1].startswith("-shared -o ") and os.path.exists(path)
-    assert sorted(os.listdir(tmp_path / "build")) == [os.path.basename(path)]
+    assert sorted(os.listdir(tmp_path / "build")) == sorted([os.path.basename(path), "build.lock"])
     assert set(_build.last_build["source_seconds"]) == set(_build.SOURCES)
     assert _build.build() == path and _build.last_build["cached"]
+
+
+def test_processes_starting_cold_together_build_once(tmp_path):
+    """Two processes call ``build()`` on an empty build directory at once
+    (a stand-in nvcc takes a second a call): one compiles, the other waits
+    on the lock and loads its library."""
+    import subprocess
+    import sys
+
+    log = tmp_path / "calls.txt"
+    fake = tmp_path / "nvcc"
+    fake.write_text(
+        "#!/bin/sh\n"
+        "sleep 1\n"
+        f'echo "$@" >> {log}\n'
+        'while [ "$#" -gt 0 ]; do if [ "$1" = "-o" ]; then touch "$2"; fi; shift; done\n'
+    )
+    fake.chmod(0o755)
+    code = (
+        "from localmd_tpu_torch.ops import _build\n"
+        f"_build._nvcc = lambda: {str(fake)!r}\n"
+        f"_build.BUILD_DIR = {str(tmp_path / 'build')!r}\n"
+        "print(_build.build(), _build.last_build['cached'])\n"
+    )
+    procs = [subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for _ in range(2)]
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=120)[0].strip().splitlines()[-1])
+    finally:
+        for proc in procs:
+            proc.kill()
+    assert all(proc.returncode == 0 for proc in procs), outs
+    paths, cached = zip(*(line.split() for line in outs))
+    assert paths[0] == paths[1] and sorted(cached) == ["False", "True"]
+    calls = log.read_text().splitlines()
+    assert len([c for c in calls if " -c " in f" {c} "]) == 4 and len(calls) == 5
 
 
 @pytest.mark.parametrize("call", ["movie_stats", "v_projection", "prepare_projector",

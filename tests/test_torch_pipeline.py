@@ -231,12 +231,18 @@ def test_npz_round_trips_between_packages(runs, tmp_path):
 
 
 @pytest.mark.parametrize("kwargs", [dict(mesh=object())])
-def test_unsupported_options_raise(kwargs):
+def test_unsupported_options_raise(kwargs, monkeypatch):
+    """A mesh that is not a 1-D DeviceMesh over every rank raises before
+    any work (the statistics pass never starts)."""
     from localmd_tpu_torch import localmd_decomposition
+    from localmd_tpu_torch.loader import PMDLoader
 
+    stats = []
+    monkeypatch.setattr(PMDLoader, "_run_stats_with_oom_retry", lambda self: stats.append(1))
     movie = np.zeros((300, 20, 20), np.float32)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises((TypeError, ValueError)):
         localmd_decomposition(movie, (10, 10), frame_range=300, device="cpu", **kwargs)
+    assert not stats
 
 
 def test_tensor_input_matches_numpy_input(runs):

@@ -179,6 +179,7 @@ def test_window_geometry_matches_jax():
     with pytest.raises(ValueError, match="sketches shape"):
         te.windowed_pmd_batched(t32(windowed_blocks(n=2)), _sketches(2, 2), WL, RANK,
                                 1e9, 1e9, 1, TAF, SAF)
-    with pytest.raises(NotImplementedError):
+    # a mesh must be a 1-D DeviceMesh over every rank (parallel.make_mesh)
+    with pytest.raises(TypeError, match="DeviceMesh"):
         te.windowed_pmd_batched(t32(windowed_blocks(n=2)), _sketches(2, 3), WL, RANK,
                                 1e9, 1e9, 1, TAF, SAF, mesh=object())

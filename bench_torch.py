@@ -9,7 +9,7 @@ bench.make_movie's movie (bench.py:23-63), made on the card from a seeded
 clip(40 x + 1000).
 
     python3 bench_torch.py [--cell 512_f32|1024_u16|voltage_f32|northstar_u16|all] [--runs 10]
-                           [--profile] [--small-eigh k4|cusolver]
+                           [--profile] [--small-eigh k4|cusolver] [--routes auto|off|both]
 
 Per cell: one cold call of ``localmd_decomposition``, then ``--runs`` warm
 calls, each timed on the host clock around work that ends in
@@ -24,6 +24,11 @@ device busy ms (union of kernel intervals), idle share, the kernels
 with the most device time, and the device time of each of K1-K4. ``--small-eigh cusolver`` sends the small
 eighs that go to K4 (k <= 64) to ``torch.linalg.eigh`` instead, to set the
 two side by side in one call.
+
+``--routes off`` forces the JAX package's accelerator routes off (the
+coset block stage, the banded Gram and the cell-packed V projection, which
+"auto" runs on the card), ``--routes both`` runs each cell once each way,
+"auto" first; the JSON line names the setting.
 
 ``northstar_u16`` is the JAX package's north-star workload
 (bench_northstar.py:118-131): bench.make_movie's uint16 construction at
@@ -268,6 +273,20 @@ def make_movie(dtype: str, d1=512, d2=512, t=2048, rank=16, seed=0, smooth=False
     return movie, clean
 
 
+# the JAX package's accelerator routes in the port, by module and flag
+ROUTE_FLAGS = (("engine", "COSET_STAGE"), ("blocksparse", "BANDED_GRAM"),
+               ("blocksparse", "COSET_VPROJ"))
+
+
+def set_routes(value) -> None:
+    """Set every route flag to ``value``: "auto" (the package's default, on
+    for the card) or False (the gather and canvas forms and K2)."""
+    import importlib
+
+    for module, flag in ROUTE_FLAGS:
+        setattr(importlib.import_module(f"localmd_tpu_torch.{module}"), flag, value)
+
+
 def timed_run(movie, blocks=BLOCKS, **settings):
     """One ``localmd_decomposition`` call on the card with bench.py's
     configuration, ``settings`` overriding it: (pmd, seconds, peak GiB)."""
@@ -381,6 +400,10 @@ def main(argv=None) -> int:
                     help="add one warm call under torch.profiler")
     ap.add_argument("--small-eigh", default="k4", choices=["k4", "cusolver"],
                     help="route of the eighs with k <= 64 (default: K4, as the package does)")
+    ap.add_argument("--routes", default="auto", choices=["auto", "off", "both"],
+                    help="the accelerator routes (coset block stage, banded Gram, cell V "
+                         "projection): the package's default, forced off, or each cell "
+                         "once with each (default: auto)")
     args = ap.parse_args(argv)
 
     import torch
@@ -403,12 +426,16 @@ def main(argv=None) -> int:
         linalg.uses_jacobi = lambda device, k: False
     card = card_line()
     for name in [*CELLS, "northstar_u16"] if args.cell == "all" else [args.cell]:
-        if name == "northstar_u16":
-            out = bench_northstar(args.runs or 3, args.profile, card)
-        else:
-            out = bench_cell(name, args.runs or 10, args.profile, card)
-        out["small_eigh"] = args.small_eigh
-        print(json.dumps(out), flush=True)
+        for routes in (("auto", "off") if args.routes == "both" else (args.routes,)):
+            set_routes("auto" if routes == "auto" else False)
+            if name == "northstar_u16":
+                out = bench_northstar(args.runs or 3, args.profile, card)
+            else:
+                out = bench_cell(name, args.runs or 10, args.profile, card)
+            out["small_eigh"] = args.small_eigh
+            out["routes"] = routes
+            print(json.dumps(out), flush=True)
+    set_routes("auto")
     return 0
 
 

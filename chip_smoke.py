@@ -17,21 +17,32 @@ Phases (each prints one progress line; any failure raises, exit code != 0):
    the path keeps them.
 3. golden: the port on the golden movie with the committed injected
    sketches and pinned thresholds, against tests/golden/reference_golden.npz
-   (K4 on the path: every small eigh).
+   (K4 on the path: every small eigh; its 40 x 36 grid has a snapped tail,
+   so the V regression takes K2); then the same construction at a regular
+   40 x 40, every accelerator route on against every route off (<= 1e-5),
+   each route seen to run.
 4. main path: ``localmd_decomposition`` on bench.make_movie's 512 x 512 x
    2048 float32 movie made on the card (bench.py's configuration), once
-   cold and twice warm, then ``reconstruct_frames`` on 512 frames, twice
-   (the first call also builds K3's block lists); every kernel must have
-   run.
-5. the same movie as uint16, once.
+   cold and three times warm with the routes at "auto" (the coset block
+   stage, the banded Gram and the cell V projection all run; K2 does not),
+   then ``reconstruct_frames`` on 512 frames, twice (the first call also
+   builds K3's block lists), then three warm calls with the routes forced
+   off: each side's warm median and route stages, equal ranks, equal K4
+   launches across a side's warm calls.
+5. the same movie as uint16, once, and bench.py's second leg (1024 x 1024
+   x 4096 uint16, blocks 40: a snapped tail, so K2 reads the uint16 chunks
+   and the coset stage runs its lattices plus one gathered batch), once.
 6. denoising: the same construction with smoothed factors, float32 and
    uint16, once each; the reconstruction must be closer to the clean movie
    than the raw frames.
 7. the multi-window path: the JAX package's voltage workload
    (scripts/bench_workloads.py:34-42) on bench.make_movie's construction at
-   256 x 256 x 20000 float32, once cold and once warm, then with smoothed
-   factors once: shape, ranks, at least one residual window, finite frames
-   through K3, every kernel launched, and denoising on the smoothed movie.
+   256 x 256 x 20000 float32, once cold and three times warm, then three
+   warm calls with the routes forced off (the banded Gram and the cell V
+   projection against the canvas Gram and K2, timed as in phase 4), then
+   with smoothed factors once: shape, ranks, at least one residual window,
+   finite frames through K3, the kernels and routes launched, and
+   denoising on the smoothed movie.
 8. from disk: the JAX package's north star (bench_northstar.py:118-131),
    bench.make_movie's uint16 construction at 512 x 512 x 30000 (15.7 GB)
    written to a raw file in a temporary directory (removed at the end; T
@@ -48,8 +59,8 @@ Phases (each prints one progress line; any failure raises, exit code != 0):
    bench.py's configuration, then ``metrics`` (compression ratio, both
    relative errors, the residual-to-noise ratio in (0.3, 3)) and
    ``compute_qc_images`` with the PMDArray as source (K3); the same movie
-   with the torch denoiser pair (finite, rank >= 1, K1, K2 and K4
-   launched), and the golden movie with the denoisers and the committed
+   with the torch denoiser pair (finite, rank >= 1, K1 and K4 launched,
+   the gather block stage), and the golden movie with the denoisers and the committed
    sketches on the card against the CPU (<= 1e-4); the same movie with
    ``matmul_precision="tensorfloat32"`` (``rel_error_centered`` within 1.1x
    of the "highest" run's, the setting restored), with ``profile_dir`` (a
@@ -59,7 +70,9 @@ Phases (each prints one progress line; any failure raises, exit code != 0):
    made on the card, timed.
 10. the mesh path (``parallel``): bench.py's configuration on its
    512 x 512 x 2048 float32 movie, made on the card in every rank, first
-   in this process on one device (cold, then warm: the reference), then
+   in this process on one device (cold, then warm: the reference, with the
+   forms the mesh path takes: the gather block stage, and the canvas Gram
+   for one rank or the banded Gram for two), then
    with ``mesh=parallel.make_mesh()`` in two launches of ranks, each rank
    a subprocess of this script with a time limit: (a) one rank on NCCL,
    whose factorized SVD takes ``sharded_gram_quadratic``'s reduce-scatter
@@ -70,13 +83,19 @@ Phases (each prints one progress line; any failure raises, exit code != 0):
    ``pipeline_ranks`` and the kept rank of the reference, the sampled
    frames within 1e-6 relative Frobenius of the reference's (the card gave
    them bit for bit; on this white movie a rounding change in the block
-   fits moves the kept subspace by ~1e-3), every rank's factors equal to rank 0's bit for bit,
-   K1-K4 launched in every rank; prints each rank's warm wall time and
+   fits moves the kept subspace by ~1e-3), every rank's factors equal to
+   rank 0's bit for bit, K1, K3 and K4 and the cell V projection (in K2's
+   place) launched in every rank; prints each rank's warm wall time and
    stages beside the reference's.
 
+Wherever a path runs, the kernels and routes it launched are checked
+against the route it should take (``expected_routes``): K2 where the cell
+V projection does not run, the route's own calls where it does.
+
 The last two lines are a JSON object with one entry per kernel (its
-launches summed over the runs of phases 4, 7, 8, 9 and 10, each counted
-from 0) and the result line ``{"ok": true, "device": {...}}``.
+launches summed over the runs of phases 3, 4 (the "auto" side), 5, 7 (the
+"auto" side), 8, 9 and 10, each counted from 0) and the result line
+``{"ok": true, "device": {...}}``.
 
 Run from the repository root: ``python3 chip_smoke.py`` (one card; phase 8
 needs ~19 GB of free temporary disk, or prints its cut). ``--phases 0,1,2``
@@ -157,6 +176,78 @@ def max_abs(a, b) -> float:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise AssertionError(what)
+
+
+# ---------------------------------------------------------------------------
+# the accelerator routes: which ran, and which should have
+# ---------------------------------------------------------------------------
+
+ROUTE_CALLS = {"coset_stage": 0, "banded_gram": 0, "cell_vproj": 0}
+
+
+def install_route_spies() -> None:
+    """Count the calls of each accelerator route's function: the coset
+    block stage (as the pipeline calls it), the banded Gram and the cell V
+    projection's chunk product."""
+    import localmd_tpu_torch.pipeline as pipeline
+    from localmd_tpu_torch import blocksparse
+
+    for name, module, attr in (("coset_stage", pipeline, "window0_coset_stage"),
+                               ("banded_gram", blocksparse, "_banded_gram_quad"),
+                               ("cell_vproj", blocksparse, "coset_vproj_chunk")):
+        fn = getattr(module, attr)
+        if getattr(fn, "route", None):
+            continue
+
+        def spy(*args, _fn=fn, _name=name, **kwargs):
+            ROUTE_CALLS[_name] += 1
+            return _fn(*args, **kwargs)
+
+        spy.route = name
+        setattr(module, attr, spy)
+
+
+def reset_route_calls() -> None:
+    for name in ROUTE_CALLS:
+        ROUTE_CALLS[name] = 0
+
+
+def expected_routes(d1: int, d2: int, blocks=(32, 32), single_window=True, world: int = 0) -> dict:
+    """The routes a call takes with the flags as they are, ``world`` the
+    mesh's size (0: no mesh): the coset stage for one window without a
+    mesh on a grid of coset lattices (its memory gate aside), the banded
+    Gram on a regular grid except on a one-rank mesh (whose Gram is
+    ``sharded_gram_quadratic``; above one rank every rank forms the whole
+    Gram, as the JAX package does) and the cell V projection on a regular
+    grid."""
+    from localmd_tpu_torch import blocksparse, engine
+    from localmd_tpu_torch.config import route_enabled
+    from localmd_tpu_torch.ops.tiling import block_grid
+
+    regular = block_grid(d1, d2, tuple(blocks)).cell_geometry() is not None
+    return {
+        "coset_stage": (single_window and not world
+                        and route_enabled(engine.COSET_STAGE, "cuda")
+                        and engine.coset_stage_supported(blocks[0], blocks[1], 2)
+                        and engine.coset_stage_plan(d1, d2, *blocks) is not None),
+        "banded_gram": regular and world != 1 and route_enabled(blocksparse.BANDED_GRAM, "cuda"),
+        "cell_vproj": regular and route_enabled(blocksparse.COSET_VPROJ, "cuda"),
+    }
+
+
+def check_path(label: str, launches: dict, routes: dict, expected: dict,
+               kernels_run=("movie_stats", "jacobi_eigh")) -> None:
+    """Each route ran where it was expected and not elsewhere; K2 ran where
+    the cell route did not; every kernel in ``kernels_run`` ran."""
+    for name, want in expected.items():
+        check((routes[name] > 0) == want,
+              f"{label}: route {name} ran {routes[name]} times, expected {'some' if want else 'none'}")
+    if expected["cell_vproj"]:
+        check(launches["v_projection"] == 0, f"{label}: K2 ran beside the cell route")
+    else:
+        check(launches["v_projection"] > 0, f"{label}: K2 never ran")
+    for name in kernels_run:
+        check(launches[name] > 0, f"{label}: never launched {name}")
 
 
 # ---------------------------------------------------------------------------
@@ -419,10 +510,11 @@ def k4_matrices(kind: str, n: int, k: int, g):
 # phase 3: golden fixture on the card
 # ---------------------------------------------------------------------------
 
-def golden_movie():
-    """MUST match tests/test_golden.py _make_movie()."""
+def golden_movie(d2: int = 36):
+    """MUST match tests/test_golden.py _make_movie() (d2 = 36; 40 makes the
+    regular grid of tests/test_torch_coset.py)."""
     rng = np.random.default_rng(55)
-    T, d1, d2, R = 500, 40, 36, 4
+    T, d1, R = 500, 40, 4
     spatial = rng.random((d1 * d2, R)).astype(np.float32)
     temporal = rng.standard_normal((R, T)).astype(np.float32)
     temporal *= np.asarray([8.0, 6.0, 4.5, 3.0], np.float32)[:, None]
@@ -431,26 +523,20 @@ def golden_movie():
     return movie.astype(np.float32), T, R
 
 
-def phase_golden() -> None:
+def golden_run(movie, T: int, R: int):
+    """The golden settings on the card: the committed sketches injected,
+    the thresholds pinned."""
     import torch
 
     import localmd_tpu_torch.pipeline as port_pipeline
-    from localmd_tpu_torch.ops import kernels
     from localmd_tpu_torch.utils.random import sketch_override
 
-    golden = np.load(GOLDEN, allow_pickle=True)
     sketches = np.load(GOLDEN_SKETCHES)
-
-    def fixed_sketch(shape):
-        return sketches["x".join(str(int(s)) for s in shape)]
-
-    movie, T, R = golden_movie()
-    before = kernels.launch_counts()
     saved = port_pipeline.threshold_heuristic
     port_pipeline.threshold_heuristic = lambda *a, **k: (1e9, 1e9)
     try:
-        with sketch_override(fixed_sketch):
-            pmd = port_pipeline.localmd_decomposition(
+        with sketch_override(lambda shape: sketches["x".join(str(int(s)) for s in shape)]):
+            return port_pipeline.localmd_decomposition(
                 torch.as_tensor(movie, device="cuda"), (16, 16), frame_range=T,
                 max_components=R, background_rank=2, temporal_avg_factor=4,
                 compute_normalizer=True, welch_compat="reference", seed=0,
@@ -458,9 +544,23 @@ def phase_golden() -> None:
             )
     finally:
         port_pipeline.threshold_heuristic = saved
+
+
+def phase_golden() -> dict:
+    """Phase 3. Returns the launch counts of the golden run (counted from
+    0), whose irregular grid takes K2."""
+    from bench_torch import set_routes
+    from localmd_tpu_torch.ops import kernels
+
+    golden = np.load(GOLDEN, allow_pickle=True)
+    movie, T, R = golden_movie()
+    kernels.reset_launch_counts()
+    reset_route_calls()
+    pmd = golden_run(movie, T, R)
     recon_k3 = pmd.reconstruct_frames(np.arange(T)).cpu().numpy()
     recon_host = pmd[:, :, :]
     after = kernels.launch_counts()
+    golden_routes = dict(ROUTE_CALLS)
     ref = golden["recon"]
     err_k3 = float(np.linalg.norm(recon_k3 - ref) / np.linalg.norm(ref))
     err_host = float(np.linalg.norm(recon_host - ref) / np.linalg.norm(ref))
@@ -468,11 +568,31 @@ def phase_golden() -> None:
     var_err = float(np.max(np.abs(pmd.var_img - golden["noise_var_img"]) / np.abs(golden["noise_var_img"])))
     log(f"  golden: recon rel Frobenius {err_k3:.3e} (K3) / {err_host:.3e} (slicing), "
         f"mean max|d|/max|ref| {mean_err:.3e}, var rel {var_err:.3e}, ranks {pmd.pipeline_ranks}")
-    for k in before:
-        check(after[k] > before[k], f"golden run did not launch {k}")
+    log(f"  golden launches {after}, routes {golden_routes}")
+    check_path("golden", after, golden_routes, expected_routes(40, 36, (16, 16)),
+               kernels_run=tuple(after))
     check(err_k3 <= 1e-5 and err_host <= 1e-5, f"golden reconstruction error {err_k3} / {err_host}")
     check(np.allclose(pmd.mean_img, golden["mean_img"], rtol=1e-4, atol=1e-5), "golden mean_img")
     check(np.allclose(pmd.var_img, golden["noise_var_img"], rtol=1e-4, atol=0), "golden var_img")
+
+    # the regular 40 x 40 construction, every route on against every route off
+    movie40, T, R = golden_movie(40)
+    recon = {}
+    for routes in (False, "auto"):
+        set_routes(routes)
+        reset_route_calls()
+        pmd40 = golden_run(movie40, T, R)
+        recon[routes] = pmd40.reconstruct_frames(np.arange(T))
+        calls = dict(ROUTE_CALLS)
+        log(f"  regular 40x40 golden construction, routes {routes}: routes run {calls}, ranks "
+            f"{pmd40.pipeline_ranks}")
+        want = expected_routes(40, 40, (16, 16))
+        check(calls == {k: int(v) for k, v in want.items()},
+              f"regular golden, routes {routes}: routes run {calls}, expected {want}")
+    err40 = rel_fro(recon["auto"], recon[False])
+    log(f"  regular 40x40: routes on against off, rel Frobenius {err40:.3e}")
+    check(err40 <= 1e-5, f"regular golden construction: routes on against off {err40}")
+    return after
 
 
 # ---------------------------------------------------------------------------
@@ -483,21 +603,73 @@ def run_main(movie, runs: int, label: str, **settings):
     """``runs`` calls of localmd_decomposition (the first cold) with
     bench.py's configuration, ``settings`` over it; checks the ranks and
     returns the last PMDArray."""
+    return run_side(movie, runs, label, **settings)[0]
+
+
+def run_side(movie, runs: int, label: str, cold: bool = True, **settings):
+    """``runs`` calls (the first cold if ``cold``), each logged: (the last
+    PMDArray, the warm calls' walls, their ``pipeline_timings`` and their
+    K4 launches, each call's counted alone)."""
     from bench_torch import timed_run
+    from localmd_tpu_torch.ops import kernels
 
     t, d1, d2 = movie.shape
-    pmd = None
+    pmd, walls, stages, k4 = None, [], [], []
     for i in range(runs):
+        before = kernels.jacobi_eigh.launches
         pmd, secs, peak = timed_run(movie, **settings)
-        kind = "cold" if i == 0 else "warm"
+        kind = "cold" if (cold and i == 0) else "warm"
         log(f"  {label} run {i} ({kind}): {secs:.4f} s = "
             f"{d1 * d2 * t / secs / 1e6:.1f} Mpf/s; stages "
             + json.dumps({k: round(v, 4) for k, v in pmd.pipeline_timings.items()})
-            + f"; peak {peak:.2f} GiB")
+            + f"; peak {peak:.2f} GiB; K4 launches {kernels.jacobi_eigh.launches - before}")
+        if kind == "warm":
+            walls.append(secs)
+            stages.append(pmd.pipeline_timings)
+            k4.append(kernels.jacobi_eigh.launches - before)
     ranks = pmd.pipeline_ranks
     log(f"  {label} ranks {ranks}, kept rank {pmd.rank}, windows {pmd.pipeline_windows}")
     check(0 < pmd.rank <= ranks["final"] <= ranks["reduced"], f"{label}: ranks {ranks}, {pmd.rank}")
-    return pmd
+    return pmd, walls, stages, k4
+
+
+AB_STAGES = ("block_decomposition", "factorized_svd", "v_regression")
+
+
+def routes_ab(movie, label: str, pmd_on, side_on, runs: int = 3, kept_equal: bool = True,
+              **settings) -> None:
+    """The routes forced off for ``runs`` warm calls after the "auto" side
+    ``side_on`` (walls, stages, K4 launches) ended in ``pmd_on``: each
+    side's warm median and the median of its three route stages, equal
+    ``pipeline_ranks`` (and kept ranks with ``kept_equal``), equal K4
+    launches across one side's warm calls, and the two sides' sampled
+    frames apart (reported, no bar: on a white movie a rounding change
+    moves the kept subspace by ~1e-3)."""
+    import torch
+
+    from bench_torch import set_routes
+
+    set_routes(False)
+    try:
+        pmd_off, *side_off = run_side(movie, runs, f"{label} routes off", cold=False, **settings)
+    finally:
+        set_routes("auto")
+    for name, (walls, stages, k4) in (("auto", side_on), ("off", side_off)):
+        log(f"  {label} routes {name}: warm median {float(np.median(walls)):.4f} s of "
+            + ", ".join(f"{w:.4f}" for w in walls) + "; stage medians "
+            + json.dumps({k: round(float(np.median([s[k] for s in stages])), 4) for k in AB_STAGES})
+            + f"; K4 launches per warm call {k4}")
+        check(len(set(k4)) == 1, f"{label} routes {name}: K4 launches vary across warm calls {k4}")
+    sample = np.sort(np.random.default_rng(0).choice(movie.shape[0], 512, replace=False))
+    err = rel_fro(pmd_on.reconstruct_frames(sample), pmd_off.reconstruct_frames(sample))
+    log(f"  {label}: routes auto against off, ranks {pmd_on.pipeline_ranks} / kept {pmd_on.rank} "
+        f"against {pmd_off.pipeline_ranks} / kept {pmd_off.rank}; 512 sampled frames rel "
+        f"Frobenius {err:.3e}")
+    check(pmd_on.pipeline_ranks == pmd_off.pipeline_ranks
+          and (pmd_on.rank == pmd_off.rank or not kept_equal),
+          f"{label}: routes auto against off changed the ranks")
+    del pmd_off
+    torch.cuda.empty_cache()
 
 
 def check_recon(pmd, movie, clean_fn, label: str, denoised: bool) -> None:
@@ -547,16 +719,25 @@ def phase_voltage() -> dict:
     try:
         movie, clean_fn = make_movie(dtype, d1, d2, t)
         kernels.reset_launch_counts()
-        pmd = run_main(movie, 2, "voltage f32", **settings)
+        reset_route_calls()
+        pmd, *side_on = run_side(movie, 4, "voltage f32", **settings)
         check(tuple(pmd.shape) == (t, d1, d2), f"voltage: shape {pmd.shape}")
         windows = pmd.pipeline_windows
         check(windows["n_windows"] == 2, f"voltage: {windows}")
         check_recon(pmd, movie, clean_fn, "voltage f32", denoised=False)
         launches = kernels.launch_counts()
-        log(f"  launches on the multi-window path: {launches}; residual-window calls {len(calls)}")
+        log(f"  launches on the multi-window path: {launches}; routes run {ROUTE_CALLS}; "
+            f"residual-window calls {len(calls)}")
         check(len(calls) >= 1, "voltage: no residual window ran")
-        for name, n in launches.items():
-            check(n > 0, f"multi-window path never launched {name}")
+        check_path("multi-window path", launches, ROUTE_CALLS,
+                   expected_routes(d1, d2, single_window=False),
+                   kernels_run=("movie_stats", "block_reconstruct", "jacobi_eigh"))
+        # the banded Gram and the cell route against the canvas Gram and K2.
+        # The kept rank is reported, not held: without rank_prune the white
+        # movie's final singular values form a continuum through the
+        # 1e-3 * s_0 cut (230 of 465 kept), and a rounding change moves one
+        # across it (230 against 229 on the card)
+        routes_ab(movie, "voltage f32", pmd, side_on, kept_equal=False, **settings)
         del pmd, movie
         torch.cuda.empty_cache()
         before = len(calls)
@@ -597,14 +778,11 @@ def log_stream_run(label: str, pmd, secs: float, t: int) -> None:
         f"ranks {pmd.pipeline_ranks}, kept {pmd.rank}")
 
 
-# the kernels a decomposition launches; K3 runs in export_tiff
-STREAM_KERNELS = ("movie_stats", "v_projection", "jacobi_eigh")
-
-
 def check_stream_launches(label: str, launches: dict) -> None:
-    log(f"  launches of the {label} run: {launches}")
-    for name in STREAM_KERNELS:
-        check(launches[name] > 0, f"{label}: the run never launched {name}")
+    """The kernels and routes of one from-disk decomposition (K3 runs in
+    export_tiff); ``ROUTE_CALLS`` counted from 0 with ``launches``."""
+    log(f"  launches of the {label} run: {launches}; routes run {ROUTE_CALLS}")
+    check_path(label, launches, ROUTE_CALLS, expected_routes(512, 512))
 
 
 def phase_from_disk(frames=None) -> dict:
@@ -650,6 +828,7 @@ def phase_from_disk(frames=None) -> dict:
         check(native_available(), "the native reader is not built: the timed path would read in Python")
         src = RawBinaryArray(path, (t, 512, 512), "uint16")
         kernels.reset_launch_counts()
+        reset_route_calls()
         pmd, secs_on, _ = timed_run(src, blocks=NORTHSTAR_BLOCKS, cache_movie="auto", **settings)
         launches_on = kernels.launch_counts()
         log_stream_run("from disk, cache auto", pmd, secs_on, t)
@@ -673,6 +852,7 @@ def phase_from_disk(frames=None) -> dict:
         # 4. from the file, no cache: the V regression streams through the
         # pinned ring while the factorized SVD runs
         kernels.reset_launch_counts()
+        reset_route_calls()
         pmd_off, secs_off, _ = timed_run(src, blocks=NORTHSTAR_BLOCKS, cache_movie=False, **settings)
         launches_off = kernels.launch_counts()
         log_stream_run("from disk, no cache", pmd_off, secs_off, t)
@@ -801,10 +981,12 @@ def torch_spatial(frames):
 
 
 def counted(fn):
-    """(result, launches of each kernel inside ``fn()``, counted from 0)."""
+    """(result, launches of each kernel inside ``fn()``, counted from 0);
+    ``ROUTE_CALLS`` is counted from 0 with them."""
     from localmd_tpu_torch.ops import kernels
 
     kernels.reset_launch_counts()
+    reset_route_calls()
     out = fn()
     return out, kernels.launch_counts()
 
@@ -857,8 +1039,9 @@ def phase_options() -> dict:
 
     (pmd, secs, peak), launches = counted(lambda: timed_run(movie))
     log(f"  sim movie, bench.py's configuration: {secs:.4f} s, peak {peak:.2f} GiB, ranks "
-        f"{pmd.pipeline_ranks}, kept {pmd.rank}; launches {launches}")
+        f"{pmd.pipeline_ranks}, kept {pmd.rank}; launches {launches}; routes run {ROUTE_CALLS}")
     check(pmd.rank >= 1, "sim movie: rank 0")
+    check_path("sim movie", launches, ROUTE_CALLS, expected_routes(512, 512))
 
     def quality():
         return [timed(lambda: metrics.compression_ratio(pmd)),
@@ -884,10 +1067,11 @@ def phase_options() -> dict:
         movie, spatial_denoiser=torch_spatial, temporal_denoiser=torch_temporal))
     frames = pmd_den.reconstruct_frames(np.arange(512))
     log(f"  denoisers: {secs:.4f} s, ranks {pmd_den.pipeline_ranks}, kept {pmd_den.rank}; "
-        f"launches {den_launches}")
+        f"launches {den_launches}; routes run {ROUTE_CALLS}")
     check(pmd_den.rank >= 1 and bool(torch.isfinite(frames).all()), "denoiser run: rank or frames")
-    for name in ("movie_stats", "v_projection", "jacobi_eigh"):
-        check(den_launches[name] > 0, f"denoiser run never launched {name}")
+    # denoisers take the gather route in the block stage; U's routes stay
+    check_path("denoiser run", den_launches, ROUTE_CALLS,
+               dict(expected_routes(512, 512), coset_stage=False))
     launches = add_launches(launches, den_launches)
     del pmd_den, frames
     card, cpu = golden_with_denoisers("cuda"), golden_with_denoisers("cpu")
@@ -988,6 +1172,7 @@ def mesh_rank(world: int, rank: int, port: int, backend: str, out_dir: str) -> i
     from localmd_tpu_torch.parallel import make_mesh
 
     config.apply()
+    install_route_spies()
     dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}", rank=rank,
                             world_size=world, timeout=timedelta(seconds=MESH_GROUP_TIMEOUT))
     try:
@@ -996,6 +1181,7 @@ def mesh_rank(world: int, rank: int, port: int, backend: str, out_dir: str) -> i
         _, cold, _ = timed_run(movie, mesh=mesh)
         _, warm_1, _ = timed_run(movie, mesh=mesh)
         kernels.reset_launch_counts()
+        reset_route_calls()
         pmd, warm, peak = timed_run(movie, mesh=mesh)
         recon = pmd.reconstruct_frames(MESH_SAMPLE)
         torch.cuda.synchronize()
@@ -1005,7 +1191,7 @@ def mesh_rank(world: int, rank: int, port: int, backend: str, out_dir: str) -> i
             world=world, rank=rank, backend=dist.get_backend(mesh.get_group()),
             device=str(torch.device("cuda", torch.cuda.current_device())), cold=cold,
             warm=[warm_1, warm], peak_gib=peak, stages=pmd.pipeline_timings, ranks=pmd.pipeline_ranks, kept=pmd.rank,
-            windows=pmd.pipeline_windows, launches=launches,
+            windows=pmd.pipeline_windows, launches=launches, routes=dict(ROUTE_CALLS),
             digests={name: _digest(x) for name, x in (
                 ("panels", u.panels), ("dense_basis", u.dense_basis), ("r", pmd._r_padded),
                 ("s", pmd._s_src), ("v", pmd._v_src), ("mean", pmd.mean_img),
@@ -1068,19 +1254,33 @@ def phase_mesh() -> dict:
     import torch
 
     from bench_torch import make_movie, timed_run
+    from localmd_tpu_torch import blocksparse, engine
 
     log("phase 10 mesh path 512x512x2048 float32 (bench.make_movie): one device, then "
         "mesh (a) 1 rank NCCL, (b) 2 ranks gloo on the one card")
+    # each launch's reference takes the forms its mesh path takes: the
+    # gather block stage (a mesh makes the coset stage ineligible), the
+    # sharded canvas Gram at one rank and the whole Gram (banded) on every
+    # rank above one; the cell V projection runs in all
     movie, _ = make_movie("float32")
-    _, cold, _ = timed_run(movie)
-    _, warm_1, _ = timed_run(movie)
-    ref, warm, _ = timed_run(movie)
-    ref_recon = ref.reconstruct_frames(MESH_SAMPLE)
-    log(f"  one device (reference): cold {cold:.4f} s, warm {warm_1:.4f} / {warm:.4f} s; stages "
-        + json.dumps({k: round(v, 4) for k, v in ref.pipeline_timings.items()})
-        + f"; ranks {ref.pipeline_ranks}, kept {ref.rank}")
-    ref_ranks, ref_kept = ref.pipeline_ranks, ref.rank
-    del movie, ref
+    refs = {}
+    engine.COSET_STAGE = False
+    try:
+        for world in (1, 2):
+            blocksparse.BANDED_GRAM = False if world == 1 else "auto"
+            _, cold, _ = timed_run(movie)
+            _, warm_1, _ = timed_run(movie)
+            ref, warm, _ = timed_run(movie)
+            refs[world] = (ref.reconstruct_frames(MESH_SAMPLE), ref.pipeline_ranks, ref.rank)
+            log(f"  one device (reference of {world} rank(s): Gram "
+                f"{'canvas' if world == 1 else 'banded'}): cold {cold:.4f} s, warm {warm_1:.4f} / "
+                f"{warm:.4f} s; stages "
+                + json.dumps({k: round(v, 4) for k, v in ref.pipeline_timings.items()})
+                + f"; ranks {ref.pipeline_ranks}, kept {ref.rank}")
+            del ref
+    finally:
+        engine.COSET_STAGE = blocksparse.BANDED_GRAM = "auto"
+    del movie
     torch.cuda.empty_cache()
     launches: dict = {}
     failed = []   # every check of both launches is made and printed before any raises
@@ -1096,19 +1296,26 @@ def phase_mesh() -> dict:
             t0 = time.perf_counter()
             results = _launch_ranks(world, backend, out_dir)
             log(f"  ({label}) {world} rank(s) on {backend}: launch to exit {time.perf_counter() - t0:.1f} s")
+            ref_recon, ref_ranks, ref_kept = refs[world]
             for res in results:
                 log(f"    rank {res['rank']} on {res['device']} ({res['backend']}): cold "
                     f"{res['cold']:.4f} s, warm {res['warm'][0]:.4f} / {res['warm'][1]:.4f} s, peak "
                     f"{res['peak_gib']:.2f} GiB; "
                     "stages " + json.dumps({k: round(v, 4) for k, v in res["stages"].items()})
                     + f"; ranks {res['ranks']}, kept {res['kept']}, windows {res['windows']}; "
-                    f"launches {res['launches']}")
+                    f"launches {res['launches']}; routes run {res['routes']}")
                 expect(res["backend"] == backend, f"({label}) rank {res['rank']}: backend {res['backend']}")
                 expect(res["ranks"] == ref_ranks and res["kept"] == ref_kept,
                        f"({label}) rank {res['rank']}: ranks {res['ranks']} / {res['kept']} vs "
                        f"{ref_ranks} / {ref_kept}")
+                want = expected_routes(512, 512, world=world)
+                for name, n in res["routes"].items():
+                    expect((n > 0) == want[name], f"({label}) rank {res['rank']}: route {name} "
+                           f"ran {n} times, expected {'some' if want[name] else 'none'}")
                 for name, n in res["launches"].items():
-                    expect(n > 0, f"({label}) rank {res['rank']} never launched {name}")
+                    # K2 runs where the cell route does not
+                    expect(n > 0 or (name == "v_projection" and want["cell_vproj"]),
+                           f"({label}) rank {res['rank']} never launched {name}")
                     launches[name] = launches.get(name, 0) + n
                 expect(res["digests"] == results[0]["digests"],
                        f"({label}) rank {res['rank']}'s factors differ from rank 0's")
@@ -1118,10 +1325,10 @@ def phase_mesh() -> dict:
                 f"equal: {bool(torch.equal(recon, ref_recon))}; collectives staged through the "
                 "host: none (gloo and NCCL take the card's tensors)")
             expect(err <= 1e-6, f"({label}) reconstruction error {err}")
-            del recon
+            del recon, ref_recon
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
-    del ref_recon
+    del refs
     torch.cuda.empty_cache()
     check(not failed, "phase 10: " + "; ".join(failed))
     return launches
@@ -1155,6 +1362,7 @@ def main(argv=None) -> int:
     from localmd_tpu_torch.ops import _build, kernels
 
     config.apply()
+    install_route_spies()
     card = card_line()
     log(f"phase 0 device: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
@@ -1175,37 +1383,51 @@ def main(argv=None) -> int:
     if 2 in phases:
         log("phase 2 kernels vs plain")
         phase_kernels(results)
+    launches = None
     if 3 in phases:
         log("phase 3 golden on the card")
-        phase_golden()
-    launches = None
+        launches_3 = phase_golden()
     if 4 in phases:
         # bench.make_movie's white factors look like noise to PMD's roughness
         # test (the JAX package ends at final rank 150-154 on this movie,
         # BENCH_r0*.json), so this leg checks shape, ranks and finite values;
         # phase 6 checks denoising
-        log("phase 4 main path 512x512x2048 float32 (bench.make_movie)")
+        log("phase 4 main path 512x512x2048 float32 (bench.make_movie): routes auto, then off")
         movie, clean_fn = make_movie("float32")
         kernels.reset_launch_counts()
-        pmd = run_main(movie, 3, "f32")
+        reset_route_calls()
+        pmd, *side_on = run_side(movie, 4, "f32")
         check_recon(pmd, movie, clean_fn, "f32", denoised=False)
         launches = kernels.launch_counts()
-        log(f"  launches on the main path: {launches}")
-        for name, n in launches.items():
-            check(n > 0, f"main path never launched {name}")
+        log(f"  launches on the main path: {launches}; routes run {ROUTE_CALLS}")
+        check_path("main path", launches, ROUTE_CALLS, expected_routes(512, 512),
+                   kernels_run=("movie_stats", "block_reconstruct", "jacobi_eigh"))
+        routes_ab(movie, "f32", pmd, side_on)
         del pmd, movie
         torch.cuda.empty_cache()
+        if 3 in phases:
+            launches = add_launches(launches, launches_3)
     if 5 in phases:
-        log("phase 5 main path 512x512x2048 uint16 (bench.make_movie)")
-        movie, clean_fn = make_movie("uint16")
-        before = kernels.launch_counts()
-        pmd = run_main(movie, 1, "u16")
-        check_recon(pmd, movie, clean_fn, "u16", denoised=False)
-        after = kernels.launch_counts()
-        for name in after:
-            check(after[name] > before[name], f"uint16 leg never launched {name}")
-        del pmd, movie
-        torch.cuda.empty_cache()
+        # K2 reads uint16 natively only where the cell route does not run:
+        # bench.py's second leg (blocks 40 on 1024^2, a snapped tail) keeps it
+        for (d1, d2, t), settings in (((512, 512, 2048), {}),
+                                      ((1024, 1024, 4096), dict(blocks=(40, 40), frame_range=512))):
+            label = f"u16 {d1}x{d2}x{t}"
+            log(f"phase 5 main path {d1}x{d2}x{t} uint16 (bench.make_movie) {settings}")
+            movie, clean_fn = make_movie("uint16", d1, d2, t)
+            kernels.reset_launch_counts()
+            reset_route_calls()
+            pmd = run_main(movie, 1, label, **settings)
+            check_recon(pmd, movie, clean_fn, label, denoised=False)
+            after = kernels.launch_counts()
+            log(f"  launches {after}; routes run {ROUTE_CALLS}")
+            check_path(label, after, ROUTE_CALLS,
+                       expected_routes(d1, d2, settings.get("blocks", (32, 32))),
+                       kernels_run=("movie_stats", "block_reconstruct", "jacobi_eigh"))
+            if launches is not None:
+                launches = add_launches(launches, after)
+            del pmd, movie
+            torch.cuda.empty_cache()
     if 6 in phases:
         log("phase 6 denoising 512x512x2048, smoothed factors")
         for dtype, label in (("float32", "smooth f32"), ("uint16", "smooth u16")):
@@ -1221,15 +1443,16 @@ def main(argv=None) -> int:
     if 8 in phases:
         launches_8 = phase_from_disk(args.frames)
         log(f"  launches from disk (phase 8): {launches_8}")
-        for name, n in launches_8.items():
-            check(n > 0, f"the from-disk path never launched {name}")
+        # K2's launches follow the V route (check_stream_launches)
+        for name in ("movie_stats", "block_reconstruct", "jacobi_eigh"):
+            check(launches_8[name] > 0, f"the from-disk path never launched {name}")
         if launches is not None:
             launches = {name: launches[name] + launches_8[name] for name in launches}
     if 9 in phases:
         launches_9 = phase_options()
         log(f"  launches of phase 9: {launches_9}")
-        for name, n in launches_9.items():
-            check(n > 0, f"phase 9 never launched {name}")
+        for name in ("movie_stats", "block_reconstruct", "jacobi_eigh"):
+            check(launches_9[name] > 0, f"phase 9 never launched {name}")
         if launches is not None:
             launches = add_launches(launches, launches_9)
     if 10 in phases:
@@ -1241,6 +1464,9 @@ def main(argv=None) -> int:
     if phases != set(ALL_PHASES):
         log(f"partial run (phases {sorted(phases)}): no result line")
         return 0
+    # K2 runs where the cell route does not: the golden grid and 1024^2
+    for name, n in launches.items():
+        check(n > 0, f"the counted runs never launched {name}")
     log(card)
     log(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name][0], replaces=KERNELS[name][1],

@@ -84,3 +84,18 @@ def matmul_precision_scope(precision: Optional[str] = None):
         torch.backends.cuda.matmul.allow_tf32 = saved[1]
         torch.backends.cudnn.allow_tf32 = saved[2]
         torch.set_float32_matmul_precision(saved[0])
+
+
+def route_enabled(flag, device) -> bool:
+    """Whether one of the accelerator routes (``engine.COSET_STAGE``,
+    ``blocksparse.BANDED_GRAM``, ``blocksparse.COSET_VPROJ``) is on for
+    tensors on ``device``: ``True`` or ``False`` force it, ``"auto"`` turns
+    it on for CUDA tensors and off on the CPU, as the JAX package turns
+    these routes on whenever its backend is not the CPU. The CPU keeps the
+    gather and canvas forms, whose numerics the CPU tests hold to the JAX
+    package's."""
+    if flag is True or flag is False:
+        return flag
+    if flag != "auto":
+        raise ValueError(f"a route flag is True, False or 'auto', got {flag!r}")
+    return torch.device(device).type == "cuda"

@@ -1,5 +1,4 @@
-"""Batched per-block PMD decomposition (counterpart of localmd_tpu/engine.py,
-gather path).
+"""Batched per-block PMD decomposition (counterpart of localmd_tpu/engine.py).
 
 - ``single_block_md_batched``: the first-window decomposition of a batch of
   blocks (engine.py:76-147).
@@ -10,14 +9,18 @@ gather path).
   (engine.py:182-239).
 - ``window0_chunk_step``: gather -> decompose -> pack for one batch of
   blocks (engine.py:250-301); the JAX package's CPU reference path.
+- ``window0_coset_stage`` and its plan, eligibility and memory estimate:
+  the same first-window stage over the coset lattices of the grid with no
+  patch gather (engine.py:304-591), behind ``COSET_STAGE`` ("auto": on for
+  the card).
 - ``windowed_pmd_batched``: the multi-window block stage (engine.py:593-903)
   as a Python loop over windows, with the host reading two scalars per
   window (early stop, fallback tier) where JAX keeps them on the device;
   with ``mesh`` the blocks are split over the ranks
   (``parallel.sharded_windowed_pmd``).
 - ``threshold_heuristic``: the noise-null Monte-Carlo for the roughness
-  cutoffs (engine.py:911-1053); ``jnp.percentile`` becomes
-  ``torch.quantile`` with linear interpolation.
+  cutoffs (engine.py:911-1060), memoized on a caller's ``cache_token``;
+  ``jnp.percentile`` becomes ``torch.quantile`` with linear interpolation.
 
 ``vmap`` is an explicit leading block axis throughout, except for the
 user's denoisers: they are written for one block and mapped over the block
@@ -30,11 +33,13 @@ for such a denoiser; nothing catches that and falls back to a loop.
 
 from __future__ import annotations
 
+import threading
 from typing import Callable, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
-from localmd_tpu_torch.config import resolve_device
+from localmd_tpu_torch.config import resolve_device, route_enabled
 from localmd_tpu_torch.ops.linalg import (
     DEFAULT_OVERSAMPLES,
     _rsvd_core,
@@ -49,10 +54,10 @@ from localmd_tpu_torch.ops.roughness import (
     spatial_roughness_stat,
     temporal_roughness_stat,
 )
-from localmd_tpu_torch.ops.tiling import extract_patches, flatten_fov, unflatten_fov
+from localmd_tpu_torch.ops.tiling import block_grid, extract_patches, flatten_fov, unflatten_fov
 from localmd_tpu_torch.parallel.multihost import validate_multihost_mesh
 from localmd_tpu_torch.parallel.sharded import sharded_windowed_pmd
-from localmd_tpu_torch.utils.random import normal
+from localmd_tpu_torch.utils.random import normal, random_draws_are_live
 
 
 def _bin_consecutive(x: torch.Tensor, factor: int) -> torch.Tensor:
@@ -219,6 +224,205 @@ def window0_chunk_step(
     acc = torch.zeros((n, b1 * b2, max_rank), dtype=patches.dtype, device=patches.device)
     counts = torch.zeros((n,), dtype=torch.int32, device=patches.device)
     return _pack_components_route(u, v, decisions, acc, counts, max_consecutive_failures)
+
+
+# ---------------------------------------------------------------------------
+# Coset block stage (gather-free)
+# ---------------------------------------------------------------------------
+#
+# The half-overlap block grid is a union of <= 4 lattices of disjoint
+# blocks (offsets {0, b/2} x {0, b/2}); within one lattice the blocks tile
+# the FOV without overlap, so the patch tensor of a coset is a slice and
+# reshape of the init movie, with no gather (engine.py:304-591). Blocks
+# off the lattices (the snapped tail of a FOV the blocks do not divide)
+# run through the gather path. "auto" turns the stage on for the card and
+# off on the CPU (config.route_enabled); True or False force it.
+COSET_STAGE = "auto"
+
+
+def coset_stage_supported(b1: int, b2: int, spatial_avg_factor: int) -> bool:
+    """The geometry the coset stage needs (engine.py:323-336): even blocks
+    (the lattices exist), savg | b (pooling a block equals pooling the FOV
+    over it) and savg | b/2 (lattice offsets fall on pooling windows)."""
+    sa = spatial_avg_factor
+    return (
+        b1 % 2 == 0 and b2 % 2 == 0
+        and b1 % sa == 0 and b2 % sa == 0
+        and (b1 // 2) % sa == 0 and (b2 // 2) % sa == 0
+    )
+
+
+def coset_stage_eligible(b1: int, b2: int, spatial_avg_factor: int, spatial_denoiser,
+                         temporal_denoiser, checkpoint_path, device) -> bool:
+    """The options' and the geometry's part of the coset dispatch
+    (engine.py:339-370): no checkpoint, identity denoisers, a supported
+    geometry and ``COSET_STAGE`` on for ``device``. The pipeline adds one
+    window, no mesh, a plan (``coset_stage_plan``) and the memory gate."""
+    return (
+        checkpoint_path is None
+        and spatial_denoiser is identity
+        and temporal_denoiser is identity
+        and coset_stage_supported(b1, b2, spatial_avg_factor)
+        and route_enabled(COSET_STAGE, device)
+    )
+
+
+def coset_stage_transient_bytes(d1: int, d2: int, t: int, b1: int, b2: int, max_rank: int,
+                                temporal_avg_factor: int, spatial_avg_factor: int,
+                                n_sel: int) -> int:
+    """Peak transient bytes of the coset stage beside the init movie
+    (engine.py:373-411): the binned and pooled FOV copies, the outputs of
+    every coset, one coset's intermediates, and one movie-sized copy of a
+    coset view (the strided copy ``window0_coset_stage`` makes for its two
+    full-resolution products)."""
+    d = d1 * d2
+    sa = spatial_avg_factor
+    tb = max(1, t // max(1, temporal_avg_factor))
+    p = b1 * b2
+    n_big = max(1, -(-n_sel // 3))
+    binned = d * tb * 4
+    pooled = (d // (sa * sa)) * t * 4
+    acc_total = n_sel * p * max_rank * 4
+    v_total = n_sel * max_rank * t * 4
+    per_coset_extra = 2 * n_big * p * max_rank * 4 + 3 * n_big * max_rank * t * 4
+    view_copy = d * t * 4
+    return binned + pooled + acc_total + v_total + per_coset_extra + view_copy
+
+
+def coset_stage_plan(d1: int, d2: int, b1: int, b2: int):
+    """The block grid as regular coset lattices plus a remainder
+    (engine.py:414-459): ``(meta, ids, remainder)`` with ``meta`` a tuple of
+    (r_off, c_off, nr, nc) per lattice, ``ids`` the block ids in lattice
+    order (row-major within a lattice) and ``remainder`` the ids on no
+    lattice; None when the grid has none (odd blocks)."""
+    if b1 % 2 or b2 % 2:
+        return None
+    grid = block_grid(d1, d2, (b1, b2))
+    s1, s2 = b1 // 2, b2 // 2
+    id_of = {(int(r), int(c)): i for i, (r, c) in enumerate(np.asarray(grid.starts))}
+    used = np.zeros(grid.n_blocks, bool)
+    meta, id_parts = [], []
+    for g1 in (0, 1):
+        for g2 in (0, 1):
+            r_off, c_off = g1 * s1, g2 * s2
+            nr = (d1 - r_off) // b1
+            nc = (d2 - c_off) // b2
+            if nr <= 0 or nc <= 0:
+                continue
+            ids = []
+            for a in range(nr):
+                for c in range(nc):
+                    i = id_of.get((r_off + a * b1, c_off + c * b2))
+                    if i is None or used[i]:
+                        ids = None
+                        break
+                    ids.append(i)
+                if ids is None:
+                    break
+            if ids is None:
+                continue
+            used[np.asarray(ids)] = True
+            meta.append((r_off, c_off, nr, nc))
+            id_parts.append(np.asarray(ids, np.int64))
+    if not meta:
+        return None
+    return tuple(meta), np.concatenate(id_parts), np.where(~used)[0]
+
+
+def _pool_fov(x: torch.Tensor, sa: int) -> torch.Tensor:
+    """VALID sa x sa average pooling of a (d1, d2, t) field of view."""
+    d1, d2, t = x.shape
+    e1, e2 = d1 // sa, d2 // sa
+    return x[: e1 * sa, : e2 * sa].reshape(e1, sa, e2, sa, t).sum(dim=(1, 3)) * (1.0 / (sa * sa))
+
+
+def window0_coset_stage(
+    data: torch.Tensor,
+    sketches: torch.Tensor,
+    meta: tuple,
+    b1: int,
+    b2: int,
+    max_rank: int,
+    temporal_avg_factor: int,
+    spatial_avg_factor: int,
+    spatial_threshold,
+    temporal_threshold,
+    max_consecutive_failures: int,
+    t_used: int = 0,
+):
+    """The single-window block stage over the coset lattices, with no patch
+    gather (engine.py:462-591).
+
+    The whole FOV is binned and pooled once; per lattice, the blocks are a
+    slice-and-reshape view of the movie and of the pooled copies, the
+    batched rSVD runs on the pooled, binned view, the coarse temporal
+    product is a ``torch.einsum`` on the pooled view, and the two products
+    that touch the full-resolution movie share one strided copy of the
+    lattice's view (the one movie-sized copy that
+    ``coset_stage_transient_bytes`` counts). Then
+    CholeskyQR2, ``svd_gram_left`` (K4 on the card), the roughness test and
+    the packing, as ``window0_chunk_step``. Pixels go in C order within a
+    block and the panels are turned to F order at the end.
+
+    data (d1, d2, t) standardized init frames; sketches (n_sel, t', k),
+    one per block in ``coset_stage_plan``'s ``ids`` order; meta from
+    ``coset_stage_plan``. Needs identity denoisers, savg | b and
+    t_used % temporal_avg_factor == 0. Returns (acc (n_sel, b1*b2,
+    max_rank), counts (n_sel,), v_fit (n_sel, max_rank, t))."""
+    if t_used and t_used < data.shape[-1]:
+        data = data[:, :, :t_used]
+    d1, d2, t = data.shape
+    tavg, sa = temporal_avg_factor, spatial_avg_factor
+    tb = t // tavg
+    hb1, hb2 = b1 // sa, b2 // sa
+    binned = data[:, :, : tb * tavg].reshape(d1, d2, tb, tavg).mean(dim=-1)
+    pooled_g = _pool_fov(data, sa)
+    pooled_binned_g = _pool_fov(binned, sa)
+    del binned
+
+    accs, counts_l, vfits = [], [], []
+    off = 0
+    for r_off, c_off, nr, nc in meta:
+        n_g = nr * nc
+        sk = sketches[off: off + n_g]
+        off += n_g
+        view = data[r_off: r_off + nr * b1, c_off: c_off + nc * b2].reshape(nr, b1, nc, b2, t)
+        hr, hc = r_off // sa, c_off // sa
+        down_avg = (
+            pooled_binned_g[hr: hr + nr * hb1, hc: hc + nc * hb2]
+            .reshape(nr, hb1, nc, hb2, tb).permute(0, 2, 1, 3, 4).reshape(n_g, hb1 * hb2, tb)
+        )
+        u_c = batched_truncated_random_svd(down_avg, max_rank, sketch=sk)[0]
+        pooled = pooled_g[hr: hr + nr * hb1, hc: hc + nc * hb2].reshape(nr, hb1, nc, hb2, t)
+        ucg = u_c.reshape(nr, nc, hb1, hb2, max_rank)
+        v_coarse = torch.einsum("aicjt,acijr->acrt", pooled, ucg).reshape(n_g, max_rank, t)
+        v_basis = cholesky_qr2(v_coarse.transpose(-1, -2)).transpose(-1, -2)
+        # the coset's blocks as one (n_g, b1*b2, t) layout, C order within a
+        # block: a strided copy of the view, made once for both products
+        # (an einsum on the view would make it once per product)
+        blocks_c = view.permute(0, 2, 1, 3, 4).reshape(n_g, b1 * b2, t)
+        spatial_proj = blocks_c @ v_basis.transpose(-1, -2)            # (n_g, p, r)
+        u_final = cholesky_qr2(spatial_proj)
+        v_new = u_final.transpose(-1, -2) @ blocks_c                    # (n_g, r, t)
+        del blocks_c
+        v_left, v_sing, v_right = svd_gram_left(v_new)
+        u_final = u_final @ v_left
+        v_final = v_sing[..., :, None] * v_right
+        u_img = u_final.reshape(n_g, b1, b2, max_rank)                 # (i, j) image
+        decisions = evaluate_fitness(
+            u_img.movedim(-1, 1), v_final, spatial_threshold, temporal_threshold
+        )
+        # panel rows are F order within the block (BlockGrid.rows)
+        u_f = u_img.transpose(1, 2).reshape(n_g, b1 * b2, max_rank)
+        acc0 = torch.zeros((n_g, b1 * b2, max_rank), dtype=data.dtype, device=data.device)
+        c0 = torch.zeros((n_g,), dtype=torch.int32, device=data.device)
+        acc, cnt, v_fit = _pack_components_route(
+            u_f, v_final, decisions, acc0, c0, max_consecutive_failures
+        )
+        accs.append(acc)
+        counts_l.append(cnt)
+        vfits.append(v_fit)
+    return torch.cat(accs), torch.cat(counts_l), torch.cat(vfits)
 
 
 # ---------------------------------------------------------------------------
@@ -423,6 +627,17 @@ def _rank_simulation_batch(
     return spatial_roughness_stat(u_img.movedim(-1, 1)), temporal_roughness_stat(v)
 
 
+# Thresholds memoized per exact argument set (engine.py:970-1060): the
+# Monte-Carlo is a pure function of its inputs, so a seeded rerun (a warm
+# call, a notebook re-run) need not simulate again. Only calls that name a
+# ``cache_token`` (the pipeline passes its seed) are memoized, never under a
+# sketch override; the key holds the matmul precision and the device, whose
+# results differ. Writes are locked: volumetric planes may run in threads.
+_threshold_cache: dict = {}
+_THRESHOLD_CACHE_MAX = 64
+_threshold_cache_lock = threading.Lock()
+
+
 def threshold_heuristic(
     dimensions: Tuple[int, int, int],
     num_comps: int = 1,
@@ -431,14 +646,27 @@ def threshold_heuristic(
     generator: Optional[torch.Generator] = None,
     sim_batch: int = 32,
     device="cuda",
+    cache_token=None,
 ) -> Tuple[float, float]:
     """Spatial/temporal roughness cutoffs from a noise-null Monte-Carlo:
     whole ``sim_batch`` batches of simulated blocks, the percentile taken
     over exactly the first ``iters`` draws (engine.py:937-967). Runs on the
-    card unless ``device="cpu"`` is passed; raises without CUDA."""
+    card unless ``device="cpu"`` is passed; raises without CUDA. With a
+    ``cache_token`` (which must name the generator's seed) the result is
+    memoized on it, the dimensions, the counts, the percentile, torch's fp32
+    matmul precision and the device."""
     device = resolve_device(device)
     d1, d2, t = dimensions
     n_batches = max(1, -(-iters // sim_batch))
+    cache_key = None
+    if cache_token is not None and random_draws_are_live():
+        cache_key = (
+            d1, d2, t, num_comps, n_batches, sim_batch, iters, float(percentile_threshold),
+            cache_token, torch.get_float32_matmul_precision(), str(device),
+        )
+        cached = _threshold_cache.get(cache_key)
+        if cached is not None:
+            return cached
     sps, tps = [], []
     for _ in range(n_batches):
         noise = normal((d1, d2, t), generator, device, batch=(sim_batch,))
@@ -450,4 +678,10 @@ def threshold_heuristic(
     sp_all = torch.cat(sps).reshape(-1)[:n_used]
     tp_all = torch.cat(tps).reshape(-1)[:n_used]
     q = percentile_threshold / 100.0
-    return float(torch.quantile(sp_all, q)), float(torch.quantile(tp_all, q))
+    result = float(torch.quantile(sp_all, q)), float(torch.quantile(tp_all, q))
+    if cache_key is not None:
+        with _threshold_cache_lock:
+            if len(_threshold_cache) >= _THRESHOLD_CACHE_MAX:
+                _threshold_cache.pop(next(iter(_threshold_cache)), None)
+            _threshold_cache[cache_key] = result
+    return result

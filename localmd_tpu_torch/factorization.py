@@ -2,7 +2,8 @@
 (counterpart of localmd_tpu/factorization.py).
 
 The (m, m) quadratic form ``right.T (U.T U) right`` comes from blocked panel
-products (``BlockSparseMatrix.gram_quadratic``); zero-padded slot columns of
+products (``BlockSparseMatrix.gram_quadratic``: the banded form on a regular
+grid with ``blocksparse.BANDED_GRAM`` on, else Z^T Z); zero-padded slot columns of
 U give exact-zero eigenvalues that a relative cut drops. With a mesh the
 quadratic form splits the block panels over its ranks
 (``parallel.sharded_gram_quadratic``).
@@ -29,19 +30,19 @@ def _gram_quadratic_mesh(u: BlockSparseMatrix, right: torch.Tensor, mesh,
     """right^T (U^T U) right with the block panels split over ``mesh``
     (factorization.py:59-93): the block axis, and the matching rows of
     ``right``, padded with zeros to a multiple of the mesh size (zero panels
-    add nothing; they form one more group after U's cosets)."""
+    add nothing, so no coset takes them)."""
     world = mesh.size()
     n = u.n_blocks
     pad = pad_to_multiple(n, world) - n
-    panels, rows, cosets = u.panels, u.rows, tuple(u.cosets)
+    panels, rows = u.panels, u.rows
     if pad:
         panels = torch.cat([panels, panels.new_zeros((pad,) + tuple(panels.shape[1:]))])
         rows = torch.cat([rows, rows.new_zeros((pad, rows.shape[1]))])
         nb = u.n_block_cols
         right = torch.cat([right[:nb], right.new_zeros((pad * u.slots, right.shape[1])), right[nb:]])
-        cosets += (np.arange(n, n + pad),)
     return sharded_gram_quadratic(mesh, panels, rows, u.dense_basis, right, u.n_pixels,
-                                  col_chunk=col_chunk, cosets=cosets)
+                                  col_chunk=col_chunk, cosets=tuple(u.cosets),
+                                  coset_info=u.coset_info, block_shape=u.block_shape)
 
 
 def eigh_plan(m: int, k: int) -> Tuple[str, int]:

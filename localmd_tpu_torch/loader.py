@@ -9,7 +9,10 @@ streamed V regression, host->device streaming and the device movie cache
 - The V regression folds the mixing matrix and the per-pixel
   standardization into one dense projector, A~ = (U P)/std and c = A~^T mean,
   so each raw chunk is one K2 call (``ops.kernels.v_projection``;
-  loader.py:1131-1158).
+  loader.py:1131-1158); on a regular grid with ``blocksparse.COSET_VPROJ``
+  on (the card's default) each chunk instead takes the cell route, one
+  batched product against panels packed by (h1, h2) cell
+  (``blocksparse.coset_vproj_chunk``; loader.py:1097-1130).
 - Host sources stream on a background thread (``_PrefetchIter``): the
   worker reads each chunk from disk into a ring of ``depth + 2`` pinned
   host buffers in the chunk's native dtype (256 MiB pieces), starts the
@@ -41,6 +44,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from localmd_tpu_torch import blocksparse
 from localmd_tpu_torch.dataset import TensorMovie, as_dataset, frame_list
 from localmd_tpu_torch.ops import kernels
 from localmd_tpu_torch.ops.linalg import truncated_random_svd
@@ -827,27 +831,62 @@ class PMDLoader:
 
     # -- streamed temporal regression -----------------------------------------
 
+    def prepare_vproj_cells(self, u):
+        """Build and keep the cell route's operands for ``u``
+        (``blocksparse.build_vproj_cells``; loader.py:1046-1068). They need
+        only U and the statistics images, not the mixing matrix, so the
+        pipeline calls this right after U is assembled and the build runs
+        while the factorized SVD is queued. Made once per ``u`` (keyed on
+        its panels); returns (m_cell, q)."""
+        stash = getattr(self, "_vproj_cells", None)
+        if stash is not None and stash[0] is u.panels:
+            return stash[1], stash[2]
+        m_cell, q = blocksparse.build_vproj_cells(
+            u.panels, u.rows, (self.shape[1], self.shape[2]), self.order, u.cell_geom,
+            u.dense_basis, flatten_image(self.std_img, self.order),
+            flatten_image(self.mean_img, self.order),
+        )
+        self._vproj_cells = (u.panels, m_cell, q)
+        return m_cell, q
+
     def v_projection(self, u, p: torch.Tensor) -> torch.Tensor:
         """V = P^T U^T standardize(movie), the second full pass: (r', T).
-        With a mesh each rank streams its stripe of frames and the stripes
-        are gathered, so every rank returns the whole V (loader.py:1070-1227)."""
+
+        On a regular grid with ``blocksparse.COSET_VPROJ`` on, each raw chunk
+        goes through the cell route (``blocksparse.coset_vproj_chunk``, one
+        batched product against the packed per-cell panels; loader.py:1097-1130);
+        otherwise the folded projector A~ = (U P)/std is built once and each
+        chunk is one K2 call. With a mesh each rank streams its stripe of
+        frames and the stripes are gathered, so every rank returns the whole
+        V (loader.py:1070-1227)."""
         d1, d2 = self.shape[1], self.shape[2]
-        std_flat = flatten_image(self.std_img, self.order)
-        mean_flat = flatten_image(self.mean_img, self.order)
-        a = u.matmul(p)                                            # (d, r')
-        a_tilde, c = _fold_projector(a, std_flat, mean_flat)
-        # projector rows follow the pipeline's pixel order; the raw chunk
-        # flattens in C order, so reorder the rows once (loader.py:1142)
-        a_c = _rows_to_c(a_tilde, d1, d2, self.order).contiguous()
-        del a, a_tilde
-        # K2's layout of the projector, made once for every chunk
-        prepared = kernels.prepare_projector(a_c) if a_c.is_cuda else None
+        if blocksparse.coset_vproj_eligible(u):
+            m_cell, q = self.prepare_vproj_cells(u)
+            n1, n2, h1, h2 = u.cell_geom
+
+            def project(raw):
+                return blocksparse.coset_vproj_chunk(m_cell, q, p, raw, n1, n2, h1, h2, u.slots)
+
+        else:
+            std_flat = flatten_image(self.std_img, self.order)
+            mean_flat = flatten_image(self.mean_img, self.order)
+            a = u.matmul(p)                                            # (d, r')
+            a_tilde, c = _fold_projector(a, std_flat, mean_flat)
+            # projector rows follow the pipeline's pixel order; the raw chunk
+            # flattens in C order, so reorder the rows once (loader.py:1142)
+            a_c = _rows_to_c(a_tilde, d1, d2, self.order).contiguous()
+            del a, a_tilde
+            # K2's layout of the projector, made once for every chunk
+            prepared = kernels.prepare_projector(a_c) if a_c.is_cuda else None
+
+            def project(raw):
+                return kernels.v_projection(raw.reshape(raw.shape[0], d1 * d2), a_c, c, prepared)
+
         results = []
         chunks = self._take_v_prefetch() or self._iter_raw_chunks(host_partition="frames")
         try:
             for raw in chunks:
-                t_c = raw.shape[0]
-                results.append(kernels.v_projection(raw.reshape(t_c, d1 * d2), a_c, c, prepared))
+                results.append(project(raw))
         finally:
             close = getattr(chunks, "close", None)
             if close is not None:
@@ -857,7 +896,7 @@ class PMDLoader:
         elif results:
             v = torch.cat(results, dim=1)
         else:  # a trailing rank's empty stripe
-            v = c.new_zeros((c.shape[0], 0))
+            v = p.new_zeros((p.shape[1], 0))
         if self._mesh is None:
             return v
         return replicate_frame_sharded(self._mesh, v, self.shape[0])

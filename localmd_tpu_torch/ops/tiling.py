@@ -186,6 +186,62 @@ class BlockGrid:
         object.__setattr__(self, "_cosets", cached)
         return cached
 
+    def cell_geometry(self):
+        """``(n1, n2, h1, h2)`` when the grid is *regular* -- even blocks,
+        exact half-overlap stride, no snapped tail start -- else None
+        (ops/tiling.py:220-248). Every pairwise block overlap is then a whole
+        number of (h1, h2) cells, which the banded Gram and the cell-packed
+        V projection (``blocksparse``) need. Host metadata, cached."""
+        cached = getattr(self, "_cell_geometry", None)
+        if cached is not None:
+            return None if cached == "none" else cached
+        b1, b2 = self.block_sizes
+        geom = None
+        if b1 % 2 == 0 and b2 % 2 == 0:
+            h1, h2 = b1 // 2, b2 // 2
+            s1 = sorted({int(s) for s in self.starts[:, 0]})
+            s2 = sorted({int(s) for s in self.starts[:, 1]})
+            n1, n2 = len(s1), len(s2)
+            if (
+                len(self.starts) == n1 * n2
+                and s1 == [i * h1 for i in range(n1)]
+                and s2 == [j * h2 for j in range(n2)]
+                and (n1 - 1) * h1 + b1 == self.d1
+                and (n2 - 1) * h2 + b2 == self.d2
+            ):
+                geom = (n1, n2, h1, h2)
+        object.__setattr__(self, "_cell_geometry", geom if geom is not None else "none")
+        return geom
+
+    def coset_info(self, device):
+        """The coset placement metadata of ``BlockSparseMatrix.matmul``
+        (ops/tiling.py:306-332): ``(block-id tensors on device, metas, d1,
+        d2, order, inv)``, ``metas`` the ``(nc1, nc2, st1, st2, a1, a2)`` of
+        each coset from :meth:`cosets` and ``inv`` the map from block id to
+        its row in the coset-order concatenation. The device copies are
+        made once per grid and device."""
+        cache = getattr(self, "_coset_info", None)
+        if cache is None:
+            cache = {}
+            object.__setattr__(self, "_coset_info", cache)
+        dev = torch.device(device)
+        cached = cache.get(dev)
+        if cached is None:
+            cs = self.cosets()
+            concat = np.concatenate([ids for ids, _ in cs]).astype(np.int64)
+            inv = np.empty_like(concat)
+            inv[concat] = np.arange(len(concat))
+            cached = (
+                tuple(torch.as_tensor(ids.astype(np.int64), device=dev) for ids, _ in cs),
+                tuple(meta for _, meta in cs),
+                self.d1,
+                self.d2,
+                self.order,
+                torch.as_tensor(inv, device=dev),
+            )
+            cache[dev] = cached
+        return cached
+
 
 @lru_cache(maxsize=8)
 def block_grid(d1: int, d2: int, block_sizes: Tuple[int, int], order: str = "F") -> BlockGrid:

@@ -164,6 +164,8 @@ def sharded_gram_quadratic(
     n_pixels: int,
     col_chunk: int = 1024,
     cosets=None,
+    coset_info=None,
+    block_shape=None,
 ) -> torch.Tensor:
     """Symmetrized right.T (U.T U) right with the block panels split
     (sharded.py:199-275), in bounded memory per rank.
@@ -179,8 +181,11 @@ def sharded_gram_quadratic(
     share no pixel) orders the overlap-add as ``BlockSparseMatrix.matmul``
     does (``blocksparse.coset_overlap_add``), so a run repeats bit for bit
     and one rank gives ``gram_quadratic``'s bits; None makes each block its
-    own group (one scatter a block)."""
-    from localmd_tpu_torch.blocksparse import coset_order, coset_overlap_add
+    own group (one scatter a block). With the grid's ``coset_info``
+    (``BlockGrid.coset_info``) and ``block_shape`` each rank places its
+    share of every coset by reshape and permute, the lattice places of
+    other ranks' blocks left zero (``blocksparse.coset_placement``)."""
+    from localmd_tpu_torch.blocksparse import coset_order, coset_overlap_add, coset_placement
 
     world, rank = world_and_rank(mesh)
     n_blocks, _, slots = panels.shape
@@ -195,6 +200,10 @@ def sharded_gram_quadratic(
     bg_shard[: max(hi - lo, 0)] = dense_basis[lo:hi]
     order, bounds = coset_order(cosets if cosets is not None else [[b] for b in range(n_blocks)],
                                 rank * nb_l, (rank + 1) * nb_l)
+    placement = None
+    if cosets is not None and coset_info is not None:
+        placement = coset_placement(cosets, coset_info, block_shape, rank * nb_l,
+                                    (rank + 1) * nb_l, panels.device)
     perm = torch.as_tensor(order, device=panels.device)
     panels_l = panels[rank * nb_l: (rank + 1) * nb_l].index_select(0, perm)
     rows_l = rows[rank * nb_l: (rank + 1) * nb_l].long().index_select(0, perm)
@@ -204,7 +213,7 @@ def sharded_gram_quadratic(
     z_shard = torch.empty((shard_rows, m), dtype=torch.float32, device=right.device)
     for c0 in range(0, m, col_chunk):
         c1 = min(c0 + col_chunk, m)
-        zc = coset_overlap_add(panels_l, rows_l, right_l[:, :, c0:c1], n_pixels, bounds)
+        zc = coset_overlap_add(panels_l, rows_l, right_l[:, :, c0:c1], n_pixels, bounds, placement)
         if p_pad > n_pixels:
             zc = torch.cat([zc, zc.new_zeros((p_pad - n_pixels, c1 - c0))])
         zc = reduce_scatter_rows(mesh, zc)                                        # (shard_rows, mc)

@@ -11,6 +11,16 @@
   -> factorized SVD (only_left) -> streamed V regression (K2)
   -> final SVD reformat -> PMDArray (frames through K3).
 
+The JAX package's accelerator routes run on the card as it runs them off
+the CPU, each behind its module flag ("auto": on for the card, off on the
+CPU; True or False force it): ``engine.COSET_STAGE``, the gather-free
+block stage for one window, no mesh, identity denoisers and no checkpoint
+when its transients fit; ``blocksparse.BANDED_GRAM``, the block-banded
+Gram of the factorized SVD; ``blocksparse.COSET_VPROJ``, the V regression's
+cell route in place of K2. The last two need a regular grid
+(``BlockGrid.cell_geometry``); every other input takes the gather and
+canvas forms the CPU runs.
+
 The movie may be in memory, a tensor or a file (``dataset.as_dataset``);
 files stream through the loader's pinned ring. With ``checkpoint_path``
 each stage -- ``stats``, ``background``, ``thresholds``, ``blocks`` (and its
@@ -42,14 +52,18 @@ import numpy as np
 import torch
 
 from localmd_tpu_torch import config
-from localmd_tpu_torch.blocksparse import BlockSparseMatrix
+from localmd_tpu_torch.blocksparse import BlockSparseMatrix, coset_vproj_eligible
 from localmd_tpu_torch.checkpoint import PipelineCheckpoint
 from localmd_tpu_torch.dataset import as_dataset
 from localmd_tpu_torch.engine import (
+    coset_stage_eligible,
+    coset_stage_plan,
+    coset_stage_transient_bytes,
     effective_window_length,
     identity,
     threshold_heuristic,
     window0_chunk_step,
+    window0_coset_stage,
     window_count,
     windowed_pmd_batched,
 )
@@ -75,8 +89,9 @@ from localmd_tpu_torch.parallel.multihost import (
 from localmd_tpu_torch.parallel.sharded import sharded_window0_chunk_step
 from localmd_tpu_torch.pmd_array import PMDArray
 from localmd_tpu_torch.utils import (
+    block_batch_budget,
+    device_free_bytes,
     display,
-    free_bytes,
     is_device_oom,
     make_generator,
     normal,
@@ -402,6 +417,9 @@ def _decompose(
             generator=make_generator(seeds["thresholds"], dev),
             sim_batch=sim_batch,
             device=dev,
+            # the generator's seed: a warm call with the same seed and
+            # shapes reuses the simulation (pipeline.py:571-581)
+            cache_token=("pipeline-thr", seeds["thresholds"]),
         )
         ckpt.save("thresholds", spatial_threshold=spatial_threshold,
                   temporal_threshold=temporal_threshold)
@@ -477,17 +495,34 @@ def _decompose(
                 np.asarray(pixel_weighting, dtype=np.float32), device=dev
             )[:, :, None]
 
-        per_block_bytes = b1 * b2 * crop_avg_constant * 4 * 4
-        free = free_bytes(dev)
-        budget = max(int(1e9), int(0.4 * free)) if free is not None else int(1e9)
-        bb = max(1, min(block_batch_size, n_blocks, max(16, budget // per_block_bytes)))
+        bb = block_batch_budget(dev, per_block_bytes=b1 * b2 * crop_avg_constant * 4 * 4,
+                                n_blocks=n_blocks, block_batch_size=block_batch_size)
         if mesh is not None:
             # whole shares for every rank, and one batch size for all: each
             # rank read its own free memory (pipeline.py:703-712)
             bb = agree_int_min(pad_to_multiple(bb, world), mesh)
+        # the gather-free coset stage (pipeline.py:944-1033): one window, no
+        # mesh, identity denoisers, no checkpoint, a grid of coset lattices
+        # and transients that fit beside the live buffers
+        coset_plan = None
+        if single_window and mesh is None and coset_stage_eligible(
+            b1, b2, spatial_avg_factor, sden, tden, checkpoint_path, dev
+        ):
+            coset_plan = coset_stage_plan(d1, d2, b1, b2)
+        if coset_plan is not None:
+            est = coset_stage_transient_bytes(
+                d1, d2, crop_avg_constant, b1, b2, max_components, temporal_avg_factor,
+                spatial_avg_factor, len(coset_plan[1]),
+            )
+            free = device_free_bytes(dev)
+            if free is not None and est > free:
+                display(f"Coset block stage needs ~{est / 1e9:.1f} GB of transients "
+                        f"(~{free / 1e9:.1f} GB free): using batches of gathered blocks")
+                coset_plan = None
         display(
             f"Decomposing {n_blocks} overlapping blocks ({b1}x{b2}, max "
-            f"{max_components} comps/block, {n_windows} window(s)) in batches of {bb}"
+            f"{max_components} comps/block, {n_windows} window(s)) "
+            + ("on the coset lattices" if coset_plan is not None else f"in batches of {bb}")
         )
 
         def run_batch(idx: np.ndarray, ids: torch.Tensor):
@@ -533,6 +568,17 @@ def _decompose(
                         "blocks from per-batch checkpoints")
         else:
             missing = np.arange(n_blocks)
+        if coset_plan is not None:
+            meta, ids, remainder = coset_plan
+            acc, cnt, v_fit = window0_coset_stage(
+                data, sketches[0].index_select(0, torch.as_tensor(ids, device=dev)), meta, b1, b2,
+                max_components, temporal_avg_factor, spatial_avg_factor, spatial_threshold,
+                temporal_threshold, max_consecutive_failures, crop_avg_constant,
+            )
+            windows_run.append(1)
+            parts.append((ids, acc, cnt, v_fit))
+            # the blocks off the lattices (a snapped tail): one gathered batch
+            missing = remainder
         # one upload: a copy from pageable memory waits for the stream, and
         # one per batch would stall the host between batches
         missing_dev = torch.as_tensor(missing, device=dev)
@@ -572,7 +618,14 @@ def _decompose(
         starts=grid.starts,
         block_shape=(b1, b2),
         cosets=tuple(ids for ids, _ in grid.cosets()),
+        coset_info=grid.coset_info(dev),
+        cell_geom=grid.cell_geometry(),
     )
+    if not ckpt.has("v") and coset_vproj_eligible(u):
+        # the V regression's cell operands need only U and the statistics:
+        # queue their build now, off the V pass's critical path
+        # (pipeline.py:1112-1119)
+        load_obj.prepare_vproj_cells(u)
     v_cropped = torch.cat(
         [v_blocks.reshape(n_blocks * max_components, -1), temporal_basis_crop], dim=0
     )

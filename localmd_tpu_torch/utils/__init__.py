@@ -1,11 +1,17 @@
-from localmd_tpu_torch.utils.device import free_bytes, is_device_oom, transient_budget_bytes
+from localmd_tpu_torch.utils.device import (
+    block_batch_budget,
+    device_free_bytes,
+    is_device_oom,
+    transient_budget_bytes,
+)
 from localmd_tpu_torch.utils.logging import display, get_logger
 from localmd_tpu_torch.utils.random import make_generator, normal, sketch_override, stage_seeds
 
 __all__ = [
     "display",
     "get_logger",
-    "free_bytes",
+    "device_free_bytes",
+    "block_batch_budget",
     "is_device_oom",
     "transient_budget_bytes",
     "make_generator",

@@ -9,12 +9,47 @@ import torch
 TRANSIENT_FLOOR_BYTES = 1 << 30
 
 
-def free_bytes(device: torch.device):
-    """Free device memory in bytes, or None on the CPU."""
-    if device.type != "cuda":
+def device_free_bytes(device, pending_bytes: int = 0):
+    """Memory this process can still allocate on ``device``, or None on the
+    CPU (utils/device.py:69-96): ``mem_get_info``'s free bytes plus the caching
+    allocator's reserved but unallocated bytes, less ``pending_bytes``
+    (buffers that will be live at dispatch but are not allocated yet). This
+    is JAX's ``bytes_limit - bytes_in_use`` in the allocator's terms: the
+    blocks a stream has cached are free to the next allocation, so the
+    count does not depend on what an earlier call left cached."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
         return None
-    free, _ = torch.cuda.mem_get_info(device)
-    return int(free)
+    free, _ = torch.cuda.mem_get_info(dev)
+    cached = torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
+    return int(free + cached - pending_bytes)
+
+
+def block_batch_budget(
+    device,
+    *,
+    per_block_bytes: int,
+    n_blocks: int,
+    block_batch_size: int,
+    pending_bytes: int = 0,
+) -> int:
+    """The block stage's batch size (utils/device.py:99-142): as many blocks
+    as 40% of ``device_free_bytes`` holds at ``per_block_bytes`` each (1 GB
+    when that is more, and on the CPU), at least 16, at most
+    ``block_batch_size`` and ``n_blocks``; a batch below ``n_blocks`` is
+    rounded down to a power of two, so memory left free by an earlier call
+    does not change the batches. Where JAX raises a batch below 16 to 16,
+    this keeps a caller's ``block_batch_size`` below 16 and never exceeds
+    ``n_blocks``: both mean the same batches. Mesh rounding stays with the
+    caller."""
+    budget = int(1e9)
+    free = device_free_bytes(device, pending_bytes=pending_bytes)
+    if free is not None:
+        budget = max(budget, int(free * 0.4))
+    bb = max(1, min(block_batch_size, n_blocks, max(16, budget // per_block_bytes)))
+    if bb < n_blocks:
+        bb = 1 << (bb.bit_length() - 1)
+    return int(bb)
 
 
 def transient_budget_bytes(device) -> int:

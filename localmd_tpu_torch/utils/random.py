@@ -35,6 +35,12 @@ def sketch_override(fn: Callable):
         _OVERRIDE = prev
 
 
+def random_draws_are_live() -> bool:
+    """False inside ``sketch_override``: ``normal`` returns the override's
+    arrays there, so a result is not a function of the generator's seed."""
+    return _OVERRIDE is None
+
+
 def normal(
     shape: Tuple[int, ...],
     generator: Optional[torch.Generator],

@@ -301,3 +301,31 @@ def test_numerics_policy_has_tf32_off():
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
     assert torch.get_float32_matmul_precision() == "highest"
+
+
+ROUTES = [("engine", "COSET_STAGE", ("coset_stage_supported", "coset_stage_eligible",
+                                     "coset_stage_transient_bytes", "coset_stage_plan",
+                                     "window0_coset_stage")),
+          ("blocksparse", "BANDED_GRAM", ("_banded_gram_quad",)),
+          ("blocksparse", "COSET_VPROJ", ("coset_vproj_eligible", "build_vproj_cells",
+                                          "coset_vproj_chunk"))]
+
+
+@pytest.mark.parametrize("module,flag,names", ROUTES, ids=[r[1] for r in ROUTES])
+def test_accelerator_routes_are_the_ports_own_and_auto_means_the_card(module, flag, names):
+    """Each of the JAX package's accelerator routes has its flag, at "auto",
+    and its functions in the port (whose sources the import scan above
+    covers); "auto" is on for a CUDA device and off on the CPU, and a flag
+    other than True, False or "auto" raises."""
+    import importlib
+
+    from localmd_tpu_torch.config import route_enabled
+
+    mod = importlib.import_module(f"localmd_tpu_torch.{module}")
+    assert getattr(mod, flag) == "auto"
+    for name in names:
+        assert callable(getattr(mod, name)), name
+    assert route_enabled("auto", torch.device("cuda", 0)) and not route_enabled("auto", "cpu")
+    assert route_enabled(True, "cpu") and not route_enabled(False, torch.device("cuda", 0))
+    with pytest.raises(ValueError):
+        route_enabled("yes", "cpu")

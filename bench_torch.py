@@ -10,6 +10,7 @@ clip(40 x + 1000).
 
     python3 bench_torch.py [--cell 512_f32|1024_u16|voltage_f32|northstar_u16|all] [--runs 10]
                            [--profile] [--small-eigh k4|cusolver] [--routes auto|off|both]
+                           [--profile-cold]
 
 Per cell: one cold call of ``localmd_decomposition``, then ``--runs`` warm
 calls, each timed on the host clock around work that ends in
@@ -28,7 +29,12 @@ two side by side in one call.
 ``--routes off`` forces the JAX package's accelerator routes off (the
 coset block stage, the banded Gram and the cell-packed V projection, which
 "auto" runs on the card), ``--routes both`` runs each cell once each way,
-"auto" first; the JSON line names the setting.
+"auto" first; the JSON line names the setting. ``--profile-cold`` runs
+the first cell's cold call, the process's first, under the profiler (the
+JSON line's ``cold_profile``): its CUDA runtime calls, ``cudaLaunchKernel``
+among them (a kernel's first launch loads its module), show where a cold
+call's time goes (``chip_smoke.py`` phase 11 times cold calls in fresh
+processes).
 
 ``northstar_u16`` is the JAX package's north-star workload
 (bench_northstar.py:118-131): bench.make_movie's uint16 construction at
@@ -313,9 +319,11 @@ PORT_KERNEL_NAMES = {
 
 
 # CUDA runtime calls that can block the host: syncs, copies (one from
-# pageable memory first waits for its stream) and allocations
+# pageable memory first waits for its stream), allocations, and launches
+# (a kernel's first launch loads its module: the cold call's cost)
 HOST_RUNTIME_CALLS = ("cudaDeviceSynchronize", "cudaStreamSynchronize", "cudaEventSynchronize",
-                      "cudaMemcpyAsync", "cudaMemcpy", "cudaMalloc", "cudaFree", "cudaHostAlloc")
+                      "cudaMemcpyAsync", "cudaMemcpy", "cudaMalloc", "cudaFree", "cudaHostAlloc",
+                      "cudaLaunchKernel")
 
 
 def profile_run(movie, settings: dict, top: int = 12) -> dict:
@@ -356,14 +364,22 @@ def profile_run(movie, settings: dict, top: int = 12) -> dict:
     )
 
 
-def bench_cell(name: str, runs: int, with_profile: bool, card: str) -> dict:
+def bench_cell(name: str, runs: int, with_profile: bool, card: str,
+               profile_cold: bool = False) -> dict:
+    """A cold call (under the profiler with ``profile_cold``), then ``runs``
+    warm calls."""
     import torch
 
     from localmd_tpu_torch.ops import kernels
 
     d1, d2, t, dtype, settings = CELLS[name]
     movie, _ = make_movie(dtype, d1, d2, t)
-    pmd, cold, _ = timed_run(movie, **settings)
+    cold_profile = None
+    if profile_cold:
+        cold_profile = profile_run(movie, settings)
+        cold = cold_profile["profiled_wall_ms"] / 1e3
+    else:
+        _, cold, _ = timed_run(movie, **settings)
     walls, stages, peak = [], {}, 0.0
     kernels.reset_launch_counts()
     for _ in range(runs):
@@ -382,6 +398,8 @@ def bench_cell(name: str, runs: int, with_profile: bool, card: str) -> dict:
         windows=pmd.pipeline_windows,
         launches_per_call={k: n / runs for k, n in kernels.launch_counts().items()},
     )
+    if cold_profile is not None:
+        out["cold_profile"] = cold_profile
     if with_profile:
         prof = profile_run(movie, settings)
         prof["idle_share_at_median_wall"] = 1.0 - prof["device_busy_ms"] / (med * 1e3)
@@ -404,6 +422,9 @@ def main(argv=None) -> int:
                     help="the accelerator routes (coset block stage, banded Gram, cell V "
                          "projection): the package's default, forced off, or each cell "
                          "once with each (default: auto)")
+    ap.add_argument("--profile-cold", action="store_true",
+                    help="run the process's cold call (the first cell's) under torch.profiler: "
+                         "its runtime calls, a kernel's first launch included")
     args = ap.parse_args(argv)
 
     import torch
@@ -425,13 +446,15 @@ def main(argv=None) -> int:
 
         linalg.uses_jacobi = lambda device, k: False
     card = card_line()
+    profile_cold = args.profile_cold     # the process's first cold call only
     for name in [*CELLS, "northstar_u16"] if args.cell == "all" else [args.cell]:
         for routes in (("auto", "off") if args.routes == "both" else (args.routes,)):
             set_routes("auto" if routes == "auto" else False)
             if name == "northstar_u16":
                 out = bench_northstar(args.runs or 3, args.profile, card)
             else:
-                out = bench_cell(name, args.runs or 10, args.profile, card)
+                out = bench_cell(name, args.runs or 10, args.profile, card, profile_cold)
+            profile_cold = False
             out["small_eigh"] = args.small_eigh
             out["routes"] = routes
             print(json.dumps(out), flush=True)

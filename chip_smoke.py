@@ -47,8 +47,10 @@ Phases (each prints one progress line; any failure raises, exit code != 0):
    bench.make_movie's uint16 construction at 512 x 512 x 30000 (15.7 GB)
    written to a raw file in a temporary directory (removed at the end; T
    is cut, to no fewer than 8192 frames, when half the free space cannot
-   hold the file and ~3 GB of outputs). The same movie runs card-resident,
-   then from the file with the device movie cache and without it: equal
+   hold the file and ~3 GB of outputs; the file stays for phase 11). The
+   same movie runs card-resident, then from the file with the device movie
+   cache (twice: the second call must cache as many frames, its plan
+   reading the first call's freed cache as free) and without it: equal
    statistics and ``pipeline_ranks``, 512 sampled frames within 1e-5, frames
    cached, pinned copies made, the native reader in use; then device
    slicing against the host path on five keys, ``export_tiff`` read back
@@ -87,6 +89,16 @@ Phases (each prints one progress line; any failure raises, exit code != 0):
    rank 0's bit for bit, K1, K3 and K4 and the cell V projection (in K2's
    place) launched in every rank; prints each rank's warm wall time and
    stages beside the reference's.
+11. cold calls in fresh processes: the north star from phase 8's raw file
+   (the page cache warm) and bench.py's 512 x 512 x 2048 float32 cell made
+   on the card, each in ``COLD_RUNS`` processes; each process (a
+   ``--cold-call`` subprocess of this script, the kernels already built)
+   makes one cold call and one warm call. Checks: 512 sampled frames,
+   ``pipeline_ranks``, the kept rank and the thresholds equal bit for bit
+   across the processes of a cell; the north star's cached frames equal to
+   phase 8's in every call. Prints each process's seconds from its start
+   to the call, both walls and the stages, and the medians with each
+   stage's cold-minus-warm time.
 
 Wherever a path runs, the kernels and routes it launched are checked
 against the route it should take (``expected_routes``): K2 where the cell
@@ -94,14 +106,16 @@ V projection does not run, the route's own calls where it does.
 
 The last two lines are a JSON object with one entry per kernel (its
 launches summed over the runs of phases 3, 4 (the "auto" side), 5, 7 (the
-"auto" side), 8, 9 and 10, each counted from 0) and the result line
+"auto" side), 8, 9, 10 and 11, each counted from 0) and the result line
 ``{"ok": true, "device": {...}}``.
 
 Run from the repository root: ``python3 chip_smoke.py`` (one card; phase 8
 needs ~19 GB of free temporary disk, or prints its cut). ``--phases 0,1,2``
 runs a subset (the result line needs all of them), ``--phases 0,1,10`` the
-mesh path alone; ``--frames T`` sets phase 8's T. ``--mesh-rank`` is the
-entry point of phase 10's rank processes.
+mesh path alone, ``--phases 0,1,11`` the cold calls alone (writing the
+north star's raw file itself); ``--frames T`` sets the raw file's T.
+``--mesh-rank`` and ``--cold-call`` are the entry points of phase 10's rank
+processes and phase 11's cold-call processes.
 Repeated warm timings and a profile: ``bench_torch.py``.
 """
 
@@ -133,7 +147,7 @@ KERNELS = {
     "jacobi_eigh": ("localmd_tpu_torch/csrc/jacobi_eigh.cu",
                     "scripts/ablate_jacobi_kernel.py:103"),
 }
-ALL_PHASES = (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10)
+ALL_PHASES = (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11)
 # K4's cases: the shapes the paths give it -- the rSVD Gram (256 and 225
 # blocks, k = 30), svd_gram_left (k = 20), the threshold Monte-Carlo (131
 # simulations, k = 11, odd), the background rSVD (k = 25) -- and k = 64
@@ -785,181 +799,194 @@ def check_stream_launches(label: str, launches: dict) -> None:
     check_path(label, launches, ROUTE_CALLS, expected_routes(512, 512))
 
 
-def phase_from_disk(frames=None) -> dict:
-    """Phase 8. Returns the launch counts of its two from-disk runs and of
+def phase_from_disk(tmp: str, frames=None):
+    """Phase 8, in the temporary directory ``tmp`` (its raw file stays there
+    for phase 11). Returns the launch counts of its from-disk runs and of
     the export, each counted from 0 just before it (the card-resident
-    reference run and the comparisons are not counted)."""
+    reference run and the comparisons are not counted), and the raw file
+    (path, frames, the frames the cache held)."""
     import torch
 
-    from bench_torch import (
-        NORTHSTAR_BLOCKS,
-        NORTHSTAR_CONFIG,
-        northstar_frames,
-        stream_legs,
-        timed_run,
-        write_movie_file,
-    )
+    from bench_torch import NORTHSTAR_BLOCKS, NORTHSTAR_CONFIG, stream_legs, timed_run
     from localmd_tpu_torch import RawBinaryArray, TensorMovie, TiffArray, localmd_decomposition
     from localmd_tpu_torch.io.native import native_available
     from localmd_tpu_torch.io.tiff import write_tiff_stream
     from localmd_tpu_torch.ops import kernels
 
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_northstar_")
+    log(f"phase 8 from disk: 512x512xT uint16 raw file, {NORTHSTAR_CONFIG}")
+    path, t, movie = write_northstar(tmp, frames)
+    settings = dict(NORTHSTAR_CONFIG)
+
+    # 2. the same movie resident on the card: the reference of the file runs
+    pmd_res, secs, _ = timed_run(TensorMovie(movie), blocks=NORTHSTAR_BLOCKS, **settings)
+    log_stream_run("card-resident", pmd_res, secs, t)
+    del movie
+    torch.cuda.empty_cache()
+
+    # 3. from the file, movie cache "auto"
+    check(native_available(), "the native reader is not built: the timed path would read in Python")
+    src = RawBinaryArray(path, (t, 512, 512), "uint16")
+    kernels.reset_launch_counts()
+    reset_route_calls()
+    pmd, secs_on, _ = timed_run(src, blocks=NORTHSTAR_BLOCKS, cache_movie="auto", **settings)
+    launches_on = kernels.launch_counts()
+    log_stream_run("from disk, cache auto", pmd, secs_on, t)
+    check_stream_launches("from disk, cache auto", launches_on)
+    check(src._native_reader() is not None and src._fast_reader.n_threads == 4,
+          "the file was not read by the native reader with 4 threads")
+    mean_d = float(np.abs(pmd.mean_img - pmd_res.mean_img).max())
+    std_d = float(np.abs(pmd.var_img - pmd_res.var_img).max())
+    sample = np.sort(np.random.default_rng(0).choice(t, 512, replace=False))
+    err = rel_fro(pmd.reconstruct_frames(sample), pmd_res.reconstruct_frames(sample))
+    log(f"  from disk vs card-resident: mean max|d| {mean_d:.3e}, std max|d| {std_d:.3e}, "
+        f"512 sampled frames rel Frobenius {err:.3e}")
+    check(mean_d <= 1e-5 * float(np.abs(pmd_res.mean_img).max())
+          and std_d <= 1e-5 * float(np.abs(pmd_res.var_img).max()), "from-disk statistics differ")
+    check(pmd.pipeline_ranks == pmd_res.pipeline_ranks,
+          f"ranks {pmd.pipeline_ranks} vs {pmd_res.pipeline_ranks}")
+    check(err <= 1e-5, f"from-disk reconstruction error {err}")
+    check(pmd.pipeline_cache["cached_frames"] > 0, "no frame was cached")
+    check(pmd.pipeline_cache["pinned_copies"] > 0, "no pinned copy was made")
+    # again in this process: the cache plan reads the first call's
+    # cache, freed into the allocator's pool, as free memory
+    pmd_again, secs_again, _ = timed_run(src, blocks=NORTHSTAR_BLOCKS, cache_movie="auto",
+                                         **settings)
+    log_stream_run("from disk, cache auto, again", pmd_again, secs_again, t)
+    cached = pmd.pipeline_cache["cached_frames"]
+    check(pmd_again.pipeline_cache["cached_frames"] == cached,
+          f"the second cached run held {pmd_again.pipeline_cache['cached_frames']} frames "
+          f"against {cached}")
+    del pmd_again
+
+    # 4. from the file, no cache: the V regression streams through the
+    # pinned ring while the factorized SVD runs
+    kernels.reset_launch_counts()
+    reset_route_calls()
+    pmd_off, secs_off, _ = timed_run(src, blocks=NORTHSTAR_BLOCKS, cache_movie=False, **settings)
+    launches_off = kernels.launch_counts()
+    log_stream_run("from disk, no cache", pmd_off, secs_off, t)
+    check_stream_launches("from disk, no cache", launches_off)
+    err_off = rel_fro(pmd_off.reconstruct_frames(sample), pmd_res.reconstruct_frames(sample))
+    log(f"  no cache vs card-resident: 512 sampled frames rel Frobenius {err_off:.3e}")
+    check(pmd_off.pipeline_ranks == pmd_res.pipeline_ranks,
+          f"no cache: ranks {pmd_off.pipeline_ranks} vs {pmd_res.pipeline_ranks}")
+    check(err_off <= 1e-5, f"no-cache reconstruction error {err_off}")
+    check(pmd_off.pipeline_cache["cached_frames"] == 0, "the no-cache run cached frames")
+    check(pmd_off.pipeline_cache["pinned_copies"] > 0, "no cache: no pinned copy was made")
+    legs = stream_legs(path, t)
+    log(f"  alone: disk read {legs['disk_read_GBps']:.3f} GB/s (native reader, 4 threads, "
+        f"2048 frames into pinned memory), pinned H2D {legs['pinned_h2d_GBps']:.3f} GB/s")
+
+    # 6. slicing on the cached run's array, each case against the host path
+    cases = [
+        ("unaligned ROI [0:512, 100:228, 37:300]", (slice(0, 512), slice(100, 228), slice(37, 300))),
+        ("strided [-5:, ::7, ::9]", (slice(-5, None), slice(None, None, 7), slice(None, None, 9))),
+        (f"fancy pairs [[3, 17, {t - 1}], [5, 400], [7, 511]]", ([3, 17, t - 1], [5, 400], [7, 511])),
+        ("pixel trace [:, 250, 250]", (slice(None), 250, 250)),
+        ("full frame [1000]", (1000,)),
+    ]
+    for name, key in cases:
+        got, secs = timed(lambda: pmd[key])
+        want, host_s = timed(lambda: pmd._getitem_host(key).squeeze().astype(np.float32))
+        err = float(np.linalg.norm((got - want).astype(np.float64)) / np.linalg.norm(want))
+        log(f"  slice {name}: {tuple(got.shape)}, device {secs * 1e3:.2f} ms, host path "
+            f"{host_s * 1e3:.2f} ms, rel Frobenius {err:.3e}")
+        check(got.shape == want.shape and err <= 1e-5, f"slice {name}: error {err}")
+    dev = pmd.slice_device(slice(0, 4), slice(0, 64), slice(0, 64))
+    check(isinstance(dev, torch.Tensor) and dev.is_cuda and tuple(dev.shape) == (4, 64, 64),
+          "slice_device did not return a CUDA tensor")
+
+    # 7. export frames 0-2047 as uint16 and read them back
+    n_exp = min(2048, t)
+    tif = os.path.join(tmp, "denoised.tif")
+    kernels.reset_launch_counts()
+    _, secs = timed(lambda: pmd.export_tiff(tif, frames=range(n_exp), dtype="uint16"))
+    launches_export = kernels.launch_counts()
+    log(f"  launches of the export: {launches_export}")
+    check(launches_export["block_reconstruct"] > 0, "export_tiff never launched block_reconstruct")
+    size = os.path.getsize(tif)
+    back = TiffArray(tif)[0:n_exp]
+    want = np.concatenate([
+        np.clip(np.rint(pmd.reconstruct_frames(np.arange(s, min(s + 512, n_exp))).cpu().numpy()),
+                0, 65535)
+        for s in range(0, n_exp, 512)
+    ])
+    log(f"  export_tiff {n_exp} frames uint16: {secs:.3f} s = {size / secs / 1e6:.1f} MB/s; "
+        f"read back equal: {np.array_equal(back, want)}")
+    check(back.shape == want.shape and np.array_equal(back, want), "exported TIFF differs")
+    os.remove(tif)
+
+    # 8. close without materializing: the factors' device memory goes
+    u = pmd_off._blocksparse
+    factor_bytes = sum(x.numel() * x.element_size() for x in (
+        u.panels, u.rows, u.dense_basis, pmd_off._r_padded, pmd_off._v_src))
+    before = torch.cuda.memory_allocated()
+    del u
+    pmd_off.close(materialize=False)
+    gc.collect()
+    freed = before - torch.cuda.memory_allocated()
+    log(f"  close(materialize=False): {freed / 1e6:.1f} MB freed, factors {factor_bytes / 1e6:.1f} MB")
+    check(freed >= factor_bytes, f"close freed {freed} bytes of {factor_bytes}")
     try:
-        t, cut = northstar_frames(tmp)
-        if frames:
-            t, cut = min(frames, t), f"north-star movie set to T = {min(frames, t)} frames"
-        log(f"phase 8 from disk: 512x512x{t} uint16 raw file, {NORTHSTAR_CONFIG}")
-        if cut:
-            log(cut)
-        path = os.path.join(tmp, "movie.u16.raw")
-        nbytes = t * 512 * 512 * 2
-        movie, write_s = write_movie_file(path, t)
-        log(f"  wrote {nbytes / 1e9:.3f} GB in {write_s:.2f} s = {nbytes / write_s / 1e9:.3f} GB/s")
-        settings = dict(NORTHSTAR_CONFIG)
+        pmd_off[0]
+    except RuntimeError:
+        pass
+    else:
+        raise AssertionError("slicing a closed array did not raise")
+    launches = {name: launches_on[name] + launches_off[name] + launches_export[name]
+                for name in launches_on}
+    del pmd, pmd_off, pmd_res
+    torch.cuda.empty_cache()
 
-        # 2. the same movie resident on the card: the reference of the file runs
-        pmd_res, secs, _ = timed_run(TensorMovie(movie), blocks=NORTHSTAR_BLOCKS, **settings)
-        log_stream_run("card-resident", pmd_res, secs, t)
-        del movie
-        torch.cuda.empty_cache()
+    # 9. the CLI on the first 2048 frames as a TIFF, against an in-process run
+    n_cli = min(2048, t)
+    tif_in = os.path.join(tmp, "first.tif")
+    raw = np.memmap(path, dtype=np.uint16, mode="r", shape=(t, 512, 512))
+    write_tiff_stream(tif_in, (raw[i] for i in range(n_cli)), (n_cli, 512, 512), np.uint16)
+    del raw
+    npz, npy = os.path.join(tmp, "cli.npz"), os.path.join(tmp, "cli_recon.npy")
+    cli = [sys.executable, "-m", "localmd_tpu_torch.cli"]
+    bench = ["--blocks", "32", "32", "--frame-range", "1024", "--max-components", "20",
+             "--background-rank", "15", "--temporal-avg-factor", "10", "--rank-prune",
+             "--seed", "0"]
+    outs = []
+    for args in (["compress", tif_in, npz, *bench], ["info", npz],
+                 ["export", npz, npy, "--frames", "0", "512"]):
+        (proc, secs) = timed(lambda: subprocess.run(cli + args, capture_output=True, text=True,
+                                                    cwd=HERE, timeout=600))
+        check(proc.returncode == 0, f"cli {args[0]} failed:\n{proc.stderr[-3000:]}")
+        outs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        log(f"  cli {args[0]}: {secs:.2f} s, {proc.stdout.strip().splitlines()[-1][:300]}")
+    ref = localmd_decomposition(TiffArray(tif_in), (32, 32), frame_range=1024,
+                                max_components=20, background_rank=15, temporal_avg_factor=10,
+                                rank_prune=True, seed=0, device="cuda")
+    err = rel_fro(torch.as_tensor(np.load(npy), device="cuda"), ref.reconstruct_frames(np.arange(512)))
+    log(f"  cli vs in-process: rank {outs[1]['rank']} vs {ref.rank}, export rel Frobenius {err:.3e}")
+    check(outs[0]["rank"] == outs[1]["rank"] == ref.rank, "cli rank differs from the in-process run")
+    check(err <= 1e-5, f"cli reconstruction error {err}")
+    del ref
+    for name in (tif_in, npz, npy):
+        os.remove(name)
+    torch.cuda.empty_cache()
+    return launches, (path, t, cached)
 
-        # 3. from the file, movie cache "auto"
-        check(native_available(), "the native reader is not built: the timed path would read in Python")
-        src = RawBinaryArray(path, (t, 512, 512), "uint16")
-        kernels.reset_launch_counts()
-        reset_route_calls()
-        pmd, secs_on, _ = timed_run(src, blocks=NORTHSTAR_BLOCKS, cache_movie="auto", **settings)
-        launches_on = kernels.launch_counts()
-        log_stream_run("from disk, cache auto", pmd, secs_on, t)
-        check_stream_launches("from disk, cache auto", launches_on)
-        check(src._native_reader() is not None and src._fast_reader.n_threads == 4,
-              "the file was not read by the native reader with 4 threads")
-        mean_d = float(np.abs(pmd.mean_img - pmd_res.mean_img).max())
-        std_d = float(np.abs(pmd.var_img - pmd_res.var_img).max())
-        sample = np.sort(np.random.default_rng(0).choice(t, 512, replace=False))
-        err = rel_fro(pmd.reconstruct_frames(sample), pmd_res.reconstruct_frames(sample))
-        log(f"  from disk vs card-resident: mean max|d| {mean_d:.3e}, std max|d| {std_d:.3e}, "
-            f"512 sampled frames rel Frobenius {err:.3e}")
-        check(mean_d <= 1e-5 * float(np.abs(pmd_res.mean_img).max())
-              and std_d <= 1e-5 * float(np.abs(pmd_res.var_img).max()), "from-disk statistics differ")
-        check(pmd.pipeline_ranks == pmd_res.pipeline_ranks,
-              f"ranks {pmd.pipeline_ranks} vs {pmd_res.pipeline_ranks}")
-        check(err <= 1e-5, f"from-disk reconstruction error {err}")
-        check(pmd.pipeline_cache["cached_frames"] > 0, "no frame was cached")
-        check(pmd.pipeline_cache["pinned_copies"] > 0, "no pinned copy was made")
 
-        # 4. from the file, no cache: the V regression streams through the
-        # pinned ring while the factorized SVD runs
-        kernels.reset_launch_counts()
-        reset_route_calls()
-        pmd_off, secs_off, _ = timed_run(src, blocks=NORTHSTAR_BLOCKS, cache_movie=False, **settings)
-        launches_off = kernels.launch_counts()
-        log_stream_run("from disk, no cache", pmd_off, secs_off, t)
-        check_stream_launches("from disk, no cache", launches_off)
-        err_off = rel_fro(pmd_off.reconstruct_frames(sample), pmd_res.reconstruct_frames(sample))
-        log(f"  no cache vs card-resident: 512 sampled frames rel Frobenius {err_off:.3e}")
-        check(pmd_off.pipeline_ranks == pmd_res.pipeline_ranks,
-              f"no cache: ranks {pmd_off.pipeline_ranks} vs {pmd_res.pipeline_ranks}")
-        check(err_off <= 1e-5, f"no-cache reconstruction error {err_off}")
-        check(pmd_off.pipeline_cache["cached_frames"] == 0, "the no-cache run cached frames")
-        check(pmd_off.pipeline_cache["pinned_copies"] > 0, "no cache: no pinned copy was made")
-        legs = stream_legs(path, t)
-        log(f"  alone: disk read {legs['disk_read_GBps']:.3f} GB/s (native reader, 4 threads, "
-            f"2048 frames into pinned memory), pinned H2D {legs['pinned_h2d_GBps']:.3f} GB/s")
+def write_northstar(tmp: str, frames=None):
+    """The north star's raw file in ``tmp``: (path, frames, the movie on the
+    card). T is cut, to no fewer than 8192 frames, to the free disk."""
+    from bench_torch import northstar_frames, write_movie_file
 
-        # 6. slicing on the cached run's array, each case against the host path
-        cases = [
-            ("unaligned ROI [0:512, 100:228, 37:300]", (slice(0, 512), slice(100, 228), slice(37, 300))),
-            ("strided [-5:, ::7, ::9]", (slice(-5, None), slice(None, None, 7), slice(None, None, 9))),
-            (f"fancy pairs [[3, 17, {t - 1}], [5, 400], [7, 511]]", ([3, 17, t - 1], [5, 400], [7, 511])),
-            ("pixel trace [:, 250, 250]", (slice(None), 250, 250)),
-            ("full frame [1000]", (1000,)),
-        ]
-        for name, key in cases:
-            got, secs = timed(lambda: pmd[key])
-            want, host_s = timed(lambda: pmd._getitem_host(key).squeeze().astype(np.float32))
-            err = float(np.linalg.norm((got - want).astype(np.float64)) / np.linalg.norm(want))
-            log(f"  slice {name}: {tuple(got.shape)}, device {secs * 1e3:.2f} ms, host path "
-                f"{host_s * 1e3:.2f} ms, rel Frobenius {err:.3e}")
-            check(got.shape == want.shape and err <= 1e-5, f"slice {name}: error {err}")
-        dev = pmd.slice_device(slice(0, 4), slice(0, 64), slice(0, 64))
-        check(isinstance(dev, torch.Tensor) and dev.is_cuda and tuple(dev.shape) == (4, 64, 64),
-              "slice_device did not return a CUDA tensor")
-
-        # 7. export frames 0-2047 as uint16 and read them back
-        n_exp = min(2048, t)
-        tif = os.path.join(tmp, "denoised.tif")
-        kernels.reset_launch_counts()
-        _, secs = timed(lambda: pmd.export_tiff(tif, frames=range(n_exp), dtype="uint16"))
-        launches_export = kernels.launch_counts()
-        log(f"  launches of the export: {launches_export}")
-        check(launches_export["block_reconstruct"] > 0, "export_tiff never launched block_reconstruct")
-        size = os.path.getsize(tif)
-        back = TiffArray(tif)[0:n_exp]
-        want = np.concatenate([
-            np.clip(np.rint(pmd.reconstruct_frames(np.arange(s, min(s + 512, n_exp))).cpu().numpy()),
-                    0, 65535)
-            for s in range(0, n_exp, 512)
-        ])
-        log(f"  export_tiff {n_exp} frames uint16: {secs:.3f} s = {size / secs / 1e6:.1f} MB/s; "
-            f"read back equal: {np.array_equal(back, want)}")
-        check(back.shape == want.shape and np.array_equal(back, want), "exported TIFF differs")
-        os.remove(tif)
-
-        # 8. close without materializing: the factors' device memory goes
-        u = pmd_off._blocksparse
-        factor_bytes = sum(x.numel() * x.element_size() for x in (
-            u.panels, u.rows, u.dense_basis, pmd_off._r_padded, pmd_off._v_src))
-        before = torch.cuda.memory_allocated()
-        del u
-        pmd_off.close(materialize=False)
-        gc.collect()
-        freed = before - torch.cuda.memory_allocated()
-        log(f"  close(materialize=False): {freed / 1e6:.1f} MB freed, factors {factor_bytes / 1e6:.1f} MB")
-        check(freed >= factor_bytes, f"close freed {freed} bytes of {factor_bytes}")
-        try:
-            pmd_off[0]
-        except RuntimeError:
-            pass
-        else:
-            raise AssertionError("slicing a closed array did not raise")
-        launches = {name: launches_on[name] + launches_off[name] + launches_export[name]
-                    for name in launches_on}
-        del pmd, pmd_off, pmd_res
-        torch.cuda.empty_cache()
-
-        # 9. the CLI on the first 2048 frames as a TIFF, against an in-process run
-        n_cli = min(2048, t)
-        tif_in = os.path.join(tmp, "first.tif")
-        raw = np.memmap(path, dtype=np.uint16, mode="r", shape=(t, 512, 512))
-        write_tiff_stream(tif_in, (raw[i] for i in range(n_cli)), (n_cli, 512, 512), np.uint16)
-        del raw
-        npz, npy = os.path.join(tmp, "cli.npz"), os.path.join(tmp, "cli_recon.npy")
-        cli = [sys.executable, "-m", "localmd_tpu_torch.cli"]
-        bench = ["--blocks", "32", "32", "--frame-range", "1024", "--max-components", "20",
-                 "--background-rank", "15", "--temporal-avg-factor", "10", "--rank-prune",
-                 "--seed", "0"]
-        outs = []
-        for args in (["compress", tif_in, npz, *bench], ["info", npz],
-                     ["export", npz, npy, "--frames", "0", "512"]):
-            (proc, secs) = timed(lambda: subprocess.run(cli + args, capture_output=True, text=True,
-                                                        cwd=HERE, timeout=600))
-            check(proc.returncode == 0, f"cli {args[0]} failed:\n{proc.stderr[-3000:]}")
-            outs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
-            log(f"  cli {args[0]}: {secs:.2f} s, {proc.stdout.strip().splitlines()[-1][:300]}")
-        ref = localmd_decomposition(TiffArray(tif_in), (32, 32), frame_range=1024,
-                                    max_components=20, background_rank=15, temporal_avg_factor=10,
-                                    rank_prune=True, seed=0, device="cuda")
-        err = rel_fro(torch.as_tensor(np.load(npy), device="cuda"), ref.reconstruct_frames(np.arange(512)))
-        log(f"  cli vs in-process: rank {outs[1]['rank']} vs {ref.rank}, export rel Frobenius {err:.3e}")
-        check(outs[0]["rank"] == outs[1]["rank"] == ref.rank, "cli rank differs from the in-process run")
-        check(err <= 1e-5, f"cli reconstruction error {err}")
-        del ref
-        torch.cuda.empty_cache()
-        return launches
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    t, cut = northstar_frames(tmp)
+    if frames:
+        t, cut = min(frames, t), f"north-star movie set to T = {min(frames, t)} frames"
+    if cut:
+        log(cut)
+    path = os.path.join(tmp, "movie.u16.raw")
+    nbytes = t * 512 * 512 * 2
+    movie, write_s = write_movie_file(path, t)
+    log(f"  wrote 512x512x{t} ({nbytes / 1e9:.3f} GB) in {write_s:.2f} s = "
+        f"{nbytes / write_s / 1e9:.3f} GB/s")
+    return path, t, movie
 
 
 # ---------------------------------------------------------------------------
@@ -1334,6 +1361,170 @@ def phase_mesh() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: cold calls in fresh processes
+# ---------------------------------------------------------------------------
+
+COLD_CELLS = ("northstar", "512_f32")
+COLD_RUNS = 3                 # processes per cell
+COLD_TIMEOUT = 300            # seconds for one process, then it is killed
+COLD_SAMPLE_FRAMES = 512
+
+
+def cold_call(cell: str, out_path: str, spawn_time: float, raw_path: str, frames: int,
+              save_recon: bool) -> int:
+    """One process of phase 11: a cold call of ``cell``, then a warm call.
+    Writes the seconds from the process's start to the call (split into
+    the interpreter with torch's import and the CUDA check, the port's
+    imports (``torch.distributed.tensor``, which ``parallel`` imports,
+    timed apart), the CUDA context and the movie), both calls' walls and
+    stages, the cold call's peak memory and launches (with its read-back),
+    ranks, thresholds, cached frames and a digest of 512 sampled frames
+    (the frames themselves with ``save_recon``)."""
+    import hashlib
+
+    entered = time.time()
+    import torch
+    import torch.distributed.tensor  # noqa: F401 - timed apart: parallel/ imports it
+
+    dist_tensor = time.time()
+    from bench_torch import BLOCKS, NORTHSTAR_BLOCKS, NORTHSTAR_CONFIG, make_movie, timed_run
+    from localmd_tpu_torch import RawBinaryArray, config, engine
+    from localmd_tpu_torch.ops import kernels
+
+    imported = time.time()
+    config.apply()
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    context = time.time()
+    if cell == "northstar":
+        movie, blocks, settings = (RawBinaryArray(raw_path, (frames, 512, 512), "uint16"),
+                                   NORTHSTAR_BLOCKS, dict(NORTHSTAR_CONFIG))
+    else:
+        movie, _ = make_movie("float32")
+        blocks, settings = BLOCKS, {}
+    torch.cuda.synchronize()
+    to_call = time.time() - spawn_time
+    kernels.reset_launch_counts()
+    pmd, cold, peak = timed_run(movie, blocks=blocks, **settings)
+    t_total = pmd.shape[0]
+    sample = np.sort(np.random.default_rng(0).choice(t_total, COLD_SAMPLE_FRAMES, replace=False))
+    recon = pmd.reconstruct_frames(sample).cpu().contiguous()
+    launches = kernels.launch_counts()      # the call and its read-back (K3)
+    if save_recon:
+        torch.save(recon, out_path + ".recon.pt")
+    result = dict(
+        cell=cell, spawn_to_call_s=to_call, start_s=entered - spawn_time,
+        import_s=imported - entered, dist_tensor_import_s=dist_tensor - entered,
+        context_s=context - imported,
+        movie_s=to_call - (context - spawn_time), cold_s=cold, cold_stages=pmd.pipeline_timings,
+        peak_gib=peak, launches=launches, ranks=pmd.pipeline_ranks, kept=pmd.rank,
+        thresholds=[list(v) for v in engine._threshold_cache.values()],
+        cached_frames=pmd.pipeline_cache["cached_frames"],
+        recon_sha256=hashlib.sha256(recon.numpy().tobytes()).hexdigest(),
+    )
+    del pmd, recon
+    pmd, warm, _ = timed_run(movie, blocks=blocks, **settings)
+    result.update(warm_s=warm, warm_stages=pmd.pipeline_timings,
+                  warm_cached_frames=pmd.pipeline_cache["cached_frames"])
+    with open(out_path, "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def _cold_process(cell, out_dir, raw, i, save_recon) -> dict:
+    """Start one ``--cold-call`` process, wait for it within
+    ``COLD_TIMEOUT`` (killed after it) and read what it wrote."""
+    path, frames = raw
+    out = os.path.join(out_dir, f"{cell}_{i}.json")
+    log_path = out + ".log"
+    with open(log_path, "w") as log_file:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--cold-call", cell, out,
+             repr(time.time()), path, str(frames), str(int(save_recon))],
+            cwd=HERE, stdout=log_file, stderr=subprocess.STDOUT)
+        try:
+            proc.wait(timeout=COLD_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        with open(log_path) as f:
+            tail = f.read()[-4000:]
+        raise AssertionError(f"cold call {cell} #{i} exited {proc.returncode} "
+                             f"(killed at {COLD_TIMEOUT} s if -9):\n{tail}")
+    with open(out) as f:
+        return json.load(f)
+
+
+def phase_cold(tmp: str, raw, cached_frames) -> dict:
+    """Phase 11. ``raw`` is (path, frames) of the north star's raw file,
+    ``cached_frames`` the frames phase 8's cached runs held (None when
+    phase 8 did not run). Returns the cold calls' launch counts, summed."""
+    import torch
+
+    log(f"phase 11 cold calls in fresh processes: the north star from its raw file "
+        f"(512x512x{raw[1]} uint16) and 512x512x2048 float32 made on the card, "
+        f"{COLD_RUNS} processes each")
+    torch.cuda.empty_cache()
+    launches: dict = {}
+    failed = []
+
+    def expect(ok: bool, what: str) -> None:
+        if not ok:
+            log(f"    FAILED: {what}")
+            failed.append(what)
+
+    for cell in COLD_CELLS:
+        rs = []
+        for i in range(COLD_RUNS):
+            r = _cold_process(cell, tmp, raw, i, save_recon=i < 2)
+            rs.append(r)
+            log(f"  {cell} #{i}: process to call {r['spawn_to_call_s']:.3f} s "
+                f"(interpreter and torch {r['start_s']:.3f}, imports {r['import_s']:.3f} of "
+                f"which torch.distributed.tensor {r['dist_tensor_import_s']:.3f}, CUDA "
+                f"context {r['context_s']:.3f}, movie {r['movie_s']:.3f}); cold "
+                f"{r['cold_s']:.4f} s, warm {r['warm_s']:.4f} s; cold stages "
+                + json.dumps({k: round(v, 4) for k, v in r["cold_stages"].items()})
+                + "; warm stages "
+                + json.dumps({k: round(v, 4) for k, v in r["warm_stages"].items()})
+                + f"; peak {r['peak_gib']:.2f} GiB; launches {r['launches']}; cached "
+                f"{r['cached_frames']}/{r['warm_cached_frames']}")
+            for name, n in r["launches"].items():
+                launches[name] = launches.get(name, 0) + n
+            if cell == "northstar" and cached_frames is not None:
+                expect(r["cached_frames"] == r["warm_cached_frames"] == cached_frames,
+                       f"{cell} #{i}: cached {r['cached_frames']}/{r['warm_cached_frames']} "
+                       f"frames against phase 8's {cached_frames}")
+        base = rs[0]
+        for i, r in enumerate(rs):
+            expect(r["recon_sha256"] == base["recon_sha256"] and r["ranks"] == base["ranks"]
+                   and r["kept"] == base["kept"] and r["thresholds"] == base["thresholds"]
+                   and len(r["thresholds"]) == 1,
+                   f"{cell} #{i}: frames, ranks or thresholds differ from the first process's "
+                   f"({r['ranks']} / {r['kept']} / {r['thresholds']} against "
+                   f"{base['ranks']} / {base['kept']} / {base['thresholds']})")
+        if COLD_RUNS > 1:
+            first = torch.load(os.path.join(tmp, f"{cell}_0.json.recon.pt"))
+            second = torch.load(os.path.join(tmp, f"{cell}_1.json.recon.pt"))
+            log(f"  {cell}: 512 sampled frames of the first two processes: equal "
+                f"{bool(torch.equal(first, second))}; thresholds {base['thresholds']}")
+            del first, second
+        med = lambda vals: float(np.median(vals))  # noqa: E731
+        stages = base["cold_stages"].keys()
+        summary = dict(
+            spawn_to_call_s=med([r["spawn_to_call_s"] for r in rs]),
+            cold_s=med([r["cold_s"] for r in rs]), warm_s=med([r["warm_s"] for r in rs]),
+            cold_stages_s={k: med([r["cold_stages"][k] for r in rs]) for k in stages},
+            cold_minus_warm_s={k: med([r["cold_stages"][k] - r["warm_stages"][k] for r in rs])
+                               for k in stages},
+            peak_gib=max(r["peak_gib"] for r in rs),
+        )
+        log(f"  {cell} medians: " + json.dumps(summary))
+    check(not failed, "phase 11: " + "; ".join(failed))
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(map(str, ALL_PHASES)),
@@ -1343,6 +1534,9 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh-rank", nargs=5, default=None,
                     metavar=("WORLD", "RANK", "PORT", "BACKEND", "OUT_DIR"),
                     help="run one rank of phase 10 (started by phase 10 itself)")
+    ap.add_argument("--cold-call", nargs=6, default=None,
+                    metavar=("CELL", "OUT", "SPAWN_TIME", "RAW", "FRAMES", "SAVE_RECON"),
+                    help="run one process of phase 11 (started by phase 11 itself)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -1357,6 +1551,9 @@ def main(argv=None) -> int:
     if args.mesh_rank:
         world, rank, port, backend, out_dir = args.mesh_rank
         return mesh_rank(int(world), int(rank), int(port), backend, out_dir)
+    if args.cold_call:
+        cell, out, spawn, raw, frames, save = args.cold_call
+        return cold_call(cell, out, float(spawn), raw, int(frames), bool(int(save)))
     from bench_torch import card_line, make_movie
     from localmd_tpu_torch import config
     from localmd_tpu_torch.ops import _build, kernels
@@ -1440,26 +1637,46 @@ def main(argv=None) -> int:
         launches_7 = phase_voltage()
         if launches is not None:
             launches = {name: launches[name] + launches_7[name] for name in launches}
-    if 8 in phases:
-        launches_8 = phase_from_disk(args.frames)
-        log(f"  launches from disk (phase 8): {launches_8}")
-        # K2's launches follow the V route (check_stream_launches)
-        for name in ("movie_stats", "block_reconstruct", "jacobi_eigh"):
-            check(launches_8[name] > 0, f"the from-disk path never launched {name}")
-        if launches is not None:
-            launches = {name: launches[name] + launches_8[name] for name in launches}
-    if 9 in phases:
-        launches_9 = phase_options()
-        log(f"  launches of phase 9: {launches_9}")
-        for name in ("movie_stats", "block_reconstruct", "jacobi_eigh"):
-            check(launches_9[name] > 0, f"phase 9 never launched {name}")
-        if launches is not None:
-            launches = add_launches(launches, launches_9)
-    if 10 in phases:
-        launches_10 = phase_mesh()
-        log(f"  launches of phase 10 (every rank's warm run and read-back): {launches_10}")
-        if launches is not None:
-            launches = add_launches(launches, launches_10)
+    # phase 8's raw file stays until phase 11 has run
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_northstar_") if phases & {8, 11} else None
+    try:
+        raw, cached = None, None
+        if 8 in phases:
+            launches_8, (path, t, cached) = phase_from_disk(tmp, args.frames)
+            raw = (path, t)
+            log(f"  launches from disk (phase 8): {launches_8}")
+            # K2's launches follow the V route (check_stream_launches)
+            for name in ("movie_stats", "block_reconstruct", "jacobi_eigh"):
+                check(launches_8[name] > 0, f"the from-disk path never launched {name}")
+            if launches is not None:
+                launches = {name: launches[name] + launches_8[name] for name in launches}
+        if 9 in phases:
+            launches_9 = phase_options()
+            log(f"  launches of phase 9: {launches_9}")
+            for name in ("movie_stats", "block_reconstruct", "jacobi_eigh"):
+                check(launches_9[name] > 0, f"phase 9 never launched {name}")
+            if launches is not None:
+                launches = add_launches(launches, launches_9)
+        if 10 in phases:
+            launches_10 = phase_mesh()
+            log(f"  launches of phase 10 (every rank's warm run and read-back): {launches_10}")
+            if launches is not None:
+                launches = add_launches(launches, launches_10)
+        if 11 in phases:
+            if raw is None:
+                log("phase 11 without phase 8: writing the north star's raw file")
+                path, t, movie = write_northstar(tmp, args.frames)
+                del movie
+                raw = (path, t)
+            launches_11 = phase_cold(tmp, raw, cached)
+            log(f"  launches of phase 11 (the cold calls and their read-back): {launches_11}")
+            for name in ("movie_stats", "block_reconstruct", "jacobi_eigh"):
+                check(launches_11[name] > 0, f"phase 11 never launched {name}")
+            if launches is not None:
+                launches = add_launches(launches, launches_11)
+    finally:
+        if tmp is not None:
+            shutil.rmtree(tmp, ignore_errors=True)
 
     if phases != set(ALL_PHASES):
         log(f"partial run (phases {sorted(phases)}): no result line")

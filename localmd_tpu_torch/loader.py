@@ -55,7 +55,14 @@ from localmd_tpu_torch.parallel.multihost import (
     replicate_frame_sharded,
     world_and_rank,
 )
-from localmd_tpu_torch.utils import display, is_device_oom, make_generator, transient_budget_bytes
+from localmd_tpu_torch.utils import (
+    device_free_bytes,
+    display,
+    get_logger,
+    is_device_oom,
+    make_generator,
+    transient_budget_bytes,
+)
 
 MIN_NOISE_FRAMES = 256   # reference min_allowed_frames
 STATS_CHUNK_FRAMES = 1024
@@ -401,6 +408,7 @@ class PMDLoader:
         precomputed: Optional[dict] = None,
         cache_movie="auto",
         mesh=None,
+        stats_started_hook=None,
     ):
         if welch_compat not in ("scipy", "reference"):
             raise ValueError(
@@ -436,6 +444,14 @@ class PMDLoader:
         # prefetch workers add to these
         self.transfers = {"pinned_copies": 0, "pinned_bytes": 0}
         self._transfers_lock = threading.Lock()
+        # fired once, as hook(loader, cache_target_frames), when the
+        # statistics pass has planned and allocated the movie cache and
+        # before it reads its first chunk (loader.py:491-494), so a caller can
+        # overlap work with the read; the JAX pipeline starts its stage warms
+        # there, the port's passes none. What the hook raises is kept in
+        # ``stats_hook_error`` and the pass goes on.
+        self._stats_started_hook = stats_started_hook
+        self.stats_hook_error: Optional[BaseException] = None
         # threads, not processes: num_workers maps onto the prefetch depth
         # and the native reader's thread count (loader.py:478-487)
         self.num_workers = int(num_workers) if num_workers else 0
@@ -596,16 +612,22 @@ class PMDLoader:
     def _plan_cache_frames(self) -> int:
         """How many leading frames to keep on the device during the stats
         pass (loader.py:535-583): ``CACHE_FRACTION`` of the free device
-        memory, in whole stats chunks; on the CPU (no memory query) all of
-        them with ``cache_movie=True``, none otherwise."""
+        memory (``utils.device_free_bytes``: the caching allocator's
+        reserved but unallocated blocks count as free, as JAX counts
+        ``bytes_limit - bytes_in_use``), at the bytes a frame takes in the
+        cache, in whole stats chunks; on the CPU (no memory query) all of
+        them with ``cache_movie=True``, none otherwise. The cache holds the
+        stream dtype: the source's own dtype where K1 and K2 read it
+        (uint16, float32, and so a TIFF read as float32 from uint16),
+        float32 otherwise, where JAX keeps the native dtype."""
         if self._device_resident or not self._cache_policy:
             return 0
         t_total = self.shape[0]
-        if self.device.type != "cuda":
+        free = device_free_bytes(self.device)
+        if free is None:
             return t_total if self._cache_policy is True else 0
-        free, _ = torch.cuda.mem_get_info(self.device)
         per_frame = self.n_pixels * torch.empty(0, dtype=self.stream_dtype).element_size()
-        n = min(t_total, int(free * CACHE_FRACTION) // per_frame)
+        n = min(t_total, max(0, int(free * CACHE_FRACTION)) // per_frame)
         if n < t_total:
             n = (n // self.frame_constant) * self.frame_constant
         # not worth the bookkeeping below a couple of stats chunks
@@ -703,6 +725,13 @@ class PMDLoader:
             self._cache = torch.empty((cache_target, d1, d2), dtype=self.stream_dtype,
                                       device=self.device)
         self._cache_building = cache_target > 0
+        hook, self._stats_started_hook = self._stats_started_hook, None  # once: an OOM retry reruns this
+        if hook is not None:
+            try:
+                hook(self, cache_target)
+            except Exception as e:  # noqa: BLE001 - the hook computes nothing the pass needs
+                get_logger().debug("stats_started_hook failed: %r", e)
+                self.stats_hook_error = e
         pos = 0
         # Unmerged ranges: a tail shorter than MIN_NOISE_FRAMES adds to the
         # mean only, as the reference stats loop does.

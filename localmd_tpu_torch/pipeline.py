@@ -270,7 +270,11 @@ def localmd_decomposition(
     ``profile_dir`` runs the call under ``torch.profiler`` and writes a
     Chrome trace there. ``aot_warm`` is accepted and changes nothing: the
     port has no ahead-of-time warm-up, and the JAX package's results are
-    the same either way (pipeline.py:203-207).
+    the same either way (pipeline.py:203-207). Eager torch compiles
+    nothing, and warming the stages' kernels on threads during the
+    statistics pass made every cold call slower on an H100 (a kernel's
+    first launch loads its module, which the CUDA driver serializes across
+    threads; PERF.md, PR 9), so none runs.
 
     The result carries ``pipeline_timings`` (seconds per stage, each stage
     fenced with ``torch.cuda.synchronize`` on the card),
@@ -278,7 +282,9 @@ def localmd_decomposition(
     the kept count is ``rank``), ``pipeline_windows`` (init windows and,
     per block batch, the windows run before the early stop) and
     ``pipeline_cache`` (cached frames, total frames, and the loader's
-    pinned host->device copies and bytes).
+    pinned host->device copies and bytes), and the JAX package's
+    ``pipeline_aot`` and ``pipeline_warm`` as it reports them with its
+    warms off (pipeline.py:1404-1415).
     """
     dev = config.resolve_device(device)
     precision = config.torch_matmul_precision(matmul_precision)
@@ -713,4 +719,7 @@ def _decompose(
         "total_frames": int(t_total),
         **load_obj.transfers,
     }
+    out.pipeline_aot = {"enabled": False, "used": False}
+    out.pipeline_warm = {"completed": [], "errors": {}}
+    out._stage_warmer = None
     return out

@@ -21,7 +21,10 @@ def device_free_bytes(device, pending_bytes: int = 0):
     if dev.type != "cuda":
         return None
     free, _ = torch.cuda.mem_get_info(dev)
-    cached = torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
+    # one query of the allocator: memory_reserved and memory_allocated each
+    # flatten every statistic into a Python dict (1-2 ms a call on an H100)
+    stats = torch.cuda.memory_stats_as_nested_dict(dev)
+    cached = stats["reserved_bytes"]["all"]["current"] - stats["allocated_bytes"]["all"]["current"]
     return int(free + cached - pending_bytes)
 
 

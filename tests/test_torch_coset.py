@@ -519,8 +519,9 @@ def test_block_batch_budget_matches_jax(free, reserved, allocated, per_block, n_
                                         monkeypatch):
     total = 80 << 30
     monkeypatch.setattr(torch.cuda, "mem_get_info", lambda dev=None: (free, total))
-    monkeypatch.setattr(torch.cuda, "memory_reserved", lambda dev=None: reserved)
-    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda dev=None: allocated)
+    monkeypatch.setattr(torch.cuda, "memory_stats_as_nested_dict", lambda dev=None: {
+        "reserved_bytes": {"all": {"current": reserved}},
+        "allocated_bytes": {"all": {"current": allocated}}})
     cuda = torch.device("cuda", 0)
     # the allocator's cached, unallocated bytes count as free
     assert tdev.device_free_bytes(cuda) == free + reserved - allocated

@@ -250,6 +250,11 @@ def rank_main(rank: int, world: int, port: int, out_prefix: str) -> None:
                                     windows=pmd.pipeline_windows)
 
     port_pipeline.threshold_heuristic = lambda *a, **k: PIPE_CASES["one_window"]["thresholds"]
+    if world == 1:
+        # aot_warm with a mesh: accepted, and nothing is warmed
+        pmd = port_pipeline.localmd_decomposition(movie, (16, 16), mesh=mesh, device="cpu",
+                                                  aot_warm=True, **PIPE)
+        meta["aot"] = dict(warm=pmd.pipeline_warm, aot=pmd.pipeline_aot)
     with sketch_override(_sketch):
         vol = volumetric_decomposition(volumetric_planes(), (10, 10), mesh=mesh, device="cpu",
                                        **VOLUMETRIC)
@@ -515,6 +520,14 @@ def test_partitions_match_jax(t, chunk, hosts):
         assert all(frames[i][1] == frames[i + 1][0] for i in range(len(frames) - 1))
     with pytest.raises(ValueError):
         tl.partition_ranges_for_host([(0, 10)], hosts, hosts)
+
+
+def test_stage_warms_on_a_one_rank_mesh(runs):
+    """``aot_warm=True`` with a mesh reports what the JAX package reports
+    with its warms off: the port runs no stage warm."""
+    meta = _rank0(runs, 1)[0][1]["aot"]
+    assert meta["warm"] == {"completed": [], "errors": {}}
+    assert meta["aot"] == {"enabled": False, "used": False}
 
 
 @pytest.mark.parametrize("world", WORLDS)

@@ -374,3 +374,87 @@ def test_non_oom_error_propagates(monkeypatch):
     with pytest.raises(ValueError, match="not an OOM"):
         pl.localmd_decomposition(movie, cache_movie=True, **KW)
     assert not released
+
+
+# -- the movie-cache plan ---------------------------------------------------------
+
+
+class _Source:
+    """What the two loaders' cache plans read of a dataset."""
+
+    def __init__(self, t, dtype, raw_dtype=None):
+        self.shape = (t, 512, 512)
+        self.dtype = np.dtype(dtype)
+        if raw_dtype is not None:
+            self.raw_dtype = np.dtype(raw_dtype)
+
+
+class _FakeDevice:
+    """What the JAX loader's cache plan reads of a device."""
+
+    def __init__(self, limit, in_use):
+        self.stats = {"bytes_limit": limit, "bytes_in_use": in_use}
+
+    def memory_stats(self):
+        return self.stats
+
+
+@pytest.mark.parametrize("free,reserved,allocated", [
+    (70 << 30, 0, 0), (30 << 30, 40 << 30, 0), (30 << 30, 40 << 30, 16 << 30), (1 << 30, 0, 0),
+    (0, 3 << 30, 1 << 30), (5 << 30, 2 << 30, 2 << 30)])
+@pytest.mark.parametrize("t", [1000, 2124, 30000, 120000])
+@pytest.mark.parametrize("dtype,raw_dtype", [
+    ("uint16", None), ("float32", None),
+    ("float32", "uint16"),      # a TIFF of uint16 read as float32: cached as uint16
+    ("int16", None)])           # K1 reads no int16: the port caches float32
+@pytest.mark.parametrize("policy", ["auto", True])
+def test_cache_plan_matches_jax(free, reserved, allocated, t, dtype, raw_dtype, policy,
+                                monkeypatch):
+    """The movie-cache plan counts the caching allocator's reserved but
+    unallocated bytes as free, as JAX's ``bytes_limit - bytes_in_use``
+    (loader.py:535-583): a warm call in one process, whose free memory is
+    what the cold call's cache left cached, plans the cold call's cache.
+    Against JAX's plan on a device reporting the same free bytes, for the
+    bytes a frame takes in the port's cache (the stream dtype)."""
+    from localmd_tpu import loader as jl
+
+    total = 80 << 30
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda dev=None: (free, total))
+    monkeypatch.setattr(torch.cuda, "memory_stats_as_nested_dict", lambda dev=None: {
+        "reserved_bytes": {"all": {"current": reserved}},
+        "allocated_bytes": {"all": {"current": allocated}}})
+    ours = PMDLoader.__new__(PMDLoader)
+    ours.dataset, ours.device, ours._cache_policy = _Source(t, dtype, raw_dtype), torch.device("cuda", 0), policy
+    ours.shape, ours.frame_constant = ours.dataset.shape, port_loader.STATS_CHUNK_FRAMES
+    ours.stream_dtype = ours._stream_dtype()
+    cached = np.dtype(str(ours.stream_dtype).removeprefix("torch."))
+    assert cached == (np.float32 if dtype == "int16" else np.dtype(raw_dtype or dtype))
+    ref = jl.PMDLoader.__new__(jl.PMDLoader)
+    ref.dataset, ref.shape, ref._cache_policy = _Source(t, cached), (t, 512, 512), policy
+    ref._cache_fraction, ref._cache_reserve_bytes = 0.5, int(7.5e9)
+    ref.frame_constant = jl.STATS_CHUNK_FRAMES
+    ref._device = _FakeDevice(total, total - (free + reserved - allocated))
+    assert ours._plan_cache_frames() == ref._plan_cache_frames()
+    if dtype == "int16":   # JAX's own int16 plan, at the native 2 bytes a pixel
+        ref.dataset = _Source(t, "int16")
+        assert ref._plan_cache_frames() >= ours._plan_cache_frames()
+
+
+def test_cache_plan_reads_cached_blocks_as_free(monkeypatch):
+    """The fault the plan had: 40 GiB the caching allocator holds unallocated
+    (a cold call's cache, freed) were counted as taken, and a warm call
+    cached about half as many frames of a 1024^2 x 30000 uint16 movie."""
+    total = 80 << 30
+    plans = []
+    for free, reserved in ((70 << 30, 0), (30 << 30, 40 << 30)):
+        monkeypatch.setattr(torch.cuda, "mem_get_info", lambda dev=None, f=free: (f, total))
+        monkeypatch.setattr(torch.cuda, "memory_stats_as_nested_dict", lambda dev=None, r=reserved: {
+            "reserved_bytes": {"all": {"current": r}}, "allocated_bytes": {"all": {"current": 0}}})
+        loader = PMDLoader.__new__(PMDLoader)
+        loader.dataset, loader.device, loader._cache_policy = (
+            _Source(30000, "uint16"), torch.device("cuda", 0), "auto")
+        loader.dataset.shape = (30000, 1024, 1024)
+        loader.shape, loader.frame_constant = loader.dataset.shape, port_loader.STATS_CHUNK_FRAMES
+        loader.stream_dtype = torch.uint16
+        plans.append(loader._plan_cache_frames())
+    assert plans[0] == plans[1] == 17408

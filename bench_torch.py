@@ -6,9 +6,10 @@ for the 1024² cell; the JAX package's voltage workload,
 scripts/bench_workloads.py:34-42, for the multi-window cell) on
 bench.make_movie's movie (bench.py:23-63), made on the card from a seeded
 ``torch.Generator``: rank-16 white factors + N(0, 1) noise, uint16 as
-clip(40 x + 1000).
+clip(40 x + 1000) (``MOVIE_RANGES`` gives the other dtypes').
 
-    python3 bench_torch.py [--cell 512_f32|1024_u16|voltage_f32|northstar_u16|all] [--runs 10]
+    python3 bench_torch.py [--cell 512_f32|1024_u16|voltage_f32|northstar_u16|northstar_i16|all]
+                           [--runs 10]
                            [--profile] [--small-eigh k4|cusolver] [--routes auto|off|both]
                            [--profile-cold]
 
@@ -47,7 +48,11 @@ cached frames, the GB copied host->device (the loader's pinned copies),
 the file's write rate, and the disk-read and pinned host->device rates
 measured alone. With less free disk than the file and ~3 GB of outputs
 need (half the free space at most), T is cut, to no fewer than 8192
-frames.
+frames. ``northstar_i16`` is the same cell on the int16 construction
+(clip(40 x - 100): negative samples, as ScanImage data near its PMT
+offset) written as an int16 raw file, the format most two-photon data
+arrives in; each leg also reports the GB the native reader read and the
+loader's stream dtype.
 """
 
 from __future__ import annotations
@@ -96,6 +101,17 @@ NORTHSTAR_CONFIG = dict(
 )
 NORTHSTAR_MIN_FRAMES = 8192
 OUTPUT_RESERVE_BYTES = 3e9
+NORTHSTAR_CELLS = {"northstar_u16": "uint16", "northstar_i16": "int16"}
+
+# make_movie's integer constructions: dtype -> (scale, offset, lo, hi), the
+# movie clip(scale x + offset, lo, hi) truncated toward zero. The float
+# dtypes take x itself.
+MOVIE_RANGES = {
+    "uint16": (40.0, 1000.0, 0, 65535),        # bench.make_movie's own
+    "int16": (40.0, -100.0, -32768, 32767),   # negative samples occur
+    "uint8": (8.0, 128.0, 0, 255),
+    "int8": (8.0, 0.0, -128, 127),
+}
 
 
 def northstar_frames(directory: str, t: int = NORTHSTAR_SHAPE[0]):
@@ -116,15 +132,15 @@ def northstar_frames(directory: str, t: int = NORTHSTAR_SHAPE[0]):
                  f"free in {directory}, half of it holds the file plus ~3 GB of outputs")
 
 
-def write_movie_file(path: str, t: int, seed: int = 0, piece: int = 2048):
-    """bench.make_movie's uint16 construction at 512 x 512 x ``t``, made on
-    the card in ``piece``-frame pieces from a seeded torch.Generator and
+def write_movie_file(path: str, t: int, seed: int = 0, piece: int = 2048, dtype="uint16"):
+    """bench.make_movie's ``dtype`` construction at 512 x 512 x ``t``, made
+    on the card in ``piece``-frame pieces from a seeded torch.Generator and
     written to ``path``. Returns (the movie on the card, seconds of the
     write including the copies off the card)."""
     import torch
 
     _, d1, d2 = NORTHSTAR_SHAPE
-    movie, _ = make_movie("uint16", d1, d2, t, seed=seed, piece=piece)
+    movie, _ = make_movie(dtype, d1, d2, t, seed=seed, piece=piece)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with open(path, "wb") as fh:
@@ -133,7 +149,7 @@ def write_movie_file(path: str, t: int, seed: int = 0, piece: int = 2048):
     return movie, time.perf_counter() - t0
 
 
-def stream_legs(path: str, t: int, frames: int = 2048) -> dict:
+def stream_legs(path: str, t: int, frames: int = 2048, dtype="uint16") -> dict:
     """The two legs of streaming measured alone (bench_northstar.py:48-80):
     reading ``frames`` frames from the file into a pinned buffer through the
     loader's reader (4 threads; the page cache included, as the pipeline's
@@ -143,10 +159,10 @@ def stream_legs(path: str, t: int, frames: int = 2048) -> dict:
     from localmd_tpu_torch.dataset import RawBinaryArray
 
     _, d1, d2 = NORTHSTAR_SHAPE
-    src = RawBinaryArray(path, (t, d1, d2), "uint16")
+    src = RawBinaryArray(path, (t, d1, d2), dtype)
     src.set_io_threads(4)
     n = min(frames, t)
-    host = torch.empty((n, d1, d2), dtype=torch.uint16, pin_memory=True)
+    host = torch.empty((n, d1, d2), dtype=getattr(torch, dtype), pin_memory=True)
     t0 = time.perf_counter()
     src.read_into(slice(t - n, t), host.numpy())
     disk_s = time.perf_counter() - t0
@@ -158,38 +174,63 @@ def stream_legs(path: str, t: int, frames: int = 2048) -> dict:
         dev.copy_(host, non_blocking=True)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    nbytes = host.numel() * 2
+    nbytes = host.numel() * host.element_size()
     return dict(disk_read_GBps=nbytes / disk_s / 1e9,
                 pinned_h2d_GBps=nbytes / float(np.median(times[1:])) / 1e9)
 
 
-def bench_northstar(runs: int, with_profile: bool, card: str) -> dict:
-    """The north-star cell: from a raw file, cache "auto" and False."""
+NATIVE_READS = {"calls": 0, "bytes": 0}
+
+
+def count_native_reads() -> None:
+    """Count the native reader's scatter reads (calls, bytes) in
+    ``NATIVE_READS``: a dataset reads through it only where the host buffer
+    has the file's dtype (``dataset._MemmapFrames.read_into``)."""
+    from localmd_tpu_torch.io.native import FastReader
+
+    if getattr(FastReader.read_scatter, "counted", False):
+        return
+    read = FastReader.read_scatter
+
+    def counted(self, offsets, sizes, out):
+        NATIVE_READS["calls"] += 1
+        NATIVE_READS["bytes"] += int(sum(sizes))
+        return read(self, offsets, sizes, out)
+
+    counted.counted = True
+    FastReader.read_scatter = counted
+
+
+def bench_northstar(runs: int, with_profile: bool, card: str, cell: str = "northstar_u16") -> dict:
+    """A north-star cell: from a raw file, cache "auto" and False."""
     import torch
 
     from localmd_tpu_torch.dataset import RawBinaryArray
     from localmd_tpu_torch.ops import kernels
 
+    dtype = NORTHSTAR_CELLS[cell]
+    count_native_reads()
     tmp = tempfile.mkdtemp(prefix="northstar_")
     try:
         t, cut = northstar_frames(tmp)
         if cut:
             print(cut, flush=True)
         _, d1, d2 = NORTHSTAR_SHAPE
-        path = os.path.join(tmp, "movie.u16.raw")
-        movie, write_s = write_movie_file(path, t)
+        path = os.path.join(tmp, f"movie.{dtype}.raw")
+        movie, write_s = write_movie_file(path, t, dtype=dtype)
         del movie
         torch.cuda.empty_cache()
-        nbytes = t * d1 * d2 * 2
-        out = dict(cell="northstar_u16", shape=[t, d1, d2], dtype="uint16", card=card,
+        nbytes = t * d1 * d2 * np.dtype(dtype).itemsize
+        out = dict(cell=cell, shape=[t, d1, d2], dtype=dtype, card=card,
                    settings=NORTHSTAR_CONFIG, file_GB=nbytes / 1e9, write_GBps=nbytes / write_s / 1e9,
-                   legs=stream_legs(path, t))
+                   legs=stream_legs(path, t, dtype=dtype))
         for cache in ("auto", False):
-            dataset = RawBinaryArray(path, (t, d1, d2), "uint16")
+            dataset = RawBinaryArray(path, (t, d1, d2), dtype)
             settings = dict(NORTHSTAR_CONFIG, cache_movie=cache)
             _, cold, _ = timed_run(dataset, blocks=NORTHSTAR_BLOCKS, **settings)
             walls, stages, peak = [], {}, 0.0
             kernels.reset_launch_counts()
+            NATIVE_READS.update(calls=0, bytes=0)
             for _ in range(runs):
                 pmd, secs, peak_i = timed_run(dataset, blocks=NORTHSTAR_BLOCKS, **settings)
                 walls.append(secs)
@@ -207,6 +248,8 @@ def bench_northstar(runs: int, with_profile: bool, card: str) -> dict:
                 achieved_GBps=streamed / med, peak_gib=peak, ranks=pmd.pipeline_ranks,
                 kept_rank=pmd.rank,
                 launches_per_call={k: n / runs for k, n in kernels.launch_counts().items()},
+                native_read_GB_per_call=NATIVE_READS["bytes"] / runs / 1e9,
+                stream_dtype=pmd.pipeline_cache.get("stream_dtype"),
             )
             del pmd
             if with_profile:
@@ -247,8 +290,11 @@ def make_movie(dtype: str, d1=512, d2=512, t=2048, rank=16, seed=0, smooth=False
                device="cuda", piece=512):
     """bench.make_movie's construction made on ``device``: spatial
     (d1*d2, rank) and temporal (rank, t) factors of unit-variance normals,
-    movie = (spatial @ temporal).T + N(0, 1), uint16 as clip(40 x + 1000)
-    truncated. Filled ``piece`` frames at a time.
+    x = (spatial @ temporal).T + N(0, 1); the movie is x in a float dtype
+    and clip(scale x + offset) truncated in an integer one
+    (``MOVIE_RANGES``: uint16 as bench.make_movie's clip(40 x + 1000),
+    int16 as clip(40 x - 100), uint8 as clip(8 x + 128), int8 as
+    clip(8 x)). Filled ``piece`` frames at a time.
 
     ``smooth=True`` box-filters the factors (9 pixels, 9 frames, three
     passes) so they are smoother than the noise, like footprints and
@@ -264,13 +310,13 @@ def make_movie(dtype: str, d1=512, d2=512, t=2048, rank=16, seed=0, smooth=False
     if smooth:
         spatial = _smooth_unit(spatial.T.reshape(rank, d1, d2), 2, 9).T
         temporal = _smooth_unit(temporal, 1, 9)
-    scale, offset = (1.0, 0.0) if dtype == "float32" else (40.0, 1000.0)
+    scale, offset, lo, hi = MOVIE_RANGES.get(dtype, (1.0, 0.0, None, None))
     movie = torch.empty((t, d1, d2), dtype=getattr(torch, dtype), device=dev)
     for s in range(0, t, piece):
         chunk = (spatial @ temporal[:, s : s + piece]).T.reshape(-1, d1, d2)
         chunk += torch.randn(chunk.shape, generator=g, device=dev)
-        if dtype == "uint16":
-            chunk = (chunk * scale + offset).clamp(0, 65535)
+        if dtype in MOVIE_RANGES:
+            chunk = (chunk * scale + offset).clamp(lo, hi)
         movie[s : s + piece] = chunk.to(movie.dtype)
 
     def clean(frames):
@@ -411,9 +457,9 @@ def bench_cell(name: str, runs: int, with_profile: bool, card: str,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--cell", default="all", choices=["all", *CELLS, "northstar_u16"])
+    ap.add_argument("--cell", default="all", choices=["all", *CELLS, *NORTHSTAR_CELLS])
     ap.add_argument("--runs", type=int, default=None,
-                    help="warm calls per cell (default 10; 3 for northstar_u16)")
+                    help="warm calls per cell (default 10; 3 for the north-star cells)")
     ap.add_argument("--profile", action="store_true",
                     help="add one warm call under torch.profiler")
     ap.add_argument("--small-eigh", default="k4", choices=["k4", "cusolver"],
@@ -447,11 +493,11 @@ def main(argv=None) -> int:
         linalg.uses_jacobi = lambda device, k: False
     card = card_line()
     profile_cold = args.profile_cold     # the process's first cold call only
-    for name in [*CELLS, "northstar_u16"] if args.cell == "all" else [args.cell]:
+    for name in [*CELLS, *NORTHSTAR_CELLS] if args.cell == "all" else [args.cell]:
         for routes in (("auto", "off") if args.routes == "both" else (args.routes,)):
             set_routes("auto" if routes == "auto" else False)
-            if name == "northstar_u16":
-                out = bench_northstar(args.runs or 3, args.profile, card)
+            if name in NORTHSTAR_CELLS:
+                out = bench_northstar(args.runs or 3, args.profile, card, name)
             else:
                 out = bench_cell(name, args.runs or 10, args.profile, card, profile_cold)
             profile_cold = False

@@ -8,7 +8,11 @@ Phases (each prints one progress line; any failure raises, exit code != 0):
    (one nvcc per source, all at once).
 2. kernel vs plain: each kernel against its plain PyTorch version on the
    card, at the paths' shapes plus edge cases (offset uint16 inputs for the
-   3xTF32 kernels K1 and K2), with CUDA-event times, each beside its bound
+   3xTF32 kernels K1 and K2; K1 and K2 also on int16, uint8, int8, float16
+   and bfloat16 chunks at the paths' shapes, with each type's extremes, an
+   offset baseline, P and d off the 16-byte chunk and a base off 16-byte
+   alignment, and each dtype's time and bytes read beside float32's and
+   uint16's), with CUDA-event times, each beside its bound
    on this card and, where one PyTorch call computes the same function,
    that call's time (K2: ``torch.matmul``; K4: cuSOLVER's
    ``torch.linalg.eigh``, timed in alternation with K4 at every shape of
@@ -99,6 +103,18 @@ Phases (each prints one progress line; any failure raises, exit code != 0):
    phase 8's in every call. Prints each process's seconds from its start
    to the call, both walls and the stages, and the medians with each
    stage's cold-minus-warm time.
+12. dtypes: (a) phase 8's raw file read as int16 (its values all fit),
+   cache "auto", cold and warm, against phase 8's uint16 runs: equal
+   statistics and ``pipeline_ranks``, 512 sampled frames within 1e-5 (and
+   whether bit-equal), 2 bytes a pixel copied to the card, as many frames
+   cached, the native reader, K1 launched on int16 chunks (the dtype each
+   K1/K2 launch passes to its CUDA entry point is recorded); (c) the CLI's
+   ``compress --raw-dtype int16`` on that file in a subprocess against
+   (a)'s warm run; (b) card-resident bench_torch.make_movie movies at
+   512 x 512 x 2048 in int16, uint8, int8, float16, bfloat16 and float64,
+   each against the float32 movie of the same values (equal ranks, 512
+   sampled frames within 1e-5, K1 on the native dtype, float32 for
+   float64), and the golden movie in each dtype, where K2 runs, likewise.
 
 Wherever a path runs, the kernels and routes it launched are checked
 against the route it should take (``expected_routes``): K2 where the cell
@@ -106,14 +122,15 @@ V projection does not run, the route's own calls where it does.
 
 The last two lines are a JSON object with one entry per kernel (its
 launches summed over the runs of phases 3, 4 (the "auto" side), 5, 7 (the
-"auto" side), 8, 9, 10 and 11, each counted from 0) and the result line
+"auto" side), 8, 9, 10, 11 and 12, each counted from 0) and the result line
 ``{"ok": true, "device": {...}}``.
 
 Run from the repository root: ``python3 chip_smoke.py`` (one card; phase 8
 needs ~19 GB of free temporary disk, or prints its cut). ``--phases 0,1,2``
 runs a subset (the result line needs all of them), ``--phases 0,1,10`` the
 mesh path alone, ``--phases 0,1,11`` the cold calls alone (writing the
-north star's raw file itself); ``--frames T`` sets the raw file's T.
+north star's raw file itself), ``--phases 0,1,2,8,12`` the kernels and
+the dtypes; ``--frames T`` sets the raw file's T.
 ``--mesh-rank`` and ``--cold-call`` are the entry points of phase 10's rank
 processes and phase 11's cold-call processes.
 Repeated warm timings and a profile: ``bench_torch.py``.
@@ -147,7 +164,7 @@ KERNELS = {
     "jacobi_eigh": ("localmd_tpu_torch/csrc/jacobi_eigh.cu",
                     "scripts/ablate_jacobi_kernel.py:103"),
 }
-ALL_PHASES = (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11)
+ALL_PHASES = (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12)
 # K4's cases: the shapes the paths give it -- the rSVD Gram (256 and 225
 # blocks, k = 30), svd_gram_left (k = 20), the threshold Monte-Carlo (131
 # simulations, k = 11, odd), the background rSVD (k = 25) -- and k = 64
@@ -320,18 +337,8 @@ def phase_kernels(results: dict) -> None:
         ("f32 P=262107 (ragged tile)", chunk_f32[:, : p - 37].contiguous(), True, 256),
         ("f32 T=300 reference nperseg=300", chunk_f32[:300].contiguous(), True, 300),
     ]
-    first_err = None
-    for name, x, noise, nper in cases:
-        m_k, s_k = kernels.movie_stats(x, 2048, compute_noise=noise, nperseg=nper)
-        m_p, s_p = kernels.movie_stats_plain(x, 2048, compute_noise=noise, nperseg=nper)
-        torch.cuda.synchronize()
-        mean_err = max_abs(m_k, m_p) / float(m_p.abs().max())
-        sig_err = float(((s_k - s_p).abs() / s_p.abs().clamp_min(1e-30)).max()) if noise else max_abs(s_k, s_p)
-        log(f"  K1 movie_stats {name}: mean err {mean_err:.3e}, sigma err {sig_err:.3e}")
-        check(mean_err <= 1e-5, f"K1 {name}: mean error {mean_err}")
-        check(sig_err <= 1e-4 if noise else sig_err == 0.0, f"K1 {name}: sigma error {sig_err}")
-        if first_err is None:
-            first_err = max(max_abs(m_k, m_p), max_abs(s_k, s_p))
+    errs = [check_k1(name, x, nper, noise) for name, x, noise, nper in cases]
+    first_err = errs[0]
     del chunk_u16, chunk_u16_3
     ms = cuda_ms(lambda: kernels.movie_stats(chunk_f32, 2048), reps=10)
     plain_ms = cuda_ms(lambda: kernels.movie_stats_plain(chunk_f32, 2048), reps=10)
@@ -362,20 +369,13 @@ def phase_kernels(results: dict) -> None:
                   chunk_f32.reshape(-1)[1 : 1 + 300 * 4096].view(300, 4096),
                   a[:4096, :64].contiguous(), c[:64].contiguous()))
     for name, x, aa, cc in cases:
-        out_k = kernels.v_projection(x, aa, cc)
-        out_p = kernels.v_projection_plain(x, aa, cc)
-        torch.cuda.synchronize()
-        err = rel_fro(out_k, out_p)
-        log(f"  K2 v_projection {name}: rel Frobenius err {err:.3e}")
-        check(err <= 1e-5, f"K2 {name}: error {err}")
+        check_k2(name, x, aa, cc)
     del raw_u16, chunk_f32, a, a_big, a465
     # the 1024^2 uint16 cell's call: 256-frame chunks of 1048576 pixels, r' = 168
     raw = (torch.randn(256, 1 << 20, generator=g, device=dev) * 40 + 1000).clamp(0, 65535).to(torch.uint16)
     a = torch.randn(1 << 20, 168, generator=g, device=dev) * 0.01
     c = torch.randn(168, generator=g, device=dev)
-    err = rel_fro(kernels.v_projection(raw, a, c), kernels.v_projection_plain(raw, a, c))
-    log(f"  K2 v_projection uint16 (256, 1048576) r'=168 (1024^2 uint16 call): rel Frobenius err {err:.3e}")
-    check(err <= 1e-5, f"K2 (256, 1048576): error {err}")
+    check_k2("uint16 (256, 1048576) r'=168 (1024^2 uint16 call)", raw, a, c)
     prepared = kernels.prepare_projector(a)
     ms = cuda_ms(lambda: kernels.v_projection(raw, a, c, prepared), reps=10)
     lib_ms = cuda_ms(lambda: torch.matmul(raw.float(), a), reps=10)
@@ -501,6 +501,163 @@ def phase_kernels(results: dict) -> None:
     log_bound("K4 (256, 30, 30)", ms, b)
     results["jacobi_eigh"] = dict(max_abs_err=err0, ms=ms, plain_ms=plain_ms,
                                   bound_ms=b["bound_ms"], bound_by=b["bound_by"], library_ms=cusolver_ms)
+
+
+# the movie dtypes K1 and K2 read beside float32 and uint16, with the
+# extremes of each (bfloat16: +-65280, float16's range in bfloat16's bits)
+NEW_DTYPES = ("int16", "uint8", "int8", "float16", "bfloat16")
+DTYPE_EXTREMES = {"int16": (-32768.0, 32767.0, 0.0), "uint8": (0.0, 255.0, 128.0),
+                  "int8": (-128.0, 127.0, 0.0), "float16": (-65504.0, 65504.0, 0.0),
+                  "bfloat16": (-65280.0, 65280.0, 0.0)}
+
+
+def dtype_values(name: str, shape, g, kind: str = "movie"):
+    """A (t, p) tensor of ``name`` on the card: "movie" is bench_torch's
+    construction of that dtype on N(0, 1) (int16 clip(40 x - 100), uint8
+    clip(8 x + 128), int8 clip(8 x); float16 and bfloat16 2.3 x + 1, as
+    phase 2's float32 chunk); "baseline" small noise on an offset, the
+    input a careless tf32 split fails on (integers clip(3 x + b) with b
+    1000 for int16, -1000 for "baseline-", 100 for uint8, 60 for int8;
+    floats 3 x + 1000); "extremes" the type's two ends and a middle value,
+    drawn at random."""
+    import torch
+
+    from bench_torch import MOVIE_RANGES
+
+    dev = torch.device("cuda")
+    dt = getattr(torch, name)
+    if kind == "extremes":
+        vals = torch.tensor(DTYPE_EXTREMES[name], device=dev)
+        return vals[torch.randint(0, 3, shape, generator=g, device=dev)].to(dt)
+    x = torch.randn(shape, generator=g, device=dev)
+    lo, hi = MOVIE_RANGES[name][2:] if name in MOVIE_RANGES else (-1e30, 1e30)
+    if kind == "movie":
+        if name in MOVIE_RANGES:
+            scale, offset, _, _ = MOVIE_RANGES[name]
+            return (x * scale + offset).clamp(lo, hi).to(dt)
+        return (x * 2.3 + 1.0).to(dt)
+    base = {"int16": 1000.0, "uint8": 100.0, "int8": 60.0}.get(name, 1000.0)
+    if kind == "baseline-":
+        base = -base
+    return (x * 3 + base).clamp(lo, hi).to(dt)
+
+
+def check_k1(label: str, x, nper: int = 256, noise: bool = True, divisor: int = 2048) -> float:
+    """K1 against its plain version on ``x``: mean max|d| / max|ref| <= 1e-5,
+    sigma max relative error <= 1e-4 (== 0 without noise). Returns the
+    max abs error."""
+    import torch
+
+    from localmd_tpu_torch.ops import kernels
+
+    m_k, s_k = kernels.movie_stats(x, divisor, compute_noise=noise, nperseg=nper)
+    m_p, s_p = kernels.movie_stats_plain(x, divisor, compute_noise=noise, nperseg=nper)
+    torch.cuda.synchronize()
+    mean_err = max_abs(m_k, m_p) / max(float(m_p.abs().max()), 1e-30)
+    sig_err = (float(((s_k - s_p).abs() / s_p.abs().clamp_min(1e-30)).max()) if noise
+               else max_abs(s_k, s_p))
+    log(f"  K1 movie_stats {label}: mean err {mean_err:.3e}, sigma err {sig_err:.3e}")
+    check(mean_err <= 1e-5, f"K1 {label}: mean error {mean_err}")
+    check(sig_err <= 1e-4 if noise else sig_err == 0.0, f"K1 {label}: sigma error {sig_err}")
+    return max(max_abs(m_k, m_p), max_abs(s_k, s_p))
+
+
+def check_k2(label: str, x, a, c) -> float:
+    """K2 against its plain version: relative Frobenius error <= 1e-5."""
+    import torch
+
+    from localmd_tpu_torch.ops import kernels
+
+    out_k = kernels.v_projection(x, a, c)
+    out_p = kernels.v_projection_plain(x, a, c)
+    torch.cuda.synchronize()
+    err = rel_fro(out_k, out_p)
+    log(f"  K2 v_projection {label}: rel Frobenius err {err:.3e}")
+    check(err <= 1e-5, f"K2 {label}: error {err}")
+    return err
+
+
+def phase_kernel_dtypes(results: dict) -> None:
+    """Phase 2, the new dtypes: K1 and K2 against their plain versions on
+    int16, uint8, int8, float16 and bfloat16 chunks at the paths' shapes
+    (K1 (1024, 262144); K2 (2048, 262144) x 336 and (256, 1048576) x 168)
+    and the edge cases (each type's extremes, an offset baseline, P and d
+    off the 16-byte chunk, a base off 16-byte alignment), then each one's
+    time beside the float32 and uint16 kernels' at the same shape, its
+    bytes read and its bound. ``results["dtypes"]`` keeps the times."""
+    import torch
+
+    from localmd_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(12)
+    t, p = 1024, 262144
+    times = {}
+    n_segs = (t - 256) // 128 + 1
+    for name in ("float32", "uint16") + NEW_DTYPES:
+        label = f"{name} (1024, 262144)"
+        x = (dtype_values(name, (t, p), g) if name in NEW_DTYPES else
+             (torch.randn(t, p, generator=g, device=dev) * 40 + 1000).clamp(0, 65535)
+             .to(getattr(torch, name)))
+        if name in NEW_DTYPES:
+            check_k1(f"{label} nperseg=256", x)
+            check_k1(f"{label} reference nperseg=T=1024", x, nper=1024)
+            check_k1(f"{label} mean only", x, noise=False)
+            check_k1(f"{name} (1024, 262107) (P off the 16-byte chunk)",
+                     x[:, : p - 37].contiguous())
+            check_k1(f"{name} (300, 4096) base off 16-byte alignment, reference nperseg=300",
+                     x.reshape(-1)[1 : 1 + 300 * 4096].view(300, 4096), nper=300)
+            for kind in ("baseline", "baseline-", "extremes"):
+                if kind == "baseline-" and name not in ("int16", "int8", "float16", "bfloat16"):
+                    continue
+                check_k1(f"{name} (1024, 65536) {kind}", dtype_values(name, (t, 65536), g, kind))
+        ms = cuda_ms(lambda: kernels.movie_stats(x, 2048), reps=10)
+        plain_ms = cuda_ms(lambda: kernels.movie_stats_plain(x, 2048), reps=10)
+        nbytes = t * p * x.element_size() + 2 * p * 4
+        b = bound(2.0 * 128 * 256 * n_segs * p, nbytes, tensor_3xtf32=True)
+        log(f"  K1 {label} nperseg 256: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; "
+            f"reads {t * p * x.element_size() / 1e9:.3f} GB")
+        log_bound(f"K1 {label}", ms, b)
+        times[f"K1 {name}"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b["bound_ms"],
+                                   bound_by=b["bound_by"], bytes=nbytes)
+        del x
+    torch.cuda.empty_cache()
+
+    for (t, d, r) in ((2048, 262144, 336), (256, 1 << 20, 168)):
+        a = torch.randn(d, r, generator=g, device=dev) * 0.01
+        c = torch.randn(r, generator=g, device=dev)
+        prepared = kernels.prepare_projector(a)
+        for name in ("float32", "uint16") + NEW_DTYPES:
+            label = f"{name} ({t}, {d}) r'={r}"
+            x = (dtype_values(name, (t, d), g) if name in NEW_DTYPES else
+                 (torch.randn(t, d, generator=g, device=dev) * 40 + 1000).clamp(0, 65535)
+                 .to(getattr(torch, name)))
+            if name in NEW_DTYPES:
+                check_k2(label, x, a, c)
+                if t == 2048:
+                    for kind in ("baseline", "extremes"):
+                        check_k2(f"{name} (256, 262144) r'={r} {kind}",
+                                 dtype_values(name, (256, d), g, kind), a, c)
+                    check_k2(f"{name} (100, 701) r'=37 (rows off the 16-byte chunk)",
+                             x[:100, :701].contiguous(), a[:701, :37].contiguous(),
+                             c[:37].contiguous())
+                    check_k2(f"{name} (300, 4096) r'=64, base off 16-byte alignment",
+                             x.reshape(-1)[1 : 1 + 300 * 4096].view(300, 4096),
+                             a[:4096, :64].contiguous(), c[:64].contiguous())
+            ms = cuda_ms(lambda: kernels.v_projection(x, a, c, prepared), reps=10)
+            plain_ms = cuda_ms(lambda: kernels.v_projection_plain(x, a, c), reps=5)
+            nbytes = t * d * x.element_size() + d * r * 4 + r * t * 4
+            b = bound(2.0 * t * d * r, nbytes, tensor_3xtf32=True)
+            log(f"  K2 {label}, projector prepared once: kernel {ms:.3f} ms, plain "
+                f"{plain_ms:.3f} ms; reads {t * d * x.element_size() / 1e9:.3f} GB of raw")
+            log_bound(f"K2 {label}", ms, b)
+            times[f"K2 {name} ({t}, {d}) r'={r}"] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                bytes=nbytes)
+            del x
+        del a, c, prepared
+        torch.cuda.empty_cache()
+    results["dtypes"] = times
 
 
 def k4_matrices(kind: str, n: int, k: int, g):
@@ -820,6 +977,7 @@ def phase_from_disk(tmp: str, frames=None):
     # 2. the same movie resident on the card: the reference of the file runs
     pmd_res, secs, _ = timed_run(TensorMovie(movie), blocks=NORTHSTAR_BLOCKS, **settings)
     log_stream_run("card-resident", pmd_res, secs, t)
+    movie_max = u16_max(movie)
     del movie
     torch.cuda.empty_cache()
 
@@ -852,6 +1010,7 @@ def phase_from_disk(tmp: str, frames=None):
     pmd_again, secs_again, _ = timed_run(src, blocks=NORTHSTAR_BLOCKS, cache_movie="auto",
                                          **settings)
     log_stream_run("from disk, cache auto, again", pmd_again, secs_again, t)
+    u16_ref = disk_summary(pmd, secs_on, secs_again, sample, movie_max)
     cached = pmd.pipeline_cache["cached_frames"]
     check(pmd_again.pipeline_cache["cached_frames"] == cached,
           f"the second cached run held {pmd_again.pipeline_cache['cached_frames']} frames "
@@ -968,7 +1127,27 @@ def phase_from_disk(tmp: str, frames=None):
     for name in (tif_in, npz, npy):
         os.remove(name)
     torch.cuda.empty_cache()
-    return launches, (path, t, cached)
+    return launches, (path, t, cached), u16_ref
+
+
+def u16_max(movie, piece: int = 2048) -> int:
+    """The largest value of a uint16 tensor, ``piece`` frames at a time
+    (torch reduces no uint16 tensor: its bits as int16, widened)."""
+    import torch
+
+    return max(int(movie[s : s + piece].view(torch.int16).to(torch.int32).bitwise_and_(0xFFFF).max())
+               for s in range(0, movie.shape[0], piece))
+
+
+def disk_summary(pmd, secs: float, secs_again: float, sample, movie_max: int) -> dict:
+    """What phase 12 compares the int16 reading of the raw file with: a
+    cached from-disk run's statistics, ranks, 512 sampled frames (on the
+    host), stream and cache figures and walls (cold in its path, then
+    again), and the movie's max value."""
+    return dict(mean=pmd.mean_img, var=pmd.var_img, ranks=pmd.pipeline_ranks, rank=pmd.rank,
+                sample=sample, recon=pmd.reconstruct_frames(sample).cpu(),
+                cache=dict(pmd.pipeline_cache), secs=secs, secs_again=secs_again,
+                movie_max=movie_max)
 
 
 def write_northstar(tmp: str, frames=None):
@@ -1525,6 +1704,196 @@ def phase_cold(tmp: str, raw, cached_frames) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12: every movie dtype K1 and K2 read
+# ---------------------------------------------------------------------------
+
+# the dtype of each K1 / K2 launch: (kernel, dtype) -> launches, counted at
+# the CUDA entry points (the wrappers' own counts stay as they are)
+LAUNCH_DTYPES: dict = {}
+
+
+def install_dtype_spies() -> None:
+    """Record the dtype code each launch of K1 and K2 passes to its CUDA
+    entry point, in ``LAUNCH_DTYPES``."""
+    from localmd_tpu_torch.ops import _build, kernels
+
+    lib = _build.library()
+    names = {code: str(dt).removeprefix("torch.") for dt, code in kernels._DTYPE_CODES.items()}
+    for kernel, entry in (("movie_stats", "lmd_movie_stats"), ("v_projection", "lmd_v_projection")):
+        fn = getattr(lib, entry)
+        if getattr(fn, "spied", False):
+            continue
+
+        def spy(x, dtype, *rest, _fn=fn, _kernel=kernel):
+            key = (_kernel, names.get(dtype, str(dtype)))
+            LAUNCH_DTYPES[key] = LAUNCH_DTYPES.get(key, 0) + 1
+            return _fn(x, dtype, *rest)
+
+        spy.spied = True
+        setattr(lib, entry, spy)
+
+
+# (d1, d2, T) of phase 12's card-resident movies and the golden movie's
+# scale into each dtype (its values span about +-40)
+DTYPE_MOVIE = (512, 512, 2048)
+GOLDEN_INTO = {"int16": (100.0, -100.0), "uint8": (3.0, 128.0), "int8": (3.0, 0.0)}
+
+
+def phase_dtypes(raw, u16_ref: dict) -> dict:
+    """Phase 12. (a) Phase 8's raw file read as int16 (every value is below
+    32768), cache "auto", cold and warm, against phase 8's uint16 runs:
+    statistics, ranks and 512 sampled frames, 2 bytes a pixel copied, as
+    many frames cached, the native reader, K1 on int16 chunks. (b) Card-
+    resident bench_torch.make_movie movies (512 x 512 x 2048) in int16,
+    uint8, int8, float16, bfloat16 and float64, each against the float32
+    movie of the same values (ranks, 512 sampled frames <= 1e-5), K1 on the
+    native dtype (float32 for float64); the golden movie in each dtype, where
+    K2 runs (a snapped tail), likewise. (c) The CLI's ``compress --raw-dtype
+    int16`` on (a)'s file in a subprocess against (a)'s warm run. Returns
+    the launch counts of its runs, counted from 0."""
+    import torch
+
+    from bench_torch import (NATIVE_READS, NORTHSTAR_BLOCKS, NORTHSTAR_CONFIG, count_native_reads,
+                             make_movie, timed_run)
+    from localmd_tpu_torch import RawBinaryArray, load_decomposition
+    from localmd_tpu_torch.ops import kernels
+
+    path, t = raw
+    log(f"phase 12 dtypes: the north star's raw file read as int16, card-resident movies of "
+        f"{', '.join(NEW_DTYPES)} and float64, the CLI with --raw-dtype int16")
+    install_dtype_spies()
+    count_native_reads()
+    reads = NATIVE_READS
+    total = {name: 0 for name in KERNELS}
+
+    # (a) the uint16 file as int16
+    check(u16_ref["movie_max"] < 32768,
+          f"the north star's max {u16_ref['movie_max']} does not fit int16")
+    src = RawBinaryArray(path, (t, 512, 512), "int16")
+    runs = []
+    for kind in ("cold", "warm"):
+        kernels.reset_launch_counts()
+        reset_route_calls()
+        LAUNCH_DTYPES.clear()
+        reads.update(calls=0, bytes=0)
+        pmd, secs, _ = timed_run(src, blocks=NORTHSTAR_BLOCKS, cache_movie="auto",
+                                 **NORTHSTAR_CONFIG)
+        launches = kernels.launch_counts()
+        total = add_launches(total, launches)
+        log_stream_run(f"int16 from disk, cache auto, {kind}", pmd, secs, t)
+        log(f"  launches {launches}; K1/K2 launches by dtype {LAUNCH_DTYPES}; native reader "
+            f"{reads['calls']} reads, {reads['bytes'] / 1e9:.3f} GB")
+        check_stream_launches(f"int16 from disk ({kind})", launches)
+        check(set(LAUNCH_DTYPES) == {("movie_stats", "int16")},
+              f"int16 from disk: K1/K2 launched on {LAUNCH_DTYPES}")
+        check(reads["bytes"] >= t * 512 * 512 * 2,
+              f"the native reader read {reads['bytes']} bytes of a {t * 512 * 512 * 2}-byte file")
+        runs.append((pmd, secs))
+    ref = u16_ref
+    for (pmd, secs), ref_secs in zip(runs, (ref["secs"], ref["secs_again"])):
+        cache = pmd.pipeline_cache
+        mean_d = float(np.abs(pmd.mean_img - ref["mean"]).max())
+        var_d = float(np.abs(pmd.var_img - ref["var"]).max())
+        recon = pmd.reconstruct_frames(ref["sample"]).cpu()
+        err = rel_fro(recon, ref["recon"])
+        log(f"  int16 against uint16 (phase 8): {secs:.4f} s against {ref_secs:.4f} s; mean "
+            f"max|d| {mean_d:.3e}, var max|d| {var_d:.3e}, ranks {pmd.pipeline_ranks} / kept "
+            f"{pmd.rank} against {ref['ranks']} / kept {ref['rank']}; 512 sampled frames rel "
+            f"Frobenius {err:.3e}, bit-equal {torch.equal(recon, ref['recon'])}; pinned "
+            f"{cache['pinned_bytes'] / 1e9:.3f} GB against {ref['cache']['pinned_bytes'] / 1e9:.3f} "
+            f"GB; cached {cache['cached_frames']} against {ref['cache']['cached_frames']}; "
+            f"stream dtype {cache['stream_dtype']}")
+        check(cache["stream_dtype"] == "int16", f"int16 streamed as {cache['stream_dtype']}")
+        check(mean_d <= 1e-5 * float(np.abs(ref["mean"]).max())
+              and var_d <= 1e-5 * float(np.abs(ref["var"]).max()), "int16 statistics differ")
+        check(pmd.pipeline_ranks == ref["ranks"], "int16 ranks differ from uint16's")
+        check(err <= 1e-5, f"int16 sampled frames error {err}")
+        check(cache["cached_frames"] == ref["cache"]["cached_frames"],
+              "int16 cached another number of frames")
+        # every frame read once, 2 bytes a pixel, minus what the cache served
+        check(cache["pinned_bytes"] == ref["cache"]["pinned_bytes"] and
+              cache["pinned_bytes"] <= t * 512 * 512 * 2,
+              f"int16 copied {cache['pinned_bytes']} bytes to the card")
+    pmd_warm = runs[-1][0]
+    del runs
+
+    # (c) the CLI on the same file, against the warm in-process run
+    npz = os.path.join(os.path.dirname(path), "cli_int16.npz")
+    args = [sys.executable, "-m", "localmd_tpu_torch.cli", "compress", path, npz,
+            "--raw-shape", str(t), "512", "512", "--raw-dtype", "int16",
+            "--blocks", str(NORTHSTAR_BLOCKS[0]), str(NORTHSTAR_BLOCKS[1]),
+            "--frame-range", str(NORTHSTAR_CONFIG["frame_range"]),
+            "--max-components", str(NORTHSTAR_CONFIG["max_components"]),
+            "--background-rank", str(NORTHSTAR_CONFIG["background_rank"]),
+            "--temporal-avg-factor", str(NORTHSTAR_CONFIG["temporal_avg_factor"]),
+            "--rank-prune", "--seed", str(NORTHSTAR_CONFIG["seed"])]
+    proc, secs = timed(lambda: subprocess.run(args, capture_output=True, text=True, cwd=HERE,
+                                              timeout=600))
+    check(proc.returncode == 0, f"cli compress --raw-dtype int16 failed:\n{proc.stderr[-3000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    cli_pmd = load_decomposition(npz, device="cuda")
+    err = rel_fro(cli_pmd.reconstruct_frames(ref["sample"]),
+                  pmd_warm.reconstruct_frames(ref["sample"]))
+    log(f"  cli compress --raw-dtype int16: {secs:.2f} s (process), rank {out['rank']} against "
+        f"{pmd_warm.rank}, stream dtype {out['cache'].get('stream_dtype')}, 512 sampled frames "
+        f"rel Frobenius {err:.3e}")
+    check(out["rank"] == pmd_warm.rank and out["cache"].get("stream_dtype") == "int16",
+          "cli int16 run differs from the in-process run")
+    check(err <= 1e-5, f"cli int16 reconstruction error {err}")
+    os.remove(npz)
+    del cli_pmd, pmd_warm
+    torch.cuda.empty_cache()
+
+    # (b) card-resident movies of each dtype against the float32 movie of their values
+    d1, d2, t_mv = DTYPE_MOVIE
+    sample = np.sort(np.random.default_rng(0).choice(t_mv, 512, replace=False))
+    golden, g_t, g_r = golden_movie()
+    golden = torch.as_tensor(golden, device="cuda")
+    for name in NEW_DTYPES + ("float64",):
+        movie, _ = make_movie(name, d1, d2, t_mv)
+        kernels.reset_launch_counts()
+        reset_route_calls()
+        LAUNCH_DTYPES.clear()
+        pmd, secs, _ = timed_run(movie)
+        k1_dtypes = {dt for (k, dt) in LAUNCH_DTYPES if k == "movie_stats"}
+        pmd32, secs32, _ = timed_run(movie.float())
+        want = name if name != "float64" else "float32"
+        err = rel_fro(pmd.reconstruct_frames(sample), pmd32.reconstruct_frames(sample))
+        launches = kernels.launch_counts()
+        total = add_launches(total, launches)
+        # the golden movie in this dtype: its 40 x 36 grid keeps K2
+        scale, offset = GOLDEN_INTO.get(name, (1.0, 0.0))
+        lo, hi = (torch.iinfo(getattr(torch, name)).min, torch.iinfo(getattr(torch, name)).max) \
+            if name in GOLDEN_INTO else (-1e30, 1e30)
+        g_mv = (golden * scale + offset).round().clamp(lo, hi) if name in GOLDEN_INTO else golden
+        g_mv = g_mv.to(getattr(torch, name))
+        kernels.reset_launch_counts()
+        LAUNCH_DTYPES.clear()
+        g_pmd = golden_run(g_mv, g_t, g_r)
+        g_dtypes = dict(LAUNCH_DTYPES)
+        total = add_launches(total, kernels.launch_counts())
+        g_32 = golden_run(g_mv.float(), g_t, g_r)
+        g_err = rel_fro(g_pmd.reconstruct_frames(np.arange(g_t)),
+                        g_32.reconstruct_frames(np.arange(g_t)))
+        log(f"  {name} card-resident {d1}x{d2}x{t_mv}: {secs:.4f} s against float32 "
+            f"{secs32:.4f} s; ranks {pmd.pipeline_ranks} / kept {pmd.rank} against "
+            f"{pmd32.pipeline_ranks} / kept {pmd32.rank}; 512 sampled frames rel Frobenius "
+            f"{err:.3e}; K1 on {sorted(k1_dtypes)}; launches {launches}; golden in {name}: "
+            f"rel Frobenius {g_err:.3e} against its float32 values, K1/K2 by dtype {g_dtypes}")
+        check(k1_dtypes == {want}, f"{name}: K1 launched on {k1_dtypes}")
+        check(pmd.pipeline_ranks == pmd32.pipeline_ranks and pmd.rank == pmd32.rank,
+              f"{name}: ranks differ from the float32 movie's")
+        check(err <= 1e-5, f"{name}: sampled frames error {err}")
+        check(set(g_dtypes) == {("movie_stats", want), ("v_projection", want)},
+              f"golden in {name}: K1/K2 launched on {g_dtypes}")
+        check(g_pmd.pipeline_ranks == g_32.pipeline_ranks and g_err <= 1e-5,
+              f"golden in {name}: error {g_err} against its float32 values")
+        del movie, pmd, pmd32, g_pmd, g_32, g_mv
+        torch.cuda.empty_cache()
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(map(str, ALL_PHASES)),
@@ -1573,13 +1942,14 @@ def main(argv=None) -> int:
         + ", ".join(f"{name} {secs:.2f} s"
                     for name, secs in _build.last_build.get("source_seconds", {}).items()) + ")")
     for line in _build.last_build.get("log", "").splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
+        if any(w in line for w in ("registers", "spill", "Compiling entry", "warning")):
             log(f"  ptxas: {line.strip()}")
 
     results: dict = {}
     if 2 in phases:
         log("phase 2 kernels vs plain")
         phase_kernels(results)
+        phase_kernel_dtypes(results)
     launches = None
     if 3 in phases:
         log("phase 3 golden on the card")
@@ -1637,12 +2007,12 @@ def main(argv=None) -> int:
         launches_7 = phase_voltage()
         if launches is not None:
             launches = {name: launches[name] + launches_7[name] for name in launches}
-    # phase 8's raw file stays until phase 11 has run
+    # phase 8's raw file stays until phases 11 and 12 have run
     tmp = tempfile.mkdtemp(prefix="chip_smoke_northstar_") if phases & {8, 11} else None
     try:
-        raw, cached = None, None
+        raw, cached, u16_ref = None, None, None
         if 8 in phases:
-            launches_8, (path, t, cached) = phase_from_disk(tmp, args.frames)
+            launches_8, (path, t, cached), u16_ref = phase_from_disk(tmp, args.frames)
             raw = (path, t)
             log(f"  launches from disk (phase 8): {launches_8}")
             # K2's launches follow the V route (check_stream_launches)
@@ -1674,6 +2044,14 @@ def main(argv=None) -> int:
                 check(launches_11[name] > 0, f"phase 11 never launched {name}")
             if launches is not None:
                 launches = add_launches(launches, launches_11)
+        if 12 in phases:
+            check(u16_ref is not None, "phase 12 compares with phase 8's runs: run it with phase 8")
+            launches_12 = phase_dtypes(raw, u16_ref)
+            log(f"  launches of phase 12: {launches_12}")
+            for name in KERNELS:
+                check(launches_12[name] > 0, f"phase 12 never launched {name}")
+            if launches is not None:
+                launches = add_launches(launches, launches_12)
     finally:
         if tmp is not None:
             shutil.rmtree(tmp, ignore_errors=True)

@@ -35,10 +35,10 @@
 // again, from L2, as the next segment's first half rather than held
 // (holding it would halve the pixels per CTA and double the matrix's
 // reads). The mean is folded into the same pass: each thread adds its
-// samples once, the first time a slab covers them, in double (float32) or
-// exactly in uint32 (uint16), in a fixed order; samples past the last
-// segment, and the whole chunk in mean-only mode, stream through mean-only
-// slabs. So the chunk crosses HBM once. The tensor cores truncate each
+// samples once, the first time a slab covers them, in double (float32,
+// float16, bfloat16) or exactly in int64 (the integer dtypes, at any chunk
+// length), in a fixed order; samples past the last segment, and the whole
+// chunk in mean-only mode, stream through mean-only slabs. So the chunk crosses HBM once. The tensor cores truncate each
 // product's fp32 result, so a chain drifts with the size of its partial
 // sums; the DFT runs on x minus the segment's first sample per pixel, which
 // keeps a baseline (uint16 at 1000) out of them (the offset's share of each
@@ -46,8 +46,13 @@
 // segment sum of x - offset (fp32) detrends through cos1/sin1 (a bin's cos
 // and sin land in one thread), |X|^2 adds into registers; at the end the
 // band mean reduces over the quad in a fixed order. No sincos runs here.
-// Pixels not 16-byte aligned (P not a multiple of 4 floats / 8 uint16, or an
-// offset base) load through registers instead of cp.async.
+// Pixels not 16-byte aligned (P not a multiple of 16 bytes' worth of
+// values, or an offset base) load through registers instead of cp.async.
+//
+// Dtypes: float32, uint16, int16, uint8, int8, float16 and bfloat16, each
+// read in its own width (tf32_common.cuh's Elem) and converted to float
+// exactly in registers; int16 samples may be negative (the DFT runs on
+// differences of exact floats).
 
 #include "tf32_common.cuh"
 #include "wgmma_tf32.cuh"
@@ -62,39 +67,29 @@ constexpr int STAGES = 4;
 constexpr int THREADS = 256;
 constexpr int BAND_START = 65;
 
+// A slab of the chunk in shared memory: 32 samples x 128 pixels in the
+// dtype's own bits, each row padded by one 16-byte chunk (132 floats, 136
+// 2-byte or 144 1-byte values): the four fragment loads of a k8 step
+// (samples 2t, 2t + 1, pixels g, g + 8) then fall on distinct banks, the
+// rows of one load 8 words apart.
 template <typename T>
-struct Tile;
-
-// float32 slab: 32 samples x 128 pixels, rows of 132 floats: the four
-// fragment loads of a k8 step (samples 2t, 2t + 1, pixels g, g + 8) then
-// fall in 32 distinct banks
-template <>
-struct Tile<float> {
-  static constexpr int kStride = TILE_P + 4;
-  static constexpr int kChunkElems = 4;
-  static constexpr int kBytes = BK * kStride * 4;
-  using Acc = double;
-  __device__ static float load(const float* tile, int k, int p) { return tile[k * kStride + p]; }
-  __device__ static Acc to_acc(float v) { return static_cast<double>(v); }
-};
-
-// uint16 slab: rows of 136 values (68 words)
-template <>
-struct Tile<uint16_t> {
-  static constexpr int kStride = TILE_P + 8;
-  static constexpr int kChunkElems = 8;
-  static constexpr int kBytes = BK * kStride * 2;
-  using Acc = uint32_t;  // exact: at most 65535 * 65536
-  __device__ static float load(const uint16_t* tile, int k, int p) {
-    return lmd::u16_to_f32(tile[k * kStride + p]);
+struct Tile {
+  using E = lmd::Elem<T>;
+  using Raw = typename E::Raw;
+  using Acc = typename E::Acc;
+  static constexpr int kChunkElems = 16 / static_cast<int>(sizeof(Raw));
+  static constexpr int kStride = TILE_P + kChunkElems;
+  static constexpr int kBytes = BK * kStride * static_cast<int>(sizeof(Raw));
+  __device__ static float load(const Raw* tile, int k, int p) {
+    return E::to_f32(tile[k * kStride + p]);
   }
-  // the integer back from u16_to_f32's float, without a conversion unit
-  __device__ static Acc to_acc(float v) { return __float_as_uint(v + 8388608.0f) - 0x4b000000u; }
+  __device__ static Acc to_acc(float v) { return E::to_acc(v); }
 };
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS, 1)
-movie_stats_wgmma_kernel(const T* __restrict__ x, int t_len, int n_pix, bool vec_ok,
+movie_stats_wgmma_kernel(const typename Tile<T>::Raw* __restrict__ x, int t_len, int n_pix,
+                         bool vec_ok,
                          const float* __restrict__ w_hi,  // (128, nper_pad) K-major
                          const float* __restrict__ w_lo,
                          const float* __restrict__ cos1,  // (64,) column sums
@@ -102,6 +97,7 @@ movie_stats_wgmma_kernel(const T* __restrict__ x, int t_len, int n_pix, bool vec
                          int nperseg, int nper_pad, int n_segs, float mean_divisor,
                          float scale, float* __restrict__ mean_out,
                          float* __restrict__ sigma_out) {
+  using Raw = typename Tile<T>::Raw;
   using Acc = typename Tile<T>::Acc;
   constexpr int X_BYTES = Tile<T>::kBytes;
   constexpr int W_FLOATS = N_COLS * BK;
@@ -122,7 +118,7 @@ movie_stats_wgmma_kernel(const T* __restrict__ x, int t_len, int n_pix, bool vec
   const int tail_start = n_segs > 0 ? (n_segs - 1) * step + nperseg : 0;
   const int n_iters = seg_iters + (t_len - tail_start + BK - 1) / BK;
 
-  auto stage_x = [&](int st) { return reinterpret_cast<T*>(smem + st * STAGE_BYTES); };
+  auto stage_x = [&](int st) { return reinterpret_cast<Raw*>(smem + st * STAGE_BYTES); };
   auto stage_wh = [&](int st) {
     return reinterpret_cast<float*>(smem + st * STAGE_BYTES + X_BYTES);
   };
@@ -146,21 +142,21 @@ movie_stats_wgmma_kernel(const T* __restrict__ x, int t_len, int n_pix, bool vec
   auto load_slab = [&](int st, int i) {
     int row0, rows, wslab;
     slab_of(i, row0, rows, wslab);
-    T* xs = stage_x(st);
+    Raw* xs = stage_x(st);
     constexpr int CE = Tile<T>::kChunkElems;
     constexpr int CPR = TILE_P / CE;  // chunks per row
     for (int q = tid; q < BK * CPR; q += THREADS) {
       const int k = q / CPR;
       const int c = q % CPR;
       const long long p = p0 + c * CE;
-      T* dst = xs + k * Tile<T>::kStride + c * CE;
-      const T* src = x + static_cast<long long>(row0 + k) * n_pix + p;
+      Raw* dst = xs + k * Tile<T>::kStride + c * CE;
+      const Raw* src = x + static_cast<long long>(row0 + k) * n_pix + p;
       if (vec_ok) {
         const bool in = k < rows && p < n_pix;
         lmd::cp_async16(dst, in ? src : x, in);
       } else {
 #pragma unroll
-        for (int e = 0; e < CE; ++e) dst[e] = (k < rows && p + e < n_pix) ? src[e] : T(0);
+        for (int e = 0; e < CE; ++e) dst[e] = (k < rows && p + e < n_pix) ? src[e] : Raw(0);
       }
     }
     if (wslab >= 0) {
@@ -199,7 +195,7 @@ movie_stats_wgmma_kernel(const T* __restrict__ x, int t_len, int n_pix, bool vec
   uint32_t ahi[BK / 8][4], alo[BK / 8][4];
   float slab_sum[2];
   auto prepare = [&](int i) {
-    const T* xs = stage_x(i % STAGES);
+    const Raw* xs = stage_x(i % STAGES);
     int row0, rows, wslab;
     slab_of(i, row0, rows, wslab);
     // rows [cnt_lo, rows) of this slab are seen for the first time
@@ -352,10 +348,14 @@ movie_stats_wgmma_kernel(const T* __restrict__ x, int t_len, int n_pix, bool vec
 }
 
 template <typename T>
-cudaError_t launch(const T* x, int t_len, int n_pix, bool vec_ok, const float* w_hi,
-                   const float* w_lo, const float* cos1, const float* sin1, int nperseg,
-                   int nper_pad, int n_segs, float mean_divisor, float scale, float* mean_out,
-                   float* sigma_out, cudaStream_t st) {
+cudaError_t launch(const void* xv, int t_len, int n_pix, const float* w_hi, const float* w_lo,
+                   const float* cos1, const float* sin1, int nperseg, int nper_pad, int n_segs,
+                   float mean_divisor, float scale, float* mean_out, float* sigma_out,
+                   cudaStream_t st) {
+  const auto* x = static_cast<const typename Tile<T>::Raw*>(xv);
+  // 16-byte cp.async needs whole 16-byte chunks of every row
+  const bool vec_ok = (n_pix % Tile<T>::kChunkElems) == 0 &&
+                      (reinterpret_cast<uintptr_t>(xv) % 16) == 0;
   constexpr int SMEM = STAGES * (Tile<T>::kBytes + 2 * N_COLS * BK * 4);
   auto kern = movie_stats_wgmma_kernel<T>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
@@ -368,7 +368,8 @@ cudaError_t launch(const T* x, int t_len, int n_pix, bool vec_ok, const float* w
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = uint16. w_hi / w_lo: (128, nper_pad) K-major tf32
+// dtype: 0 = float32, 1 = uint16, 2 = int16, 3 = uint8, 4 = int8,
+// 5 = float16, 6 = bfloat16. w_hi / w_lo: (128, nper_pad) K-major tf32
 // parts of the windowed band-DFT matrix in the wrapper's column order;
 // n_segs = 0 computes the mean only (sigma 0).
 extern "C" int lmd_movie_stats(const void* x, int dtype, int t_len, int n_pix,
@@ -383,18 +384,16 @@ extern "C" int lmd_movie_stats(const void* x, int dtype, int t_len, int n_pix,
   const float* s1 = static_cast<const float*>(sin1);
   float* mo = static_cast<float*>(mean_out);
   float* so = static_cast<float*>(sigma_out);
-  const uintptr_t base = reinterpret_cast<uintptr_t>(x);
-  cudaError_t err;
-  if (dtype == 0) {
-    const bool vec_ok = (n_pix % 4) == 0 && (base % 16) == 0;
-    err = launch<float>(static_cast<const float*>(x), t_len, n_pix, vec_ok, wh, wl, c1, s1,
-                        nperseg, nper_pad, n_segs, mean_divisor, scale, mo, so, st);
-  } else if (dtype == 1) {
-    const bool vec_ok = (n_pix % 8) == 0 && (base % 16) == 0;
-    err = launch<uint16_t>(static_cast<const uint16_t*>(x), t_len, n_pix, vec_ok, wh, wl, c1,
-                           s1, nperseg, nper_pad, n_segs, mean_divisor, scale, mo, so, st);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+#define LMD_MS_CASE(CODE, T)                                                              \
+  case CODE:                                                                              \
+    return static_cast<int>(launch<T>(x, t_len, n_pix, wh, wl, c1, s1, nperseg, nper_pad, \
+                                      n_segs, mean_divisor, scale, mo, so, st));
+  switch (dtype) {
+    LMD_MS_CASE(0, float) LMD_MS_CASE(1, uint16_t) LMD_MS_CASE(2, int16_t)
+    LMD_MS_CASE(3, uint8_t) LMD_MS_CASE(4, int8_t) LMD_MS_CASE(5, __half)
+    LMD_MS_CASE(6, __nv_bfloat16)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(err);
+#undef LMD_MS_CASE
 }

@@ -3,7 +3,8 @@
 //
 // Replaces: localmd_tpu/ops/pallas_kernels.py, fused_v_projection (body
 // _vproj_kernel, tile choice _vp_pick_tiles). raw is one (t, d) frame chunk
-// in its native dtype (float32 or uint16) with C-order pixels, A the (d, r')
+// in its native dtype (float32, uint16, int16, uint8, int8, float16 or
+// bfloat16; tf32_common.cuh's Elem) with C-order pixels, A the (d, r')
 // folded projector, c the (r',) constant; out is (r', t) float32.
 //
 // Bounds on an H100 SXM: 2 t d r' flops (3.6e11 for the main path's
@@ -40,8 +41,8 @@
 // (split-K, at most 4096 pixels summed per CTA); a second kernel adds the
 // splits in a fixed order, subtracts c and stores the transpose. No
 // atomics: results are deterministic. Rows whose pixels are not 16-byte
-// aligned (d not a multiple of 4 floats / 8 uint16, or an offset base)
-// load through registers instead of cp.async.
+// aligned (d not a multiple of 16 bytes' worth of values, or an offset
+// base) load through registers instead of cp.async.
 
 #include "tf32_common.cuh"
 #include "wgmma_tf32.cuh"
@@ -53,49 +54,79 @@ constexpr int BK = 32;      // pixels per slab
 constexpr int STAGES = 3;
 constexpr int THREADS = 256;
 
-template <typename T>
-struct RawTile;
+// A (128, 32) raw tile in shared memory, in the dtype's own bits
+// (tf32_common.cuh's Elem), by its width: Raw float, uint16_t or uint8_t.
+template <typename Raw>
+struct RawLayout;
 
 // float32 rows: 32 floats = 8 chunks of 4, swizzled like the B tiles
 template <>
-struct RawTile<float> {
-  static constexpr int kChunkElems = 4;
-  static constexpr int kChunks = BK / kChunkElems;   // 8 per row
-  static constexpr int kBytes = BM * BK * 4;
+struct RawLayout<float> {
+  static constexpr int kChunks = 8;
   __device__ static int chunk_offset(int m, int c) {  // in elements
     return m * BK + lmd::swz_chunk(m, c) * 4;
   }
-  // the pair (samples 2t, 2t + 1 of k8 step s) of row m
-  __device__ static void pair(const float* tile, int m, int s, int t, float& x0, float& x1) {
-    const float2 v = *reinterpret_cast<const float2*>(tile + lmd::swz_pair(m, s, t));
-    x0 = v.x;
-    x1 = v.y;
+  // the pair (samples 2t, 2t + 1 of k8 step s) of row m, as stored
+  __device__ static float2 pair_bits(const float* tile, int m, int s, int t) {
+    return *reinterpret_cast<const float2*>(tile + lmd::swz_pair(m, s, t));
   }
 };
 
-// uint16 rows: 32 values = 4 chunks of 8 (one k8 step each), group s of row
-// m at chunk s ^ ((m >> 1) & 3)
+// 2-byte rows: 32 values = 4 chunks of 8 (one k8 step each), group s of
+// row m at chunk s ^ ((m >> 1) & 3); a pair is one 32-bit load
 template <>
-struct RawTile<uint16_t> {
-  static constexpr int kChunkElems = 8;
-  static constexpr int kChunks = BK / kChunkElems;   // 4 per row
-  static constexpr int kBytes = BM * BK * 2;
-  __device__ static int chunk_offset(int m, int c) {
-    return m * BK + ((c ^ (m >> 1)) & 3) * 8;
+struct RawLayout<uint16_t> {
+  static constexpr int kChunks = 4;
+  __device__ static int chunk_offset(int m, int c) { return m * BK + ((c ^ (m >> 1)) & 3) * 8; }
+  __device__ static uint32_t pair_bits(const uint16_t* tile, int m, int s, int t) {
+    return *reinterpret_cast<const uint32_t*>(tile + m * BK + ((s ^ (m >> 1)) & 3) * 8 + 2 * t);
   }
-  __device__ static void pair(const uint16_t* tile, int m, int s, int t, float& x0, float& x1) {
-    const uint32_t v = *reinterpret_cast<const uint32_t*>(
-        tile + m * BK + ((s ^ (m >> 1)) & 3) * 8 + 2 * t);
-    x0 = lmd::u16_to_f32(v & 0xffffu);
-    x1 = lmd::u16_to_f32(v >> 16);
+};
+
+// 1-byte rows: 32 values = 2 chunks of 16 (two k8 steps each), chunk c of
+// row m at c ^ ((m >> 2) & 1): rows g and g + 4 of a warp's load, 32 bytes
+// apart per row otherwise, then read distinct banks; a pair is one 16-bit
+// load
+template <>
+struct RawLayout<uint8_t> {
+  static constexpr int kChunks = 2;
+  __device__ static int chunk_offset(int m, int c) { return m * BK + ((c ^ (m >> 2)) & 1) * 16; }
+  __device__ static uint32_t pair_bits(const uint8_t* tile, int m, int s, int t) {
+    return *reinterpret_cast<const uint16_t*>(
+        tile + m * BK + (((s >> 1) ^ (m >> 2)) & 1) * 16 + (s & 1) * 8 + 2 * t);
+  }
+};
+
+template <typename T>
+struct RawTile {
+  using E = lmd::Elem<T>;
+  using Raw = typename E::Raw;
+  using L = RawLayout<Raw>;
+  static constexpr int kChunkElems = 16 / static_cast<int>(sizeof(Raw));
+  static constexpr int kChunks = L::kChunks;
+  static constexpr int kBytes = BM * BK * static_cast<int>(sizeof(Raw));
+  static_assert(kChunks * kChunkElems == BK, "a row is whole 16-byte chunks");
+  __device__ static int chunk_offset(int m, int c) { return L::chunk_offset(m, c); }
+  // the pair (samples 2t, 2t + 1 of k8 step s) of row m, as exact floats
+  __device__ static void pair(const Raw* tile, int m, int s, int t, float& x0, float& x1) {
+    const auto v = L::pair_bits(tile, m, s, t);
+    if constexpr (sizeof(Raw) == 4) {
+      x0 = v.x;
+      x1 = v.y;
+    } else {
+      constexpr int kBits = 8 * static_cast<int>(sizeof(Raw));
+      x0 = E::to_f32(v & ((1u << kBits) - 1u));
+      x1 = E::to_f32(v >> kBits);
+    }
   }
 };
 
 template <typename T, int BN>
 __global__ void __launch_bounds__(THREADS, 1)
-vproj_wgmma_kernel(const T* __restrict__ raw, int t_len, int d, bool vec_ok,
-                   const float* __restrict__ bt, int d_pad, int r, int k_chunk,
+vproj_wgmma_kernel(const typename RawTile<T>::Raw* __restrict__ raw, int t_len, int d,
+                   bool vec_ok, const float* __restrict__ bt, int d_pad, int r, int k_chunk,
                    float* __restrict__ ws) {
+  using Raw = typename RawTile<T>::Raw;
   constexpr int ND = BN / 2;          // accumulator registers a thread
   constexpr int A_BYTES = RawTile<T>::kBytes;
   constexpr int B_FLOATS = BN * BK;   // one slab of the projector
@@ -117,7 +148,7 @@ vproj_wgmma_kernel(const T* __restrict__ raw, int t_len, int d, bool vec_ok,
   const long long k_end = k_begin + k_chunk < d ? k_begin + k_chunk : d;
   const int n_slabs = k_begin < k_end ? static_cast<int>((k_end - k_begin + BK - 1) / BK) : 0;
 
-  auto stage_a = [&](int st) { return reinterpret_cast<T*>(smem + st * STAGE_BYTES); };
+  auto stage_a = [&](int st) { return reinterpret_cast<Raw*>(smem + st * STAGE_BYTES); };
   auto stage_b = [&](int st) {
     return reinterpret_cast<float*>(smem + st * STAGE_BYTES + A_BYTES);
   };
@@ -129,23 +160,23 @@ vproj_wgmma_kernel(const T* __restrict__ raw, int t_len, int d, bool vec_ok,
   // ((n / 8) * 8 + c) * 128 B + (n % 8) * 16 B
   auto load_slab = [&](int st, int slab) {
     const long long k0 = k_begin + static_cast<long long>(slab) * BK;
-    T* as = stage_a(st);
+    Raw* as = stage_a(st);
     constexpr int CE = RawTile<T>::kChunkElems;
     constexpr int A_CHUNKS = BM * RawTile<T>::kChunks;
     for (int i = tid; i < A_CHUNKS; i += THREADS) {
       const int m = i / RawTile<T>::kChunks;
       const int c = i % RawTile<T>::kChunks;
       const long long k = k0 + c * CE;
-      T* dst = as + RawTile<T>::chunk_offset(m, c);
+      Raw* dst = as + RawTile<T>::chunk_offset(m, c);
       const bool row_in = m0 + m < t_len;
-      const T* src = raw + static_cast<long long>(m0 + m) * d + k;
+      const Raw* src = raw + static_cast<long long>(m0 + m) * d + k;
       if (vec_ok) {
         const bool in = row_in && k < k_end;
         lmd::cp_async16(dst, in ? src : raw, in);
       } else {
 #pragma unroll
         for (int e = 0; e < CE; ++e) {
-          dst[e] = (row_in && k + e < k_end) ? src[e] : T(0);
+          dst[e] = (row_in && k + e < k_end) ? src[e] : Raw(0);
         }
       }
     }
@@ -189,7 +220,7 @@ vproj_wgmma_kernel(const T* __restrict__ raw, int t_len, int d, bool vec_ok,
   // the wrapper stores the projector's k in the same order)
   uint32_t ahi[BK / 8][4], alo[BK / 8][4];
   auto prepare = [&](int i) {
-    const T* as = stage_a(i % STAGES);
+    const Raw* as = stage_a(i % STAGES);
     const int m = wg * 64 + wl * 16 + g;
 #pragma unroll
     for (int s = 0; s < BK / 8; ++s) {
@@ -332,9 +363,9 @@ __global__ void projector_t_kernel(const float* __restrict__ a, int d, int r,
 }
 
 template <typename T, int NT>
-cudaError_t launch_partial(const T* raw, int t_len, int d, bool vec_ok, const float* bt,
-                           int d_pad, int r, int n_tiles, int splits, int k_chunk, float* ws,
-                           cudaStream_t st) {
+cudaError_t launch_partial(const typename RawTile<T>::Raw* raw, int t_len, int d, bool vec_ok,
+                           const float* bt, int d_pad, int r, int n_tiles, int splits,
+                           int k_chunk, float* ws, cudaStream_t st) {
   constexpr int BN = 16 * NT;
   constexpr int SMEM = STAGES * (RawTile<T>::kBytes + BN * BK * 4) + 4 * BN * BK * 4;
   auto kern = vproj_wgmma_kernel<T, BN>;
@@ -346,9 +377,12 @@ cudaError_t launch_partial(const T* raw, int t_len, int d, bool vec_ok, const fl
 }
 
 template <typename T>
-cudaError_t dispatch(int nt, const T* raw, int t_len, int d, bool vec_ok, const float* bt,
-                     int d_pad, int r, int n_tiles, int splits, int k_chunk, float* ws,
-                     cudaStream_t st) {
+cudaError_t dispatch(int nt, const void* raw_v, int t_len, int d, const float* bt, int d_pad,
+                     int r, int n_tiles, int splits, int k_chunk, float* ws, cudaStream_t st) {
+  const auto* raw = static_cast<const typename RawTile<T>::Raw*>(raw_v);
+  // 16-byte cp.async needs whole 16-byte chunks of every row
+  const bool vec_ok = (d % RawTile<T>::kChunkElems) == 0 &&
+                      (reinterpret_cast<uintptr_t>(raw_v) % 16) == 0;
 #define LMD_VP_CASE(N)                                                                   \
   case N:                                                                                \
     return launch_partial<T, N>(raw, t_len, d, vec_ok, bt, d_pad, r, n_tiles, splits,    \
@@ -374,7 +408,8 @@ extern "C" int lmd_projector_t(const void* a, int d, int r, void* bt, int d_pad,
   return static_cast<int>(cudaGetLastError());
 }
 
-// dtype: 0 = float32, 1 = uint16. bt is (n_tiles * 16 nt, d_pad) from
+// dtype: 0 = float32, 1 = uint16, 2 = int16, 3 = uint8, 4 = int8,
+// 5 = float16, 6 = bfloat16. bt is (n_tiles * 16 nt, d_pad) from
 // lmd_projector_t, d_pad a multiple of 32 covering splits * k_chunk;
 // k_chunk is a multiple of 32; ws holds splits * t * r floats.
 extern "C" int lmd_v_projection(const void* raw, int dtype, int t_len, int d, const void* bt,
@@ -383,19 +418,19 @@ extern "C" int lmd_v_projection(const void* raw, int dtype, int t_len, int d, co
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* w = static_cast<float*>(ws);
   const float* b = static_cast<const float*>(bt);
-  const uintptr_t base = reinterpret_cast<uintptr_t>(raw);
   cudaError_t err;
-  if (dtype == 0) {
-    const bool vec_ok = (d % 4) == 0 && (base % 16) == 0;
-    err = dispatch<float>(nt, static_cast<const float*>(raw), t_len, d, vec_ok, b, d_pad, r,
-                          n_tiles, splits, k_chunk, w, st);
-  } else if (dtype == 1) {
-    const bool vec_ok = (d % 8) == 0 && (base % 16) == 0;
-    err = dispatch<uint16_t>(nt, static_cast<const uint16_t*>(raw), t_len, d, vec_ok, b, d_pad,
-                             r, n_tiles, splits, k_chunk, w, st);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+#define LMD_VP_DTYPE(CODE, T)                                                               \
+  case CODE:                                                                                \
+    err = dispatch<T>(nt, raw, t_len, d, b, d_pad, r, n_tiles, splits, k_chunk, w, st);    \
+    break;
+  switch (dtype) {
+    LMD_VP_DTYPE(0, float) LMD_VP_DTYPE(1, uint16_t) LMD_VP_DTYPE(2, int16_t)
+    LMD_VP_DTYPE(3, uint8_t) LMD_VP_DTYPE(4, int8_t) LMD_VP_DTYPE(5, __half)
+    LMD_VP_DTYPE(6, __nv_bfloat16)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef LMD_VP_DTYPE
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 rgrid((r + 31) / 32, (t_len + 31) / 32);
   vproj_reduce_kernel<<<rgrid, dim3(32, 8), 0, st>>>(

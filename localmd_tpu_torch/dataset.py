@@ -429,8 +429,12 @@ class PlaneView(PMDDataset):
 
 
 class TensorMovie:
-    """A (T, d1, d2) tensor, float32 or uint16, on any device: the
-    counterpart of the JAX package's ``DeviceMovie`` (dataset.py:400-444).
+    """A (T, d1, d2) tensor on any device: the counterpart of the JAX
+    package's ``DeviceMovie`` (dataset.py:400-444). K1 and K2 read float32,
+    uint16, int16, uint8, int8, float16 and bfloat16 in place
+    (``ops.kernels.KERNEL_DTYPES``); the loader casts any other real dtype
+    (float64, int32, ...) to float32 on the tensor's device, one chunk at a
+    time.
     Indexing follows ``DeviceMovie``: out-of-range frame lists raise
     instead of clamping, and results stay tensors on the tensor's device."""
 

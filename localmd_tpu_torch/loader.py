@@ -70,7 +70,10 @@ STREAM_CHUNK_BYTES = 1 << 30  # floor of the f32 bytes of one streamed chunk
 STAGE_PIECE_BYTES = 1 << 28   # one pinned ring slot: a host->device copy
 CACHE_FRACTION = 0.5          # share of the free device memory the movie cache may take
 
-_KERNEL_DTYPES = (np.dtype(np.uint16), np.dtype(np.float32))
+# the numpy dtypes of ``kernels.KERNEL_DTYPES`` (a bfloat16 movie, which
+# numpy cannot hold, arrives as a tensor)
+_KERNEL_DTYPES = tuple(np.dtype(str(dt).removeprefix("torch."))
+                       for dt in kernels.KERNEL_DTYPES if dt != torch.bfloat16)
 
 
 def _chunk_ranges(total: int, chunk: int, merge_tail: bool = True) -> List[Tuple[int, int]]:
@@ -298,7 +301,7 @@ class _PinnedStager:
             i, slot = self._slot()
             host = slot[: b - a]
             piece = slice(ids[0] + a, ids[0] + b) if contiguous else ids[a:b]
-            self._loader._read_into(piece, host.numpy())
+            self._loader._read_into(piece, host)
             with torch.cuda.stream(self.stream):
                 dest[a:b].copy_(host, non_blocking=True)
                 event = torch.cuda.Event()
@@ -490,11 +493,13 @@ class PMDLoader:
         return isinstance(self.dataset, TensorMovie) and self.dataset.device == self.device
 
     def _stream_dtype(self) -> torch.dtype:
-        """The dtype chunks reach the card in: the stored one when K1 and K2
-        read it natively (uint16, float32), else float32."""
+        """The dtype chunks reach K1 and K2 in: the stored one where they
+        read it natively (``kernels.KERNEL_DTYPES``), else float32 (float64,
+        int32, uint32, int64: JAX's DeviceMovie likewise makes float64 into
+        float32)."""
         if isinstance(self.dataset, TensorMovie):
             dt = self.dataset.dtype
-            return dt if dt in (torch.uint16, torch.float32) else torch.float32
+            return dt if dt in kernels.KERNEL_DTYPES else torch.float32
         raw = np.dtype(getattr(self.dataset, "raw_dtype", None) or self.dataset.dtype)
         raw = raw.newbyteorder("=")
         return _torch_dtype(raw if raw in _KERNEL_DTYPES else np.dtype(np.float32))
@@ -504,12 +509,17 @@ class PMDLoader:
             self.transfers["pinned_copies"] += 1
             self.transfers["pinned_bytes"] += int(nbytes)
 
-    def _read_into(self, frames, out: np.ndarray) -> np.ndarray:
-        """Frames of the dataset into the host buffer ``out`` (n, d1, d2)."""
-        if hasattr(self.dataset, "read_into"):
-            return self.dataset.read_into(frames, out)
-        got = np.asarray(self.dataset[frame_list(frames, self.shape[0])])
-        np.copyto(out, got.reshape(out.shape), casting="unsafe")
+    def _read_into(self, frames, out: torch.Tensor) -> torch.Tensor:
+        """Frames of the dataset into the host tensor ``out`` (n, d1, d2), in
+        its dtype. A tensor source copies tensor to tensor (a bfloat16 movie
+        has no numpy form); the others fill ``out``'s numpy view."""
+        if isinstance(self.dataset, TensorMovie):
+            out.copy_(self.dataset.gather(frame_list(frames, self.shape[0])).reshape(out.shape))
+        elif hasattr(self.dataset, "read_into"):
+            self.dataset.read_into(frames, out.numpy())
+        else:
+            got = np.asarray(self.dataset[frame_list(frames, self.shape[0])])
+            np.copyto(out.numpy(), got.reshape(out.shape), casting="unsafe")
         return out
 
     def _host_chunk(self, frames, dest: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -520,8 +530,7 @@ class PMDLoader:
             n = len(frame_list(frames, self.shape[0]))
             out = dest if dest is not None else torch.empty((n,) + self.shape[1:],
                                                             dtype=self.stream_dtype)
-            self._read_into(frames, out.numpy())
-            return out
+            return self._read_into(frames, out)
         out, event = _PinnedStager(self, 2).stage(frames, dest)
         if event is not None:
             stream = torch.cuda.current_stream(self.device)
@@ -534,15 +543,18 @@ class PMDLoader:
         """(chunk, event): the (t, d1, d2) frames in the stream dtype on the
         device, from the cache or a device-resident movie (a view for a
         contiguous range), else from the host (staged through ``stager`` on
-        the card, event None otherwise)."""
+        the card, event None otherwise). A device-resident movie in a dtype
+        K1 and K2 do not read is cast to float32 here, one chunk at a time."""
         if self._cache_serves(frames):
             if isinstance(frames, slice):
                 return self._cache[frames], None
             return TensorMovie(self._cache).gather(frame_list(frames, self.shape[0])), None
         if self._device_resident:
             if isinstance(frames, slice):
-                return self.dataset.frames(frames), None
-            return self.dataset.gather(frame_list(frames, self.shape[0])), None
+                chunk = self.dataset.frames(frames)
+            else:
+                chunk = self.dataset.gather(frame_list(frames, self.shape[0]))
+            return chunk.to(self.stream_dtype), None
         if stager is not None:
             return stager.stage(frames, dest)
         return self._host_chunk(frames, dest), None
@@ -617,9 +629,9 @@ class PMDLoader:
         ``bytes_limit - bytes_in_use``), at the bytes a frame takes in the
         cache, in whole stats chunks; on the CPU (no memory query) all of
         them with ``cache_movie=True``, none otherwise. The cache holds the
-        stream dtype: the source's own dtype where K1 and K2 read it
-        (uint16, float32, and so a TIFF read as float32 from uint16),
-        float32 otherwise, where JAX keeps the native dtype."""
+        stream dtype: the source's stored dtype wherever K1 and K2 read it
+        (``kernels.KERNEL_DTYPES``; so a TIFF read as float32 from int16
+        caches int16), as JAX plans it (loader.py:548-551)."""
         if self._device_resident or not self._cache_policy:
             return 0
         t_total = self.shape[0]

@@ -7,8 +7,8 @@ CUDA tensor it launches the hand-written CUDA kernel (``csrc/``, built by
 carries ``launches``, a plain int counting the calls that launched its CUDA
 kernel, so a run can show that the main path went through it.
 
-- K1 ``movie_stats``: per-pixel mean + Welch sigma of a raw chunk
-  (``csrc/movie_stats.cu``; plain twin: ``ops.noise``).
+- K1 ``movie_stats``: per-pixel mean + Welch sigma of a raw chunk in any
+  of ``KERNEL_DTYPES`` (``csrc/movie_stats.cu``; plain twin: ``ops.noise``).
 - K2 ``v_projection``: ``(raw @ A - c)^T`` over a raw chunk in its native
   dtype (``csrc/v_projection.cu``; plain twin: loader.py:365-372).
 - K3 ``block_reconstruct``: overlap-add of per-block ``U_b @ V_b`` into a
@@ -38,7 +38,16 @@ from localmd_tpu_torch.ops.noise import (
     welch_sigma,
 )
 
-_DTYPE_CODES = {torch.float32: 0, torch.uint16: 1}
+# the movie dtypes K1 and K2 read in their own width, by the code the CUDA
+# entry points take (csrc/tf32_common.cuh's Elem); every value of each is
+# exact in float32. Other dtypes raise: the loader casts them to float32
+# on the card before a kernel sees them.
+_DTYPE_CODES = {
+    torch.float32: 0, torch.uint16: 1, torch.int16: 2, torch.uint8: 3, torch.int8: 4,
+    torch.float16: 5, torch.bfloat16: 6,
+}
+KERNEL_DTYPES = tuple(_DTYPE_CODES)
+_DTYPE_NAMES = "/".join(str(dt).removeprefix("torch.") for dt in KERNEL_DTYPES)
 
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
@@ -146,8 +155,8 @@ def movie_stats_plain(
 def movie_stats(
     chunk2d: torch.Tensor, mean_divisor, compute_noise: bool = True, nperseg: int = NPERSEG
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1: per-pixel mean + Welch sigma of a (T, P) raw chunk (float32 or
-    uint16), one pass over the chunk in its native dtype.
+    """K1: per-pixel mean + Welch sigma of a (T, P) raw chunk in one of
+    ``KERNEL_DTYPES``, one pass over the chunk in its native dtype.
 
     ``mean_divisor`` is the whole movie's frame count; ``nperseg`` is 256
     (scipy semantics) or T (the reference's effective single periodogram);
@@ -157,7 +166,7 @@ def movie_stats(
     _require_cuda("movie_stats", chunk2d)
     if chunk2d.dim() != 2 or chunk2d.dtype not in _DTYPE_CODES:
         raise ValueError(
-            f"movie_stats: expected a 2-D float32/uint16 chunk, got "
+            f"movie_stats: expected a 2-D {_DTYPE_NAMES} chunk, got "
             f"{tuple(chunk2d.shape)} {chunk2d.dtype}"
         )
     t, p = chunk2d.shape
@@ -249,7 +258,7 @@ def v_projection(
     raw2d: torch.Tensor, a_cols: torch.Tensor, c: torch.Tensor,
     prepared: Optional[Projector] = None,
 ) -> torch.Tensor:
-    """K2: (t, d) raw chunk (float32/uint16, C-order pixels) x (d, r')
+    """K2: (t, d) raw chunk (one of ``KERNEL_DTYPES``, C-order pixels) x (d, r')
     projector -> (r', t), in one pass over the raw chunk with no f32 copy.
     ``a_cols`` rows must follow raw2d's C-order pixel flattening.
     ``prepared`` is ``prepare_projector(a_cols)`` when the caller reuses it
@@ -259,7 +268,7 @@ def v_projection(
     _require_cuda("v_projection", raw2d, a_cols, c)
     t, d = raw2d.shape
     if raw2d.dtype not in _DTYPE_CODES:
-        raise ValueError(f"v_projection: raw dtype {raw2d.dtype} is not float32/uint16")
+        raise ValueError(f"v_projection: raw dtype {raw2d.dtype} is not one of {_DTYPE_NAMES}")
     if a_cols.dtype != torch.float32 or c.dtype != torch.float32:
         raise ValueError("v_projection: projector and constant must be float32")
     if a_cols.dim() != 2 or a_cols.shape[0] != d or c.shape != (a_cols.shape[1],):

@@ -281,8 +281,9 @@ def localmd_decomposition(
     ``pipeline_ranks`` (the JAX package's: ``final`` is the width of ``s``,
     the kept count is ``rank``), ``pipeline_windows`` (init windows and,
     per block batch, the windows run before the early stop) and
-    ``pipeline_cache`` (cached frames, total frames, and the loader's
-    pinned host->device copies and bytes), and the JAX package's
+    ``pipeline_cache`` (cached frames, total frames, the loader's pinned
+    host->device copies and bytes, and the stream dtype: the dtype the
+    chunks reached K1 and K2 in), and the JAX package's
     ``pipeline_aot`` and ``pipeline_warm`` as it reports them with its
     warms off (pipeline.py:1404-1415).
     """
@@ -718,6 +719,7 @@ def _decompose(
         "cached_frames": int(load_obj._cache_frames),
         "total_frames": int(t_total),
         **load_obj.transfers,
+        "stream_dtype": str(load_obj.stream_dtype).removeprefix("torch."),
     }
     out.pipeline_aot = {"enabled": False, "used": False}
     out.pipeline_warm = {"completed": [], "errors": {}}

@@ -236,3 +236,113 @@ def test_block_reconstruct_rejects_out_of_canvas_blocks(cuda):
             (60, 52), (20, 20),
         )
     assert kernels.block_reconstruct.launches == before
+
+
+NEW_DTYPES = ("int16", "uint8", "int8", "float16", "bfloat16")
+
+
+def _dtype_values(dtype, shape, g, kind):
+    """chip_smoke.dtype_values: bench_torch.make_movie's construction of
+    ``dtype`` on N(0, 1), small noise on a baseline, or the type's ends."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from chip_smoke import dtype_values
+
+    return dtype_values(dtype, shape, g, kind)
+
+
+@pytest.mark.parametrize("dtype", NEW_DTYPES)
+@pytest.mark.parametrize("kind,t,p,nperseg", [
+    ("movie", 1024, 5000, 256), ("movie", 500, 4097, 500), ("baseline", 1024, 8192, 256),
+    ("extremes", 512, 700, 256),
+])
+def test_movie_stats_new_dtypes_match_plain(cuda, dtype, kind, t, p, nperseg):
+    """K1 on int16 (negative samples), uint8, int8, float16 and bfloat16, P
+    on and off the 16-byte chunk, and from a base off 16-byte alignment."""
+    from localmd_tpu_torch.ops import kernels
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = _dtype_values(dtype, (t + 1, p), g, kind)
+    for chunk in (x[:t], x.reshape(-1)[1 : 1 + t * p].view(t, p)):
+        before = kernels.movie_stats.launches
+        m_k, s_k = kernels.movie_stats(chunk, t, nperseg=nperseg)
+        assert kernels.movie_stats.launches == before + 1
+        m_p, s_p = kernels.movie_stats_plain(chunk, t, nperseg=nperseg)
+        assert float((m_k - m_p).abs().max() / m_p.abs().max().clamp_min(1e-30)) <= 1e-5
+        torch.testing.assert_close(s_k, s_p, rtol=1e-4, atol=0)
+
+
+@pytest.mark.parametrize("dtype", NEW_DTYPES)
+@pytest.mark.parametrize("kind,t,d,r", [
+    ("movie", 300, 20000, 77), ("movie", 256, 1 << 20, 168), ("baseline", 100, 701, 37),
+    ("extremes", 64, 4096, 176),
+])
+def test_v_projection_new_dtypes_match_plain(cuda, dtype, kind, t, d, r):
+    from localmd_tpu_torch.ops import kernels
+
+    g = torch.Generator(device=cuda).manual_seed(6)
+    raw = _dtype_values(dtype, (t, d + 1), g, kind)
+    a = torch.randn(d, r, generator=g, device=cuda) * 0.01
+    c = torch.randn(r, generator=g, device=cuda)
+    for chunk in (raw[:, :d].contiguous(), raw.reshape(-1)[1 : 1 + t * d].view(t, d)):
+        before = kernels.v_projection.launches
+        out = kernels.v_projection(chunk, a, c)
+        assert kernels.v_projection.launches == before + 1
+        assert _rel_fro(out, kernels.v_projection_plain(chunk, a, c)) <= 1e-5
+
+
+def test_kernels_refuse_other_dtypes(cuda):
+    """float64, int32 and int64 chunks raise in the wrappers; nothing is
+    launched and nothing is cast there."""
+    from localmd_tpu_torch.ops import kernels
+
+    a = torch.zeros(64, 3, device=cuda)
+    c = torch.zeros(3, device=cuda)
+    for dt in (torch.float64, torch.int32, torch.int64):
+        x = torch.zeros(300, 64, device=cuda, dtype=dt)
+        with pytest.raises(ValueError, match="bfloat16"):
+            kernels.movie_stats(x, 300)
+        with pytest.raises(ValueError, match="bfloat16"):
+            kernels.v_projection(x, a, c)
+
+
+@pytest.mark.parametrize("dtype", NEW_DTYPES + ("float64", "int32"))
+def test_card_resident_dtypes_match_the_float32_movie(cuda, dtype):
+    """A card-resident movie of each dtype against the float32 movie of the
+    same values: equal ranks, reconstruction within 1e-5, K1 and K2 (the
+    40 x 36 grid has a snapped tail) launched on the native dtype or, for
+    float64 and int32, on float32 chunks."""
+    import os
+    import sys
+
+    import localmd_tpu_torch.pipeline as port_pipeline
+    from localmd_tpu_torch.ops import kernels
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from chip_smoke import LAUNCH_DTYPES, install_dtype_spies
+
+    movie = torch.from_numpy(_smooth_movie(600, 40, 36)).to(cuda)
+    if dtype in ("int16", "int32"):
+        movie = (movie * 2000 - 700).round()
+    elif dtype in ("uint8", "int8"):
+        movie = (movie * 100 + (0 if dtype == "uint8" else -60)).round()
+    movie = movie.to(getattr(torch, dtype))
+    # the dtype each K1/K2 launch passes to its CUDA entry point (a spy on
+    # the wrapper itself would take its launch count)
+    install_dtype_spies()
+    runs, seen = [], []
+    for m in (movie, movie.float()):
+        LAUNCH_DTYPES.clear()
+        runs.append(port_pipeline.localmd_decomposition(
+            m, (16, 16), frame_range=600, max_components=6, background_rank=2,
+            temporal_avg_factor=5, seed=0, device="cuda"))
+        seen.append(set(LAUNCH_DTYPES))
+    want = str(movie.dtype if movie.dtype in kernels.KERNEL_DTYPES else torch.float32)
+    want = want.removeprefix("torch.")
+    assert seen == [{("movie_stats", want), ("v_projection", want)},
+                    {("movie_stats", "float32"), ("v_projection", "float32")}]
+    assert runs[0].pipeline_ranks == runs[1].pipeline_ranks
+    frames = np.arange(600)
+    assert _rel_fro(runs[0].reconstruct_frames(frames), runs[1].reconstruct_frames(frames)) <= 1e-5

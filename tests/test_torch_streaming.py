@@ -406,7 +406,7 @@ class _FakeDevice:
 @pytest.mark.parametrize("dtype,raw_dtype", [
     ("uint16", None), ("float32", None),
     ("float32", "uint16"),      # a TIFF of uint16 read as float32: cached as uint16
-    ("int16", None)])           # K1 reads no int16: the port caches float32
+    ("int16", None), ("uint8", None), ("int8", None)])   # cached at their native width
 @pytest.mark.parametrize("policy", ["auto", True])
 def test_cache_plan_matches_jax(free, reserved, allocated, t, dtype, raw_dtype, policy,
                                 monkeypatch):
@@ -414,8 +414,8 @@ def test_cache_plan_matches_jax(free, reserved, allocated, t, dtype, raw_dtype, 
     unallocated bytes as free, as JAX's ``bytes_limit - bytes_in_use``
     (loader.py:535-583): a warm call in one process, whose free memory is
     what the cold call's cache left cached, plans the cold call's cache.
-    Against JAX's plan on a device reporting the same free bytes, for the
-    bytes a frame takes in the port's cache (the stream dtype)."""
+    Equal to JAX's own plan for the same source on a device reporting the
+    same free bytes: both cache the stored dtype (the port's stream dtype)."""
     from localmd_tpu import loader as jl
 
     total = 80 << 30
@@ -428,16 +428,13 @@ def test_cache_plan_matches_jax(free, reserved, allocated, t, dtype, raw_dtype, 
     ours.shape, ours.frame_constant = ours.dataset.shape, port_loader.STATS_CHUNK_FRAMES
     ours.stream_dtype = ours._stream_dtype()
     cached = np.dtype(str(ours.stream_dtype).removeprefix("torch."))
-    assert cached == (np.float32 if dtype == "int16" else np.dtype(raw_dtype or dtype))
+    assert cached == np.dtype(raw_dtype or dtype)
     ref = jl.PMDLoader.__new__(jl.PMDLoader)
-    ref.dataset, ref.shape, ref._cache_policy = _Source(t, cached), (t, 512, 512), policy
+    ref.dataset, ref.shape, ref._cache_policy = _Source(t, dtype, raw_dtype), (t, 512, 512), policy
     ref._cache_fraction, ref._cache_reserve_bytes = 0.5, int(7.5e9)
     ref.frame_constant = jl.STATS_CHUNK_FRAMES
     ref._device = _FakeDevice(total, total - (free + reserved - allocated))
     assert ours._plan_cache_frames() == ref._plan_cache_frames()
-    if dtype == "int16":   # JAX's own int16 plan, at the native 2 bytes a pixel
-        ref.dataset = _Source(t, "int16")
-        assert ref._plan_cache_frames() >= ours._plan_cache_frames()
 
 
 def test_cache_plan_reads_cached_blocks_as_free(monkeypatch):

@@ -375,15 +375,16 @@ HOST_RUNTIME_CALLS = ("cudaDeviceSynchronize", "cudaStreamSynchronize", "cudaEve
 def profile_run(movie, settings: dict, top: int = 12) -> dict:
     """One warm call under torch.profiler: wall, device busy time (union of
     kernel intervals), idle share, the kernels with most device time, the
-    device time of each of the port's four kernels, and the CUDA runtime
-    calls that can hold the host (count and host ms each)."""
+    device time of each of the port's four kernels, each kind of device
+    copy (``Memcpy HtoD`` and the others: count and device ms), and the
+    CUDA runtime calls that can hold the host (count and host ms each)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, wall, _ = timed_run(movie, **settings)
-    spans, by_name, host = [], {}, {}
+    spans, by_name, host, copies = [], {}, {}, {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             if e.name in HOST_RUNTIME_CALLS:
@@ -392,6 +393,9 @@ def profile_run(movie, settings: dict, top: int = 12) -> dict:
             continue
         spans.append((e.time_range.start, e.time_range.end))
         by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+        if e.name.startswith("Memcpy"):
+            n, us = copies.get(e.name, (0, 0.0))
+            copies[e.name] = (n + 1, us + e.time_range.end - e.time_range.start)
     busy_us, end = 0.0, -np.inf
     for s, e in sorted(spans):
         if e > end:
@@ -406,6 +410,7 @@ def profile_run(movie, settings: dict, top: int = 12) -> dict:
             kernel: sum(us for name, us in by_name.items() if any(f in name for f in funcs)) / 1e3
             for kernel, funcs in PORT_KERNEL_NAMES.items()
         },
+        device_copies={name: [n, us / 1e3] for name, (n, us) in sorted(copies.items())},
         host_runtime_calls={name: [n, us / 1e3] for name, (n, us) in sorted(host.items())},
     )
 

@@ -115,6 +115,23 @@ Phases (each prints one progress line; any failure raises, exit code != 0):
    each against the float32 movie of the same values (equal ranks, 512
    sampled frames within 1e-5, K1 on the native dtype, float32 for
    float64), and the golden movie in each dtype, where K2 runs, likewise.
+13. the demo, the grid cache and the console script: (a)
+   ``demos/demo_torch.py --device cuda --no-plots`` in a subprocess on its
+   sim movie at 512 x 512 x 4096 float32 (the decomposition, the .npz
+   and ``load_decomposition``, ``compute_qc_images``, ``export_tiff``, the
+   residual-to-noise ratio in (0.3, 3), ``close``): exit 0, its wall time,
+   kept rank and ratio, K1 and K4 launched by the decomposition and K3 by
+   the export; (b) bench_torch.py's 1024_u16 cell, cold and then three warm
+   calls a round, P / C / C / P, P rebuilding the grid's constants per call
+   as the pipeline did before the grid cached them and C reading
+   ``BlockGrid.device_constants``: equal ranks and 64 sampled frames bit
+   for bit across the warm calls, one upload in the first C call after
+   ``clear_block_grid_cache`` and none in any other call, each side's
+   median, and the bytes
+   ``clear_block_grid_cache`` frees (at least the grid's constants and
+   coset ids); (c) ``localmd-tpu-torch info`` on phase 8's .npz (the
+   demo's without phase 8), the installed script or, where the tree is
+   not installed, pyproject.toml's entry point through ``python3 -c``.
 
 Wherever a path runs, the kernels and routes it launched are checked
 against the route it should take (``expected_routes``): K2 where the cell
@@ -122,7 +139,7 @@ V projection does not run, the route's own calls where it does.
 
 The last two lines are a JSON object with one entry per kernel (its
 launches summed over the runs of phases 3, 4 (the "auto" side), 5, 7 (the
-"auto" side), 8, 9, 10, 11 and 12, each counted from 0) and the result line
+"auto" side), 8, 9, 10, 11, 12 and 13, each counted from 0) and the result line
 ``{"ok": true, "device": {...}}``.
 
 Run from the repository root: ``python3 chip_smoke.py`` (one card; phase 8
@@ -130,7 +147,8 @@ needs ~19 GB of free temporary disk, or prints its cut). ``--phases 0,1,2``
 runs a subset (the result line needs all of them), ``--phases 0,1,10`` the
 mesh path alone, ``--phases 0,1,11`` the cold calls alone (writing the
 north star's raw file itself), ``--phases 0,1,2,8,12`` the kernels and
-the dtypes; ``--frames T`` sets the raw file's T.
+the dtypes, ``--phases 0,1,13`` the demo, the grid cache and the console
+script; ``--frames T`` sets the raw file's T.
 ``--mesh-rank`` and ``--cold-call`` are the entry points of phase 10's rank
 processes and phase 11's cold-call processes.
 Repeated warm timings and a profile: ``bench_torch.py``.
@@ -164,7 +182,7 @@ KERNELS = {
     "jacobi_eigh": ("localmd_tpu_torch/csrc/jacobi_eigh.cu",
                     "scripts/ablate_jacobi_kernel.py:103"),
 }
-ALL_PHASES = (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12)
+ALL_PHASES = (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13)
 # K4's cases: the shapes the paths give it -- the rSVD Gram (256 and 225
 # blocks, k = 30), svd_gram_left (k = 20), the threshold Monte-Carlo (131
 # simulations, k = 11, odd), the background rSVD (k = 25) -- and k = 64
@@ -960,8 +978,9 @@ def phase_from_disk(tmp: str, frames=None):
     """Phase 8, in the temporary directory ``tmp`` (its raw file stays there
     for phase 11). Returns the launch counts of its from-disk runs and of
     the export, each counted from 0 just before it (the card-resident
-    reference run and the comparisons are not counted), and the raw file
-    (path, frames, the frames the cache held)."""
+    reference run and the comparisons are not counted), the raw file
+    (path, frames, the frames the cache held), phase 12's reference and the
+    CLI's .npz with its rank (kept in ``tmp`` for phase 13)."""
     import torch
 
     from bench_torch import NORTHSTAR_BLOCKS, NORTHSTAR_CONFIG, stream_legs, timed_run
@@ -1075,10 +1094,16 @@ def phase_from_disk(tmp: str, frames=None):
     check(back.shape == want.shape and np.array_equal(back, want), "exported TIFF differs")
     os.remove(tif)
 
-    # 8. close without materializing: the factors' device memory goes
+    # 8. close without materializing: the factors' device memory goes; the
+    # row map is the memoized grid's (BlockGrid.device_constants), shared by
+    # every call on this grid and freed by clear_block_grid_cache
+    from localmd_tpu_torch.ops.tiling import block_grid
+
     u = pmd_off._blocksparse
+    check(u.rows is block_grid(512, 512, NORTHSTAR_BLOCKS, "F").device_constants("cuda")[2],
+          "the array's row map is not the grid's cached constant")
     factor_bytes = sum(x.numel() * x.element_size() for x in (
-        u.panels, u.rows, u.dense_basis, pmd_off._r_padded, pmd_off._v_src))
+        u.panels, u.dense_basis, pmd_off._r_padded, pmd_off._v_src))
     before = torch.cuda.memory_allocated()
     del u
     pmd_off.close(materialize=False)
@@ -1124,10 +1149,10 @@ def phase_from_disk(tmp: str, frames=None):
     check(outs[0]["rank"] == outs[1]["rank"] == ref.rank, "cli rank differs from the in-process run")
     check(err <= 1e-5, f"cli reconstruction error {err}")
     del ref
-    for name in (tif_in, npz, npy):
+    for name in (tif_in, npy):      # the .npz stays for phase 13's console script
         os.remove(name)
     torch.cuda.empty_cache()
-    return launches, (path, t, cached), u16_ref
+    return launches, (path, t, cached), u16_ref, (npz, outs[1]["rank"])
 
 
 def u16_max(movie, piece: int = 2048) -> int:
@@ -1894,6 +1919,185 @@ def phase_dtypes(raw, u16_ref: dict) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the demo at full size, the grid's cached constants, the console
+# script
+# ---------------------------------------------------------------------------
+
+DEMO_SHAPE = (512, 512, 4096)       # (d1, d2, T): the north star's FOV
+GRID_CACHE_CALLS = 3                # warm calls per side and round, P / C / C / P
+
+
+def phase_demo(tmp: str) -> tuple:
+    """Phase 13 (a): ``demos/demo_torch.py --device cuda --no-plots`` in a
+    subprocess on its sim movie at ``DEMO_SHAPE``. Returns the launches it
+    reports, summed over its steps, and its .npz with its rank."""
+    import torch
+
+    d1, d2, t = DEMO_SHAPE
+    out_dir = os.path.join(tmp, "demo")
+    torch.cuda.empty_cache()        # the subprocess needs the card's memory
+    cmd = [sys.executable, os.path.join(HERE, "demos", "demo_torch.py"), "", out_dir,
+           "--d1", str(d1), "--d2", str(d2), "--t", str(t), "--device", "cuda", "--no-plots"]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (HERE, os.environ.get("PYTHONPATH")) if p))
+    log(f"phase 13 (a) demos/demo_torch.py on a {d1}x{d2}x{t} float32 sim movie "
+        f"({d1 * d2 * t * 4 / 1e9:.1f} GB) in a subprocess")
+    proc, wall = timed(lambda: subprocess.run(cmd, capture_output=True, text=True, cwd=HERE,
+                                              env=env, timeout=900))
+    check(proc.returncode == 0,
+          f"demo_torch.py exited {proc.returncode}:\n{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    lines = proc.stdout.strip().splitlines()
+    summary = json.loads(lines[-1])
+    for line in lines[:-1]:
+        log(f"  demo: {line}")
+    rnr = summary["residual_noise_ratio"]
+    log(f"  demo wall {wall:.3f} s (process start to exit), decomposition "
+        f"{summary['seconds']:.4f} s, kept rank {summary['rank']}, residual_noise_ratio "
+        f"{rnr:.6f}; launches per step {summary['launches']}")
+    check("--no-plots: skipped the QC panel and the component browser" in lines,
+          "the demo did not say that it skipped the renderings")
+    check(summary["shape"] == [t, d1, d2] and summary["rank"] >= 1,
+          f"demo shape {summary['shape']}, rank {summary['rank']}")
+    check(0.3 < rnr < 3.0, f"the demo's residual_noise_ratio {rnr} is outside (0.3, 3)")
+    steps = summary["launches"]
+    for step, name in (("decomposition", "movie_stats"), ("decomposition", "jacobi_eigh"),
+                       ("export_tiff", "block_reconstruct")):
+        check(steps[step][name] > 0, f"the demo's {step} never launched {name}")
+    n_export = min(500, t)
+    check(os.path.getsize(summary["tiff"]) >= n_export * d1 * d2 * 2,
+          "the demo's TIFF is short")
+    launches = {name: sum(step[name] for step in steps.values()) for name in KERNELS}
+    return launches, (summary["npz"], summary["rank"])
+
+
+def phase_grid_cache() -> dict:
+    """Phase 13 (b): the grid's device constants on bench_torch.py's 1024_u16
+    cell. One cold call, then warm calls in rounds P / C / C / P: P is the
+    per-call rebuild the pipeline made before the grid cached its constants
+    (pageable copies, the row map cast on the host), C reads them from the
+    memoized grid. The cache is
+    cleared before the first C round: its first call uploads once, the rest
+    of the C calls none (counted in ``device_constants``, not timed). Then
+    the bytes ``clear_block_grid_cache`` frees. Returns the launches of all
+    the calls, counted from 0 before the first."""
+    import torch
+
+    from bench_torch import CELLS, make_movie, timed_run
+    from localmd_tpu_torch.ops import kernels, tiling
+    from localmd_tpu_torch.ops.tiling import (BlockGrid, block_grid, clear_block_grid_cache,
+                                              flatten_image)
+
+    d1, d2, t, dtype, settings = CELLS["1024_u16"]
+    log(f"phase 13 (b) grid cache on {d1}x{d2}x{t} {dtype} {settings}: cold, then "
+        f"{GRID_CACHE_CALLS} warm calls a round, P / C / C / P")
+    clear_block_grid_cache()        # earlier phases' grids: only this cell's is measured
+    movie, _ = make_movie(dtype, d1, d2, t)
+    cached = BlockGrid.device_constants
+
+    def per_call(self, device):
+        """The rebuild on every call that the pipeline made before
+        ``device_constants`` existed."""
+        dev = torch.device(device)
+        return (flatten_image(torch.as_tensor(self.weights), "F").to(dev),
+                flatten_image(torch.as_tensor(self.cumulative_weights), self.order).to(dev),
+                torch.as_tensor(self.rows, dtype=torch.long, device=dev), None)
+
+    sample = np.sort(np.random.default_rng(0).choice(t, 64, replace=False))
+    kernels.reset_launch_counts()
+    _, cold, _ = timed_run(movie, **settings)
+    walls, ref = {"P": [], "C": []}, None
+    for i, side in enumerate("PCCP"):
+        if side == "P":
+            BlockGrid.device_constants = per_call
+        elif i == 1:
+            clear_block_grid_cache()
+        uploads = []
+        try:
+            for _ in range(GRID_CACHE_CALLS):
+                before = tiling.UPLOADS["device_constants"]
+                pmd, secs, _ = timed_run(movie, **settings)
+                uploads.append(tiling.UPLOADS["device_constants"] - before)
+                walls[side].append(secs)
+                got = (pmd.pipeline_ranks, pmd.reconstruct_frames(sample))
+                ref = ref or got
+                check(got[0] == ref[0], f"{side}: ranks {got[0]} vs {ref[0]}")
+                check(torch.equal(got[1], ref[1]),
+                      f"{side}: 64 sampled frames differ from the first warm call's")
+                del pmd, got
+        finally:
+            BlockGrid.device_constants = cached
+        log(f"  round {i + 1} ({side}): walls "
+            f"{[round(w, 4) for w in walls[side][-GRID_CACHE_CALLS:]]} s, uploads of the grid "
+            f"constants per call {uploads}")
+        want = [int(i == 1)] + [0] * (GRID_CACHE_CALLS - 1)
+        check(uploads == want, f"round {i + 1} ({side}): uploads {uploads}, expected {want}")
+    del ref
+    launches = kernels.launch_counts()
+    med = {side: float(np.median(w)) for side, w in walls.items()}
+    log(f"  cold {cold:.4f} s; warm medians: per-call rebuild (P) {med['P']:.4f} s, cached (C) "
+        f"{med['C']:.4f} s over {2 * GRID_CACHE_CALLS} calls a side (no claim: one card, "
+        f"one process)")
+
+    grid = block_grid(d1, d2, tuple(settings["blocks"]), "F")
+    before = tiling.UPLOADS["device_constants"]
+    held = list(grid.device_constants("cuda"))
+    ids, _, _, _, _, inv = grid.coset_info("cuda")
+    held += [*ids, inv]
+    check(tiling.UPLOADS["device_constants"] == before, "the grid's constants were not cached")
+    held_bytes = sum(x.numel() * x.element_size() for x in held)
+    del grid, held, ids, inv
+    gc.collect()
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated()
+    clear_block_grid_cache()
+    gc.collect()
+    torch.cuda.synchronize()
+    freed = allocated - torch.cuda.memory_allocated()
+    log(f"  clear_block_grid_cache(): {freed} bytes freed ({freed / 1e6:.3f} MB; the grid held "
+        f"{held_bytes} bytes of constants and coset ids)")
+    check(freed >= held_bytes > 0, f"clear_block_grid_cache freed {freed} of {held_bytes} bytes")
+    del movie
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_console_script(npz: str, rank: int) -> None:
+    """Phase 13 (c): ``localmd-tpu-torch info`` on an .npz; where the script
+    is not installed, the entry point pyproject.toml declares, through
+    ``python3 -c``."""
+    import tomllib
+
+    with open(os.path.join(HERE, "pyproject.toml"), "rb") as f:
+        spec = tomllib.load(f)["project"]["scripts"]["localmd-tpu-torch"]
+    check(spec == "localmd_tpu_torch.cli:main", f"localmd-tpu-torch names {spec}")
+    exe = shutil.which("localmd-tpu-torch")
+    if exe:
+        cmd, how = [exe], f"the installed script {exe}"
+    else:
+        module, attr = spec.split(":")
+        code = f"import sys; from {module} import {attr}; sys.exit({attr}(sys.argv[1:]))"
+        cmd, how = [sys.executable, "-c", code], f"not installed: {spec} through python3 -c"
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (HERE, os.environ.get("PYTHONPATH")) if p))
+    proc, secs = timed(lambda: subprocess.run(cmd + ["info", npz], capture_output=True, text=True,
+                                              cwd=HERE, env=env, timeout=300))
+    check(proc.returncode == 0, f"localmd-tpu-torch info failed ({how}):\n{proc.stderr[-3000:]}")
+    info = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"phase 13 (c) localmd-tpu-torch info ({how}): {secs:.2f} s, {json.dumps(info)}")
+    check(info["rank"] == rank and info["frames"] > 0, f"info rank {info['rank']}, expected {rank}")
+
+
+def phase_demo_and_grid_cache(tmp: str, cli_npz) -> dict:
+    """Phase 13: (a) the demo, (b) the grid cache, (c) the console script on
+    phase 8's .npz, or the demo's where phase 8 did not run. Returns the
+    launches of (a) and (b)."""
+    launches_a, demo_npz = phase_demo(tmp)
+    launches_b = phase_grid_cache()
+    phase_console_script(*(cli_npz or demo_npz))
+    return add_launches(launches_a, launches_b)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(map(str, ALL_PHASES)),
@@ -2008,11 +2212,11 @@ def main(argv=None) -> int:
         if launches is not None:
             launches = {name: launches[name] + launches_7[name] for name in launches}
     # phase 8's raw file stays until phases 11 and 12 have run
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_northstar_") if phases & {8, 11} else None
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_northstar_") if phases & {8, 11, 13} else None
     try:
-        raw, cached, u16_ref = None, None, None
+        raw, cached, u16_ref, cli_npz = None, None, None, None
         if 8 in phases:
-            launches_8, (path, t, cached), u16_ref = phase_from_disk(tmp, args.frames)
+            launches_8, (path, t, cached), u16_ref, cli_npz = phase_from_disk(tmp, args.frames)
             raw = (path, t)
             log(f"  launches from disk (phase 8): {launches_8}")
             # K2's launches follow the V route (check_stream_launches)
@@ -2052,6 +2256,14 @@ def main(argv=None) -> int:
                 check(launches_12[name] > 0, f"phase 12 never launched {name}")
             if launches is not None:
                 launches = add_launches(launches, launches_12)
+        if 13 in phases:
+            launches_13 = phase_demo_and_grid_cache(tmp, cli_npz)
+            log(f"  launches of phase 13 (the demo's steps and the grid-cache calls): "
+                f"{launches_13}")
+            for name in ("movie_stats", "block_reconstruct", "jacobi_eigh"):
+                check(launches_13[name] > 0, f"phase 13 never launched {name}")
+            if launches is not None:
+                launches = add_launches(launches, launches_13)
     finally:
         if tmp is not None:
             shutil.rmtree(tmp, ignore_errors=True)

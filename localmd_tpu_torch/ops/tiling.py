@@ -4,17 +4,45 @@ overlap-add scatter, and explicit F/C-order flattening.
 Counterpart of localmd_tpu/ops/tiling.py. torch reshapes in C order, so the
 F-order pixel id ``i + j*d1`` is encoded here once as explicit transposes.
 The grid itself (``BlockGrid``) is host-side numpy metadata, copied from
-ops/tiling.py:92-303.
+ops/tiling.py:92-303; its device copies (``device_constants``,
+``coset_info``) are made once per grid and device and cached on it.
 """
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass, field
 from functools import lru_cache
 from typing import List, Tuple
 
 import numpy as np
 import torch
+
+# Uploads of a grid's constants to a device (``BlockGrid.device_constants``),
+# one per grid and device: a warm call of a memoized grid adds none. The
+# lock makes the check, the upload and the count one step: volumetric
+# planes on a list of devices share the memoized grids from their threads.
+UPLOADS = {"device_constants": 0}
+_UPLOAD_LOCK = threading.Lock()
+
+
+def _device_key(device) -> torch.device:
+    """The cache key of ``device``: an index-less CUDA device names the
+    current one, which differs between threads that set their own
+    (volumetric planes on a list of devices)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _upload(array: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A copy of one host array on ``dev``: through pinned memory to a card,
+    so the copy does not wait on the stream the way a pageable one does."""
+    host = torch.from_numpy(np.ascontiguousarray(array))
+    if dev.type != "cuda":
+        return host.to(dev, copy=True)
+    return host.pin_memory().to(dev, non_blocking=True)
 
 
 # ---------------------------------------------------------------------------
@@ -139,6 +167,35 @@ class BlockGrid:
     def pixels_per_block(self) -> int:
         return self.block_sizes[0] * self.block_sizes[1]
 
+    def device_constants(self, device):
+        """The per-run constants on ``device`` (ops/tiling.py:190-210):
+        ``(weights_flat (p,), cum_flat (d,), rows (N, p) int64, starts (N, 2)
+        int32)``. ``weights_flat`` flattens the panel row layout (always F
+        within a block), ``cum_flat`` follows the grid's ``order``. Uploaded
+        once per grid and device and cached on the instance, so a memoized
+        grid's warm calls make no copy; :func:`clear_block_grid_cache`
+        frees them. Every caller gets the same tensors: read them, never
+        write to them."""
+        dev = _device_key(device)
+        with _UPLOAD_LOCK:
+            cache = getattr(self, "_device_constants", None)
+            if cache is None:
+                cache = {}
+                object.__setattr__(self, "_device_constants", cache)
+            cached = cache.get(dev)
+            if cached is None:
+                b1, b2 = self.block_sizes
+                host = (
+                    self.weights.T.reshape(b1 * b2),                   # F order
+                    (self.cumulative_weights.T if self.order == "F"
+                     else self.cumulative_weights).reshape(self.d1 * self.d2),
+                    self.rows.astype(np.int64),
+                    self.starts,
+                )
+                cached = cache[dev] = tuple(_upload(a, dev) for a in host)
+                UPLOADS["device_constants"] += 1
+        return cached
+
     def cosets(self):
         """Partition the blocks into groups whose rectangles are pairwise
         disjoint (ops/tiling.py:250-303).
@@ -224,7 +281,7 @@ class BlockGrid:
         if cache is None:
             cache = {}
             object.__setattr__(self, "_coset_info", cache)
-        dev = torch.device(device)
+        dev = _device_key(device)
         cached = cache.get(dev)
         if cached is None:
             cs = self.cosets()
@@ -245,8 +302,23 @@ class BlockGrid:
 
 @lru_cache(maxsize=8)
 def block_grid(d1: int, d2: int, block_sizes: Tuple[int, int], order: str = "F") -> BlockGrid:
-    """Memoized :class:`BlockGrid` (pure host metadata)."""
+    """Memoized :class:`BlockGrid`, so repeated calls of one configuration
+    reuse it (ops/tiling.py:335-345).
+
+    A memoized grid also holds device tensors once the pipeline has run on
+    it: :meth:`BlockGrid.device_constants` (at 1024^2 with 40x40 blocks, 2601
+    blocks: the int64 row map 33.3 MB, the cumulative weights 4.2 MB) and
+    :meth:`BlockGrid.coset_info` (one int64 id per block, ~41 KB), per
+    device. The cache keeps 8 grids; call :func:`clear_block_grid_cache` to
+    free that memory when sweeping many FOV or block shapes in one process."""
     return BlockGrid(d1, d2, tuple(block_sizes), order)
+
+
+def clear_block_grid_cache() -> None:
+    """Drop every memoized grid, and with it its cached device constants and
+    coset metadata (ops/tiling.py:348-352). Safe at any time: a running
+    pipeline and a live ``PMDArray`` keep their own references."""
+    block_grid.cache_clear()
 
 
 # ---------------------------------------------------------------------------

@@ -77,7 +77,6 @@ from localmd_tpu_torch.ops.tiling import (
     block_grid,
     check_fov_size,
     extract_patches,
-    flatten_image,
     update_block_sizes,
 )
 from localmd_tpu_torch.parallel.mesh import pad_to_multiple
@@ -612,9 +611,9 @@ def _decompose(
             ckpt.discard(st)
 
     # -- pyramid-weight + normalize + assemble U -----------------------------
-    weights_flat = flatten_image(torch.as_tensor(grid.weights), "F").to(dev)
-    cum_flat = flatten_image(torch.as_tensor(grid.cumulative_weights), order).to(dev)
-    rows = torch.as_tensor(grid.rows, dtype=torch.long, device=dev)
+    # uploaded once per grid and device, cached on the memoized grid
+    # (pipeline.py:1094-1095)
+    weights_flat, cum_flat, rows, _ = grid.device_constants(dev)
     panels = panels * weights_flat[None, :, None]
     panels = panels / cum_flat[rows][:, :, None]
     u = BlockSparseMatrix(

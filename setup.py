@@ -14,4 +14,10 @@ setup(
         "jaxlib",
     ],
     extras_require={"torch": ["torch"]},
+    entry_points={
+        "console_scripts": [
+            "localmd-tpu = localmd_tpu.cli:main",
+            "localmd-tpu-torch = localmd_tpu_torch.cli:main",
+        ],
+    },
 )

@@ -264,3 +264,160 @@ def test_module_entry_point_runs(tmp_path):
                           capture_output=True, text=True, cwd=ROOT, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout.strip().splitlines()[-1])["frames"] == 280
+
+
+# -- the console script ----------------------------------------------------------
+
+def _resolve(spec):
+    import importlib
+
+    module, attr = spec.split(":")
+    return getattr(importlib.import_module(module), attr)
+
+
+def _setup_console_scripts():
+    """``entry_points["console_scripts"]`` of setup.py's ``setup(...)`` call,
+    read from its source."""
+    import ast
+
+    tree = ast.parse(open(os.path.join(ROOT, "setup.py")).read())
+    call = next(n for n in ast.walk(tree)
+                if isinstance(n, ast.Call) and getattr(n.func, "id", None) == "setup")
+    entry_points = ast.literal_eval(next(k.value for k in call.keywords if k.arg == "entry_points"))
+    return dict(s.replace(" ", "").split("=") for s in entry_points["console_scripts"])
+
+
+def test_console_script_resolves_to_the_cli_main():
+    import tomllib
+
+    with open(os.path.join(ROOT, "pyproject.toml"), "rb") as f:
+        scripts = tomllib.load(f)["project"]["scripts"]
+    assert scripts["localmd-tpu-torch"] == "localmd_tpu_torch.cli:main"
+    assert _resolve(scripts["localmd-tpu-torch"]) is cli_main
+    # setup.py names both scripts as pyproject.toml does
+    assert _setup_console_scripts() == scripts
+
+
+def test_setup_finds_both_packages():
+    from setuptools import find_packages
+
+    found = set(find_packages(where=ROOT, exclude=("tests",)))
+    assert {"localmd_tpu", "localmd_tpu_torch", "localmd_tpu_torch.ops"} <= found
+
+
+# -- demos/demo_torch.py -----------------------------------------------------------
+
+DEMO_SIZE = ["--d1", "40", "--d2", "36", "--t", "500"]
+
+
+def _demo_module():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "demo_torch", os.path.join(ROOT, "demos", "demo_torch.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.fixture(scope="module")
+def demo(tmp_path_factory):
+    """The demo run once at a tiny size on the CPU, with the sketch injected
+    and the thresholds pinned to the JAX package's, beside the JAX package's
+    ``localmd_decomposition`` on the same sim movie with demos/demo.py's
+    arguments (demo.py:39-50)."""
+    import contextlib
+    import io
+
+    import jax.numpy as jnp
+
+    import localmd_tpu.pipeline as jax_pipeline
+    from localmd_tpu.ops.linalg import sketch_override as jax_sketch_override
+    from localmd_tpu_torch import sim
+
+    movie = sim.two_photon_movie(40, 36, 500, n_cells=40, seed=0, device="cpu").numpy()
+    mp = pytest.MonkeyPatch()
+    thresholds = []
+    real = jax_pipeline.threshold_heuristic
+    try:
+        mp.setattr(jax_pipeline, "threshold_heuristic",
+                   lambda *a, **k: thresholds.append(tuple(float(x) for x in real(*a, **k)))
+                   or thresholds[-1])
+        with jax_sketch_override(lambda shape: jnp.asarray(_sketch(shape))):
+            ref = jax_pipeline.localmd_decomposition(
+                movie, block_sizes=(32, 32), frame_range=min(5000, movie.shape[0]),
+                max_components=20, background_rank=15, temporal_avg_factor=10, seed=0)
+        mp.setattr(port_pipeline, "threshold_heuristic", lambda *a, **k: thresholds[0])
+        out_dir = str(tmp_path_factory.mktemp("demo"))
+        stdout = io.StringIO()
+        with sketch_override(_sketch), contextlib.redirect_stdout(stdout):
+            summary = _demo_module().main(["", out_dir, *DEMO_SIZE, "--device", "cpu",
+                                           "--no-plots"])
+    finally:
+        mp.undo()
+    return dict(movie=movie, ref=ref, summary=summary, stdout=stdout.getvalue(),
+                out_dir=out_dir, thresholds=thresholds)
+
+
+def test_demo_writes_the_npz_and_the_tiff(demo):
+    from localmd_tpu_torch import TiffArray, load_decomposition
+
+    summary = demo["summary"]
+    assert summary["npz"] == os.path.join(demo["out_dir"], "decomposition.npz")
+    pmd = load_decomposition(summary["npz"], device=None)
+    assert pmd.shape == (500, 40, 36) and pmd.rank == summary["rank"]
+    tif = TiffArray(summary["tiff"])
+    assert tif.shape == (500, 40, 36)
+    want = np.clip(np.rint(pmd[0:500]), 0, 65535)
+    assert rel_fro(tif[0:500], want) <= 1e-5
+    assert 0.3 < summary["residual_noise_ratio"] < 3.0
+    assert set(summary["launches"]) == {"decomposition", "qc_images", "export_tiff"}
+
+
+def test_demo_no_plots_skips_only_the_renderings(demo):
+    assert "--no-plots: skipped the QC panel and the component browser" in demo["stdout"]
+    assert not demo["summary"]["plots"]
+    assert sorted(os.listdir(demo["out_dir"])) == ["decomposition.npz", "denoised.tif"]
+    assert json.loads(demo["stdout"].strip().splitlines()[-1]) == json.loads(
+        json.dumps(demo["summary"]))
+
+
+def test_demo_matches_the_jax_decomposition(demo):
+    """Equal kept ranks and the reconstruction within the pipeline bar."""
+    from localmd_tpu_torch import load_decomposition
+
+    assert len(demo["thresholds"]) == 1
+    ours = load_decomposition(demo["summary"]["npz"], device=None)
+    assert ours.rank == demo["ref"].rank
+    assert rel_fro(ours[:, :, :], demo["ref"][:, :, :]) <= 1e-4
+
+
+def test_console_script_main_reads_the_demo_npz(demo, capsys):
+    """The declared entry point, called as the installed script would call
+    it, on the demo's file."""
+    import tomllib
+
+    with open(os.path.join(ROOT, "pyproject.toml"), "rb") as f:
+        spec = tomllib.load(f)["project"]["scripts"]["localmd-tpu-torch"]
+    _resolve(spec)(["info", demo["summary"]["npz"]])
+    info = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert info["rank"] == demo["summary"]["rank"] and info["frames"] == 500
+
+
+def test_demo_without_matplotlib_is_an_error(tmp_path, monkeypatch):
+    """Without ``--no-plots`` the renderers need matplotlib: its absence
+    raises, as in the JAX demo, and is never skipped quietly."""
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    with sketch_override(_sketch), pytest.raises(ImportError):
+        _demo_module().main(["", str(tmp_path), "--d1", "24", "--d2", "24", "--t", "200",
+                             "--device", "cpu"])
+    assert os.path.exists(str(tmp_path / "decomposition.npz"))
+    assert not os.path.exists(str(tmp_path / "denoised.tif"))
+
+
+def test_demo_defaults_to_the_card(tmp_path, monkeypatch):
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        _demo_module().main(["", str(tmp_path)])

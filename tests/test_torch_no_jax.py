@@ -15,7 +15,7 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "localmd_tpu_torch")
 # the scripts that drive the port on the card, where jax is not installed
-SCRIPTS = ("chip_smoke.py", "bench_torch.py", "kernel_variants.py")
+SCRIPTS = ("chip_smoke.py", "bench_torch.py", "kernel_variants.py", "demos/demo_torch.py")
 FORBIDDEN = ("jax", "jaxlib", "localmd_tpu")
 
 

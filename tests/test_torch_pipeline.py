@@ -7,6 +7,12 @@ third split of ``PRNGKey(seed)``, pipeline.py:552-1288), (e) the
 multi-window block stage (``window_chunks`` 100 of ``frame_range`` 400:
 four windows) in float32 and uint16, with the thresholds pinned to the JAX
 package's ``threshold_heuristic`` so that blocks do not fill in window 0.
+(f) the call options with no other port test, on 500x40x36 movies:
+``pixel_weighting`` (a seeded 0.5-2.0 map), ``max_consecutive_failures``
+1 and 2 and ``frame_batch_size`` 128 under the JAX package's own
+thresholds, ``rank_prune_factor`` 0.5, and ``sim_conf`` 10 with the port's
+Monte-Carlo fed the JAX package's draws (its key tree's noise blocks, the
+injected sketch), whose thresholds must equal the JAX package's to 1e-4.
 Plus the state carried across: ``PMDArray.from_reference_state`` and .npz
 files in both directions. Tolerance: reconstruction 1e-4 relative
 Frobenius, std image rtol 1e-4, ``pipeline_ranks`` and kept rank equal;
@@ -31,8 +37,26 @@ CASES = {
     "multi_window_u16": dict(shape=(800, 48, 40), dtype="uint16", order="F", frame_range=400,
                              blocks=(16, 16), window_chunks=100, noise=0.3),
 }
+# the call options, each on a golden-sized noisy movie; "thresholds": "jax"
+# pins the port to the JAX package's own Monte-Carlo result, "injected"
+# runs the port's Monte-Carlo on the JAX package's draws
+OPTION_BASE = dict(shape=(500, 40, 36), dtype="float32", order="F", frame_range=500,
+                   blocks=(16, 16), noise=0.3)
+CASES.update({
+    "pixel_weighting": dict(OPTION_BASE, pixel_weighting=True),
+    "max_failures_1": dict(OPTION_BASE, max_consecutive_failures=1, thresholds="jax"),
+    "max_failures_2": dict(OPTION_BASE, max_consecutive_failures=2, thresholds="jax"),
+    "frame_batch_size": dict(OPTION_BASE, frame_batch_size=128, thresholds="jax"),
+    # T is not the crop's 500: the background rSVD's sketch is (T, k) for
+    # T <= 1000, and _port_draws tells the rank-prune matrix by its rows
+    "rank_prune_factor": dict(OPTION_BASE, shape=(600, 40, 36), rank_prune=True,
+                              rank_prune_factor=0.5),
+    "sim_conf": dict(OPTION_BASE, sim_conf=10.0, sim_iters=24, thresholds="injected"),
+})
 MULTI_WINDOW = [name for name, case in CASES.items() if "window_chunks" in case]
 SETTINGS = dict(max_components=6, background_rank=2, temporal_avg_factor=5, seed=0)
+OPTIONS = ("max_consecutive_failures", "frame_batch_size", "rank_prune_factor", "sim_conf",
+           "sim_iters")
 
 
 def _movie(case):
@@ -50,7 +74,8 @@ def _sketch(shape):
 
 def _port_draws(case):
     """The port's draws: the fixed sketch, and for ``rank_prune`` the JAX
-    package's rank-prune matrix, recognized by its (crop frames, m) shape."""
+    package's rank-prune matrix, recognized by its (crop frames, m) shape
+    (so a rank-prune case's T must not equal its crop)."""
     if not case.get("rank_prune"):
         return _sketch
     import jax
@@ -69,11 +94,16 @@ def _port_draws(case):
 
 
 def _options(case):
-    return dict(
+    opts = dict(
         frame_range=case["frame_range"], order=case["order"],
         rank_prune=case.get("rank_prune", False), window_chunks=case.get("window_chunks"),
         **SETTINGS,
     )
+    opts.update((k, case[k]) for k in OPTIONS if k in case)
+    if case.get("pixel_weighting"):
+        opts["pixel_weighting"] = np.random.default_rng(5).uniform(
+            0.5, 2.0, case["shape"][1:]).astype(np.float32)
+    return opts
 
 
 def _jax_thresholds(case):
@@ -88,23 +118,74 @@ def _jax_thresholds(case):
     return tuple(float(x) for x in threshold_heuristic(dims, iters=250, key=sub))
 
 
-def _run_jax(movie, case, monkeypatch, thresholds=(1e9, 1e9)):
+def _run_jax(movie, case, monkeypatch, thresholds=(1e9, 1e9), seen=None):
+    """``thresholds=None`` runs the JAX package's own Monte-Carlo (its cache
+    emptied, so the injected sketch reaches it) and appends each call's
+    arguments and thresholds to ``seen``."""
     import jax.numpy as jnp
 
+    import localmd_tpu.engine as jax_engine
     import localmd_tpu.pipeline as jax_pipeline
     from localmd_tpu.ops.linalg import sketch_override
 
-    monkeypatch.setattr(jax_pipeline, "threshold_heuristic", lambda *a, **k: thresholds)
+    if thresholds is None:
+        real = jax_pipeline.threshold_heuristic
+
+        def spy(*a, **k):
+            seen.append((a, k, tuple(float(x) for x in real(*a, **k))))
+            return seen[-1][2]
+
+        monkeypatch.setattr(jax_engine, "_threshold_cache", {})
+        monkeypatch.setattr(jax_pipeline, "threshold_heuristic", spy)
+    else:
+        monkeypatch.setattr(jax_pipeline, "threshold_heuristic", lambda *a, **k: thresholds)
     with sketch_override(lambda shape: jnp.asarray(_sketch(shape))):
         return jax_pipeline.localmd_decomposition(movie, case["blocks"], **_options(case))
 
 
-def _run_port(movie, case, monkeypatch, thresholds=(1e9, 1e9), residual_calls=None):
+def _jax_noise_blocks(call):
+    """The simulated noise blocks of one JAX ``threshold_heuristic`` call, in
+    its order: the first ``iters`` keys of its key tree (engine.py:920-922,
+    955-957)."""
+    import jax
+
+    (dims,), kwargs, _ = call
+    iters, sim_batch = kwargs["iters"], kwargs.get("sim_batch", 32)
+    keys = jax.random.split(kwargs["key"], -(-iters // sim_batch) * sim_batch)[:iters]
+    return np.stack([np.asarray(jax.random.normal(jax.random.split(k)[0], dims)) for k in keys])
+
+
+def _inject_jax_noise(monkeypatch, call):
+    """The port's Monte-Carlo draws the JAX package's noise blocks in order;
+    its sketches stay the injected sketch."""
+    import localmd_tpu_torch.engine as port_engine
+
+    noise, dims, taken = _jax_noise_blocks(call), tuple(call[0][0]), [0]
+    real = port_engine.normal
+
+    def normal(shape, generator, device, batch=()):
+        if tuple(shape) != dims:
+            return real(shape, generator, device, batch)
+        idx = (taken[0] + np.arange(batch[0])) % len(noise)   # past iters: dropped
+        taken[0] += batch[0]
+        return torch.as_tensor(noise[idx], device=device)
+
+    monkeypatch.setattr(port_engine, "normal", normal)
+
+
+def _run_port(movie, case, monkeypatch, thresholds=(1e9, 1e9), residual_calls=None, seen=None):
+    """``thresholds=None`` runs the port's own Monte-Carlo and appends its
+    thresholds to ``seen``."""
     import localmd_tpu_torch.engine as port_engine
     import localmd_tpu_torch.pipeline as port_pipeline
     from localmd_tpu_torch.utils.random import sketch_override
 
-    monkeypatch.setattr(port_pipeline, "threshold_heuristic", lambda *a, **k: thresholds)
+    if thresholds is None:
+        real = port_pipeline.threshold_heuristic
+        monkeypatch.setattr(port_pipeline, "threshold_heuristic",
+                            lambda *a, **k: seen.append(real(*a, **k)) or seen[-1])
+    else:
+        monkeypatch.setattr(port_pipeline, "threshold_heuristic", lambda *a, **k: thresholds)
     if residual_calls is not None:
         residual = port_engine.single_residual_block_md_batched
         monkeypatch.setattr(port_engine, "single_residual_block_md_batched",
@@ -124,10 +205,17 @@ def runs():
         for name, case in CASES.items():
             movie = _movie(case)
             thr = _jax_thresholds(case) if name in MULTI_WINDOW else (1e9, 1e9)
-            calls = []
-            jax_pmd = _run_jax(movie, case, mp, thr)
-            port_pmd = _run_port(movie, case, mp, thr, calls)
+            calls, jax_seen, port_seen = [], [], []
+            mode = case.get("thresholds")
+            jax_pmd = _run_jax(movie, case, mp, None if mode else thr, jax_seen)
+            if mode == "jax":
+                thr = jax_seen[0][2]
+            elif mode == "injected":
+                _inject_jax_noise(mp, jax_seen[0])
+                thr = None
+            port_pmd = _run_port(movie, case, mp, thr, calls, port_seen)
             port_pmd.residual_calls = len(calls)
+            port_pmd.thresholds = (jax_seen, port_seen)
             out[name] = (movie, jax_pmd, port_pmd)
             mp.undo()
     finally:
@@ -149,6 +237,37 @@ def test_port_matches_live_jax_pipeline(name, runs):
     )
     assert port_pmd.rank == jax_pmd.rank
     assert port_pmd.pipeline_ranks == jax_pmd.pipeline_ranks
+
+
+THRESHOLD_CASES = [name for name, case in CASES.items() if "thresholds" in case]
+
+
+@pytest.mark.parametrize("name", THRESHOLD_CASES)
+def test_option_cases_take_real_thresholds(name, runs):
+    """The JAX package ran its own Monte-Carlo once with the case's
+    ``sim_conf`` and ``sim_iters``; with the JAX draws injected the port's
+    gives the same thresholds. The noisy movie leaves components for them to
+    reject, so ``max_consecutive_failures`` decides something."""
+    _, jax_pmd, port_pmd = runs[name]
+    case = CASES[name]
+    jax_seen, port_seen = port_pmd.thresholds
+    assert len(jax_seen) == 1
+    (_, kwargs, jax_thr) = jax_seen[0]
+    assert kwargs["percentile_threshold"] == case.get("sim_conf", 5)
+    assert kwargs["iters"] == case.get("sim_iters", 250)
+    if case["thresholds"] == "injected":
+        assert len(port_seen) == 1
+        np.testing.assert_allclose(port_seen[0], jax_thr, rtol=1e-4)
+    from localmd_tpu_torch.ops.tiling import BlockGrid
+
+    n_blocks = BlockGrid(*case["shape"][1:], case["blocks"]).n_blocks
+    assert jax_pmd.pipeline_ranks["blockwise"] < SETTINGS["max_components"] * n_blocks
+
+
+def test_max_consecutive_failures_keeps_more_with_two(runs):
+    ones, twos = (runs[name][2].pipeline_ranks["blockwise"]
+                  for name in ("max_failures_1", "max_failures_2"))
+    assert ones <= twos
 
 
 @pytest.mark.parametrize("name", MULTI_WINDOW)

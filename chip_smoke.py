@@ -95,14 +95,22 @@ Phases (each prints one progress line; any failure raises, exit code != 0):
    stages beside the reference's.
 11. cold calls in fresh processes: the north star from phase 8's raw file
    (the page cache warm) and bench.py's 512 x 512 x 2048 float32 cell made
-   on the card, each in ``COLD_RUNS`` processes; each process (a
+   on the card, each in three timed processes (``aot_warm`` "auto", True,
+   False: ``COLD_AOT_WARM``) and one more whose cold call runs under the
+   autograd profiler with CUDA activity alone, for its ``cudaLaunchKernel``
+   time (its walls are left out of the medians); each process (a
    ``--cold-call`` subprocess of this script, the kernels already built)
    makes one cold call and one warm call. Checks: 512 sampled frames,
    ``pipeline_ranks``, the kept rank and the thresholds equal bit for bit
-   across the processes of a cell; the north star's cached frames equal to
-   phase 8's in every call. Prints each process's seconds from its start
-   to the call, both walls and the stages, and the medians with each
-   stage's cold-minus-warm time.
+   across the processes and settings of a cell; ``pipeline_aot`` and
+   ``pipeline_warm`` the JAX package's with its warms off (the port has no
+   stage warm), on every setting; ``torch.distributed.tensor`` loaded
+   neither by the port's import nor by the call (no mesh); the north
+   star's cached frames equal to phase 8's in every call. Prints each
+   process's seconds from its start to the call (the port's import
+   apart), the cold wall and statistics stage, ``pipeline_warm`` and
+   ``pipeline_aot``, both walls and the stages, and the timed processes'
+   medians with each stage's cold-minus-warm time.
 12. dtypes: (a) phase 8's raw file read as int16 (its values all fit),
    cache "auto", cold and warm, against phase 8's uint16 runs: equal
    statistics and ``pipeline_ranks``, 512 sampled frames within 1e-5 (and
@@ -1570,33 +1578,39 @@ def phase_mesh() -> dict:
 # ---------------------------------------------------------------------------
 
 COLD_CELLS = ("northstar", "512_f32")
-COLD_RUNS = 3                 # processes per cell
+# ``aot_warm`` of a cell's timed processes: every value once (the port has
+# no stage warm, so all must give the same frames)
+COLD_AOT_WARM = ("auto", True, False)
 COLD_TIMEOUT = 300            # seconds for one process, then it is killed
 COLD_SAMPLE_FRAMES = 512
 
 
 def cold_call(cell: str, out_path: str, spawn_time: float, raw_path: str, frames: int,
-              save_recon: bool) -> int:
-    """One process of phase 11: a cold call of ``cell``, then a warm call.
-    Writes the seconds from the process's start to the call (split into
-    the interpreter with torch's import and the CUDA check, the port's
-    imports (``torch.distributed.tensor``, which ``parallel`` imports,
-    timed apart), the CUDA context and the movie), both calls' walls and
-    stages, the cold call's peak memory and launches (with its read-back),
-    ranks, thresholds, cached frames and a digest of 512 sampled frames
-    (the frames themselves with ``save_recon``)."""
+              save_recon: bool, aot_warm, profiled: bool) -> int:
+    """One process of phase 11: a cold call of ``cell`` with ``aot_warm``,
+    then a warm call. Writes the seconds from the process's start to the
+    call (split into the interpreter with torch's import and the CUDA
+    check, the port's imports, the CUDA context and the movie), whether the
+    port's import and the cold call loaded ``torch.distributed.tensor``,
+    both calls' walls, stages and ``pipeline_warm`` / ``pipeline_aot``, the
+    cold call's peak memory and launches (with its read-back), ranks,
+    thresholds, cached frames and a digest of 512 sampled frames (the
+    frames themselves with ``save_recon``). With ``profiled`` the cold call
+    runs under the autograd profiler with CUDA activity alone, for its host
+    time in ``cudaLaunchKernel`` (a kernel's first launch loads its module
+    there); its walls are then not those of an unprofiled call."""
     import hashlib
 
     entered = time.time()
     import torch
-    import torch.distributed.tensor  # noqa: F401 - timed apart: parallel/ imports it
 
-    dist_tensor = time.time()
+    torch_imported = time.time()
     from bench_torch import BLOCKS, NORTHSTAR_BLOCKS, NORTHSTAR_CONFIG, make_movie, timed_run
     from localmd_tpu_torch import RawBinaryArray, config, engine
     from localmd_tpu_torch.ops import kernels
 
     imported = time.time()
+    dist_tensor_after_import = "torch.distributed.tensor" in sys.modules
     config.apply()
     torch.zeros(1, device="cuda")
     torch.cuda.synchronize()
@@ -1609,8 +1623,24 @@ def cold_call(cell: str, out_path: str, spawn_time: float, raw_path: str, frames
         blocks, settings = BLOCKS, {}
     torch.cuda.synchronize()
     to_call = time.time() - spawn_time
+    settings["aot_warm"] = aot_warm
     kernels.reset_launch_counts()
-    pmd, cold, peak = timed_run(movie, blocks=blocks, **settings)
+    launch_n, launch_ms = None, None
+    if profiled:
+        # the autograd profiler with CUDA activity alone: torch.profiler.profile
+        # imports torch._inductor when it starts (and with it
+        # torch.distributed.tensor, seconds of the process)
+        from torch.autograd.profiler import profile
+
+        with profile(use_device="cuda", use_cpu=False, use_kineto=True) as prof:
+            pmd, cold, peak = timed_run(movie, blocks=blocks, **settings)
+        launches_us = [e.time_range.end - e.time_range.start for e in prof.function_events
+                       if e.name == "cudaLaunchKernel"]
+        launch_n, launch_ms = len(launches_us), sum(launches_us) / 1e3
+        del prof
+    else:
+        pmd, cold, peak = timed_run(movie, blocks=blocks, **settings)
+    dist_tensor_after_call = "torch.distributed.tensor" in sys.modules
     t_total = pmd.shape[0]
     sample = np.sort(np.random.default_rng(0).choice(t_total, COLD_SAMPLE_FRAMES, replace=False))
     recon = pmd.reconstruct_frames(sample).cpu().contiguous()
@@ -1618,10 +1648,15 @@ def cold_call(cell: str, out_path: str, spawn_time: float, raw_path: str, frames
     if save_recon:
         torch.save(recon, out_path + ".recon.pt")
     result = dict(
-        cell=cell, spawn_to_call_s=to_call, start_s=entered - spawn_time,
-        import_s=imported - entered, dist_tensor_import_s=dist_tensor - entered,
+        cell=cell, aot_warm=aot_warm, profiled=profiled, spawn_to_call_s=to_call,
+        start_s=entered - spawn_time, import_s=imported - entered,
+        port_import_s=imported - torch_imported,
+        dist_tensor_after_import=dist_tensor_after_import,
+        dist_tensor_after_call=dist_tensor_after_call,
         context_s=context - imported,
         movie_s=to_call - (context - spawn_time), cold_s=cold, cold_stages=pmd.pipeline_timings,
+        cold_warm=pmd.pipeline_warm, cold_aot=pmd.pipeline_aot,
+        launch_kernel_calls=launch_n, launch_kernel_ms=launch_ms,
         peak_gib=peak, launches=launches, ranks=pmd.pipeline_ranks, kept=pmd.rank,
         thresholds=[list(v) for v in engine._threshold_cache.values()],
         cached_frames=pmd.pipeline_cache["cached_frames"],
@@ -1630,13 +1665,14 @@ def cold_call(cell: str, out_path: str, spawn_time: float, raw_path: str, frames
     del pmd, recon
     pmd, warm, _ = timed_run(movie, blocks=blocks, **settings)
     result.update(warm_s=warm, warm_stages=pmd.pipeline_timings,
-                  warm_cached_frames=pmd.pipeline_cache["cached_frames"])
+                  warm_cached_frames=pmd.pipeline_cache["cached_frames"],
+                  warm_warm=pmd.pipeline_warm, warm_aot=pmd.pipeline_aot)
     with open(out_path, "w") as f:
         json.dump(result, f)
     return 0
 
 
-def _cold_process(cell, out_dir, raw, i, save_recon) -> dict:
+def _cold_process(cell, out_dir, raw, i, save_recon, aot_warm, profiled) -> dict:
     """Start one ``--cold-call`` process, wait for it within
     ``COLD_TIMEOUT`` (killed after it) and read what it wrote."""
     path, frames = raw
@@ -1645,7 +1681,8 @@ def _cold_process(cell, out_dir, raw, i, save_recon) -> dict:
     with open(log_path, "w") as log_file:
         proc = subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--cold-call", cell, out,
-             repr(time.time()), path, str(frames), str(int(save_recon))],
+             repr(time.time()), path, str(frames), str(int(save_recon)), json.dumps(aot_warm),
+             str(int(profiled))],
             cwd=HERE, stdout=log_file, stderr=subprocess.STDOUT)
         try:
             proc.wait(timeout=COLD_TIMEOUT)
@@ -1669,7 +1706,8 @@ def phase_cold(tmp: str, raw, cached_frames) -> dict:
 
     log(f"phase 11 cold calls in fresh processes: the north star from its raw file "
         f"(512x512x{raw[1]} uint16) and 512x512x2048 float32 made on the card, "
-        f"{COLD_RUNS} processes each")
+        f"{len(COLD_AOT_WARM)} timed processes each (aot_warm {list(COLD_AOT_WARM)}) "
+        f"and one under the profiler")
     torch.cuda.empty_cache()
     launches: dict = {}
     failed = []
@@ -1679,16 +1717,24 @@ def phase_cold(tmp: str, raw, cached_frames) -> dict:
             log(f"    FAILED: {what}")
             failed.append(what)
 
+    runs = [(aot, False) for aot in COLD_AOT_WARM] + [("auto", True)]
     for cell in COLD_CELLS:
         rs = []
-        for i in range(COLD_RUNS):
-            r = _cold_process(cell, tmp, raw, i, save_recon=i < 2)
+        for i, (aot, profiled) in enumerate(runs):
+            r = _cold_process(cell, tmp, raw, i, save_recon=i < 2, aot_warm=aot,
+                              profiled=profiled)
             rs.append(r)
-            log(f"  {cell} #{i}: process to call {r['spawn_to_call_s']:.3f} s "
-                f"(interpreter and torch {r['start_s']:.3f}, imports {r['import_s']:.3f} of "
-                f"which torch.distributed.tensor {r['dist_tensor_import_s']:.3f}, CUDA "
-                f"context {r['context_s']:.3f}, movie {r['movie_s']:.3f}); cold "
-                f"{r['cold_s']:.4f} s, warm {r['warm_s']:.4f} s; cold stages "
+            launch = (f", cudaLaunchKernel {r['launch_kernel_ms']:.1f} ms in "
+                      f"{r['launch_kernel_calls']} calls" if profiled else "")
+            log(f"  {cell} #{i} aot_warm={aot}{' profiled' if profiled else ''}: process to "
+                f"call {r['spawn_to_call_s']:.3f} s (interpreter and torch {r['start_s']:.3f}, "
+                f"imports {r['import_s']:.3f} of which the port {r['port_import_s']:.3f}, "
+                f"torch.distributed.tensor loaded {r['dist_tensor_after_import']} after the "
+                f"import and {r['dist_tensor_after_call']} after the call, CUDA context "
+                f"{r['context_s']:.3f}, movie {r['movie_s']:.3f}); cold {r['cold_s']:.4f} s "
+                f"(statistics {r['cold_stages']['stats_and_background']:.4f} s{launch}, "
+                f"pipeline_warm {json.dumps(r['cold_warm'])}, pipeline_aot "
+                f"{json.dumps(r['cold_aot'])}), warm {r['warm_s']:.4f} s; cold stages "
                 + json.dumps({k: round(v, 4) for k, v in r["cold_stages"].items()})
                 + "; warm stages "
                 + json.dumps({k: round(v, 4) for k, v in r["warm_stages"].items()})
@@ -1696,6 +1742,15 @@ def phase_cold(tmp: str, raw, cached_frames) -> dict:
                 f"{r['cached_frames']}/{r['warm_cached_frames']}")
             for name, n in r["launches"].items():
                 launches[name] = launches.get(name, 0) + n
+            expect(not r["dist_tensor_after_import"] and not r["dist_tensor_after_call"],
+                   f"{cell} #{i}: the port loaded torch.distributed.tensor without a mesh")
+            for when in ("cold", "warm"):
+                # the port has no stage warm (PERF.md): what the JAX package
+                # reports with its warms off, whatever the setting
+                expect(r[f"{when}_aot"] == {"enabled": False, "used": False}
+                       and r[f"{when}_warm"] == {"completed": [], "errors": {}},
+                       f"{cell} #{i}: the {when} call's pipeline_aot {r[f'{when}_aot']} and "
+                       f"pipeline_warm {r[f'{when}_warm']} with aot_warm={aot}")
             if cell == "northstar" and cached_frames is not None:
                 expect(r["cached_frames"] == r["warm_cached_frames"] == cached_frames,
                        f"{cell} #{i}: cached {r['cached_frames']}/{r['warm_cached_frames']} "
@@ -1708,23 +1763,28 @@ def phase_cold(tmp: str, raw, cached_frames) -> dict:
                    f"{cell} #{i}: frames, ranks or thresholds differ from the first process's "
                    f"({r['ranks']} / {r['kept']} / {r['thresholds']} against "
                    f"{base['ranks']} / {base['kept']} / {base['thresholds']})")
-        if COLD_RUNS > 1:
-            first = torch.load(os.path.join(tmp, f"{cell}_0.json.recon.pt"))
-            second = torch.load(os.path.join(tmp, f"{cell}_1.json.recon.pt"))
-            log(f"  {cell}: 512 sampled frames of the first two processes: equal "
-                f"{bool(torch.equal(first, second))}; thresholds {base['thresholds']}")
-            del first, second
+        # the first two processes are aot_warm "auto" and True
+        first = torch.load(os.path.join(tmp, f"{cell}_0.json.recon.pt"))
+        second = torch.load(os.path.join(tmp, f"{cell}_1.json.recon.pt"))
+        equal = bool(torch.equal(first, second))
+        log(f"  {cell}: 512 sampled frames of the first two processes (aot_warm "
+            f"{runs[0][0]} and {runs[1][0]}): equal {equal}; thresholds {base['thresholds']}")
+        expect(equal, f"{cell}: the sampled frames differ between aot_warm settings")
+        del first, second
         med = lambda vals: float(np.median(vals))  # noqa: E731
+        timed = [r for r in rs if not r["profiled"]]
         stages = base["cold_stages"].keys()
         summary = dict(
             spawn_to_call_s=med([r["spawn_to_call_s"] for r in rs]),
-            cold_s=med([r["cold_s"] for r in rs]), warm_s=med([r["warm_s"] for r in rs]),
-            cold_stages_s={k: med([r["cold_stages"][k] for r in rs]) for k in stages},
-            cold_minus_warm_s={k: med([r["cold_stages"][k] - r["warm_stages"][k] for r in rs])
+            port_import_s=med([r["port_import_s"] for r in rs]),
+            cold_s=med([r["cold_s"] for r in timed]), warm_s=med([r["warm_s"] for r in timed]),
+            cold_stages_s={k: med([r["cold_stages"][k] for r in timed]) for k in stages},
+            cold_minus_warm_s={k: med([r["cold_stages"][k] - r["warm_stages"][k] for r in timed])
                                for k in stages},
             peak_gib=max(r["peak_gib"] for r in rs),
+            launch_kernel_ms_profiled=[r["launch_kernel_ms"] for r in rs if r["profiled"]],
         )
-        log(f"  {cell} medians: " + json.dumps(summary))
+        log(f"  {cell} medians of the timed processes: " + json.dumps(summary))
     check(not failed, "phase 11: " + "; ".join(failed))
     return launches
 
@@ -2107,8 +2167,9 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh-rank", nargs=5, default=None,
                     metavar=("WORLD", "RANK", "PORT", "BACKEND", "OUT_DIR"),
                     help="run one rank of phase 10 (started by phase 10 itself)")
-    ap.add_argument("--cold-call", nargs=6, default=None,
-                    metavar=("CELL", "OUT", "SPAWN_TIME", "RAW", "FRAMES", "SAVE_RECON"),
+    ap.add_argument("--cold-call", nargs=8, default=None,
+                    metavar=("CELL", "OUT", "SPAWN_TIME", "RAW", "FRAMES", "SAVE_RECON",
+                             "AOT_WARM", "PROFILED"),
                     help="run one process of phase 11 (started by phase 11 itself)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -2125,8 +2186,9 @@ def main(argv=None) -> int:
         world, rank, port, backend, out_dir = args.mesh_rank
         return mesh_rank(int(world), int(rank), int(port), backend, out_dir)
     if args.cold_call:
-        cell, out, spawn, raw, frames, save = args.cold_call
-        return cold_call(cell, out, float(spawn), raw, int(frames), bool(int(save)))
+        cell, out, spawn, raw, frames, save, aot, profiled = args.cold_call
+        return cold_call(cell, out, float(spawn), raw, int(frames), bool(int(save)),
+                         json.loads(aot), bool(int(profiled)))
     from bench_torch import card_line, make_movie
     from localmd_tpu_torch import config
     from localmd_tpu_torch.ops import _build, kernels

@@ -424,7 +424,7 @@ class PMDLoader:
         self.device = dev
         self.shape = tuple(int(s) for s in self.dataset.shape)
         self.batch_size = batch_size
-        self.order = order
+        self._order = order
         self.background_rank = background_rank
         self.frame_constant = frame_constant
         self.welch_compat = welch_compat
@@ -481,6 +481,10 @@ class PMDLoader:
 
     def _f32(self, x) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x, dtype=np.float32), device=self.device)
+
+    @property
+    def order(self) -> str:
+        return self._order
 
     @property
     def n_pixels(self) -> int:

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (``localmd_tpu_torch/csrc``).
 
 Each ``.cu`` source compiles with its own ``nvcc`` for ``sm_90a`` (all
-started together), and the objects link into one shared library with a
+started together; K2 is split into one source per movie dtype so that no
+one process holds the build), and the objects link into one shared library with a
 plain C interface, loaded with ``ctypes``. The build runs at
 first use, into ``localmd_tpu_torch/_build/`` (git-ignored), keyed on a
 hash of the sources and flags, so a fresh checkout builds once and later
@@ -27,8 +28,14 @@ from typing import Optional
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SOURCES = ("movie_stats.cu", "v_projection.cu", "block_reconstruct.cu", "jacobi_eigh.cu")
-HEADERS = ("tf32_common.cuh", "wgmma_tf32.cuh")
+# K2 is one translation unit per movie dtype (each instantiates its eleven
+# tile widths) beside its entry points: in one source its nvcc was the
+# build's wall
+V_PROJECTION_DTYPE_SOURCES = tuple(
+    f"v_projection_{dt}.cu" for dt in ("f32", "u16", "i16", "u8", "i8", "f16", "bf16"))
+SOURCES = ("movie_stats.cu", "v_projection.cu", *V_PROJECTION_DTYPE_SOURCES,
+           "block_reconstruct.cu", "jacobi_eigh.cu")
+HEADERS = ("tf32_common.cuh", "wgmma_tf32.cuh", "v_projection.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -12,14 +12,20 @@ the stages and ``sharded`` for the split functions.
 from __future__ import annotations
 
 import os
-from typing import List, Optional
+from typing import TYPE_CHECKING, List, Optional
 
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
-from torch.distributed.tensor import Placement, Replicate, Shard
 
 from localmd_tpu_torch.config import resolve_device
+
+if TYPE_CHECKING:
+    from torch.distributed.tensor import Placement
+
+# ``torch.distributed.tensor`` (DTensor) is imported only by the functions
+# that build placements: importing it takes seconds, and a run without a
+# mesh never needs it.
 
 BLOCK_AXIS = "blocks"
 
@@ -60,15 +66,21 @@ def make_mesh(n_devices: Optional[int] = None, axis_name: str = BLOCK_AXIS,
 
 def block_sharding(mesh: DeviceMesh) -> List[Placement]:
     """Split the leading (n_blocks) axis over ``mesh`` (mesh.py:38-40)."""
+    from torch.distributed.tensor import Shard
+
     return [Shard(0)]
 
 
 def frame_sharding(mesh: DeviceMesh) -> List[Placement]:
     """Split the trailing frames axis of a (pixels, frames) chunk (mesh.py:43-45)."""
+    from torch.distributed.tensor import Shard
+
     return [Shard(1)]
 
 
 def replicated(mesh: DeviceMesh) -> List[Placement]:
+    from torch.distributed.tensor import Replicate
+
     return [Replicate()]
 
 

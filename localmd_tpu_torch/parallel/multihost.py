@@ -37,7 +37,6 @@ from typing import Optional, Tuple
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import Replicate
 
 
 def process_count() -> int:
@@ -125,6 +124,8 @@ def host_local_to_global(mesh: DeviceMesh, spec, full_array, shard_axis: int = 0
     """This rank's part of an array every rank holds in full (multihost.py:85-116):
     the array itself for a replicated ``spec``, else this rank's contiguous
     stripe of ``shard_axis`` (its length divisible by the mesh size)."""
+    from torch.distributed.tensor import Replicate  # seconds to import: only with a mesh
+
     if all(isinstance(p, Replicate) for p in spec):
         return full_array
     world, rank = world_and_rank(mesh)

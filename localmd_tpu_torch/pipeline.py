@@ -52,6 +52,7 @@ import numpy as np
 import torch
 
 from localmd_tpu_torch import config
+from localmd_tpu_torch.aot import normalized_init_geometry
 from localmd_tpu_torch.blocksparse import BlockSparseMatrix, coset_vproj_eligible
 from localmd_tpu_torch.checkpoint import PipelineCheckpoint
 from localmd_tpu_torch.dataset import as_dataset
@@ -73,12 +74,7 @@ from localmd_tpu_torch.factorization import (
 )
 from localmd_tpu_torch.loader import PMDLoader
 from localmd_tpu_torch.ops.linalg import DEFAULT_OVERSAMPLES
-from localmd_tpu_torch.ops.tiling import (
-    block_grid,
-    check_fov_size,
-    extract_patches,
-    update_block_sizes,
-)
+from localmd_tpu_torch.ops.tiling import block_grid, check_fov_size, extract_patches
 from localmd_tpu_torch.parallel.mesh import pad_to_multiple
 from localmd_tpu_torch.parallel.multihost import (
     agree_int_min,
@@ -268,12 +264,14 @@ def localmd_decomposition(
 
     ``profile_dir`` runs the call under ``torch.profiler`` and writes a
     Chrome trace there. ``aot_warm`` is accepted and changes nothing: the
-    port has no ahead-of-time warm-up, and the JAX package's results are
-    the same either way (pipeline.py:203-207). Eager torch compiles
-    nothing, and warming the stages' kernels on threads during the
-    statistics pass made every cold call slower on an H100 (a kernel's
+    JAX package's results are the same either way (pipeline.py:203-207),
+    and no stage warm made a cold call on an H100 shorter (``PERF.md``).
+    Warms on threads stalled the main thread's first launches (a kernel's
     first launch loads its module, which the CUDA driver serializes across
-    threads; PERF.md, PR 9), so none runs.
+    threads). Warms on this thread in the statistics pass's idle waits
+    (the threshold Monte-Carlo, and a noise batch through the block stage)
+    took the threshold stage out of the call, but the statistics pass grew
+    by as much.
 
     The result carries ``pipeline_timings`` (seconds per stage, each stage
     fenced with ``torch.cuda.synchronize`` on the card),
@@ -391,19 +389,16 @@ def _decompose(
         ckpt.save("background", spatial_basis=load_obj.spatial_basis)
     _mark("stats_and_background")
 
-    if window_chunks is None:
-        window_chunks = frame_range
-    if t_total < frame_range:
+    # the clamps known before the statistics pass (aot.normalized_init_geometry)
+    frame_range_in = frame_range
+    frame_range, window_chunks, b1, b2 = normalized_init_geometry(
+        (t_total, d1, d2), frame_range, window_chunks, block_sizes)
+    if t_total < frame_range_in:
         display("WARNING: requested more frames than the dataset has")
-        frame_range = t_total
         frames = list(range(t_total))
-        window_chunks = min(window_chunks, frame_range)
     else:
-        window_chunks = min(window_chunks, frame_range)
         frames = identify_window_chunks(frame_range, t_total, window_chunks, np_rng)
     display(f"Initializing on a total of {len(frames)} frames")
-
-    b1, b2 = update_block_sizes(tuple(block_sizes), (d1, d2))
 
     if ckpt.has("thresholds"):
         display("Resuming: thresholds loaded from checkpoint")

@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import logging
 import sys
+import time
 
 _LOGGER_NAME = "localmd_tpu_torch"
 
@@ -26,3 +27,25 @@ def get_logger() -> logging.Logger:
 def display(msg: str) -> None:
     """Timestamped stage banner."""
     get_logger().info(msg)
+
+
+class StageTimer:
+    """Context manager that logs the wall-clock duration of a pipeline stage
+    (utils/logging.py:37-56)."""
+
+    def __init__(self, name: str, verbose: bool = True):
+        self.name = name
+        self.verbose = verbose
+        self.elapsed = 0.0
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        if self.verbose:
+            display(f"{self.name}...")
+        return self
+
+    def __exit__(self, *exc):
+        self.elapsed = time.perf_counter() - self._t0
+        if self.verbose:
+            display(f"{self.name} done in {self.elapsed:.3f}s")
+        return False

@@ -53,8 +53,10 @@ def test_package_has_the_ported_modules():
         "parallel/multihost.py", "parallel/sharded.py",
     ]:
         assert mod in names, mod
+    from localmd_tpu_torch.ops import _build
+
     for src in ("movie_stats.cu", "v_projection.cu", "block_reconstruct.cu", "jacobi_eigh.cu",
-                "fastio.cpp"):
+                "fastio.cpp", *_build.SOURCES, *_build.HEADERS):
         assert os.path.exists(os.path.join(PKG, "csrc", src)), src
 
 
@@ -97,6 +99,32 @@ def test_module_imports_no_matplotlib_at_its_top(path):
     assert "matplotlib" not in set(_top_level_imports(path))
 
 
+def test_no_mesh_leaves_dtensor_unimported():
+    """``import localmd_tpu_torch`` and a decomposition without a mesh, at
+    golden size on the CPU, never import ``torch.distributed.tensor``
+    (seconds of a cold process on the card): ``parallel`` is imported only
+    in the mesh branches, and imports DTensor only where it builds
+    placements."""
+    import subprocess
+    import sys
+
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "import localmd_tpu_torch\n"
+        "after_import = 'torch.distributed.tensor' in sys.modules\n"
+        "movie = np.random.default_rng(0).standard_normal((600, 40, 36)).astype(np.float32)\n"
+        "pmd = localmd_tpu_torch.localmd_decomposition(\n"
+        "    movie, (20, 20), frame_range=600, max_components=5, background_rank=2,\n"
+        "    sim_iters=20, seed=0, aot_warm=True, device='cpu')\n"
+        "print(after_import, 'torch.distributed.tensor' in sys.modules, pmd.rank > 0)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=ROOT,
+                         timeout=240, env={**os.environ, "OMP_NUM_THREADS": "2"})
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().splitlines()[-1] == "False False True", out.stdout[-2000:]
+
+
 def test_importing_the_package_loads_no_matplotlib():
     import subprocess
     import sys
@@ -107,14 +135,49 @@ def test_importing_the_package_loads_no_matplotlib():
     assert out.returncode == 0 and out.stdout.strip().splitlines()[-1] == "False", out.stderr
 
 
+K2_DTYPE_SOURCES = tuple(f"v_projection_{dt}.cu"
+                         for dt in ("f32", "u16", "i16", "u8", "i8", "f16", "bf16"))
+
+
 def test_kernel_build_targets_sm90a():
+    """Every kernel source is built for sm_90a; K2 is its entry points'
+    source plus one translation unit per movie dtype, all in the digest."""
     from localmd_tpu_torch.ops import _build
 
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags and "-O3" in flags
     assert set(_build.SOURCES) == {
         "movie_stats.cu", "v_projection.cu", "block_reconstruct.cu", "jacobi_eigh.cu",
+        *K2_DTYPE_SOURCES,
     }
+    assert len(_build.SOURCES) == len(set(_build.SOURCES)) == 11
+    assert "v_projection.cuh" in _build.HEADERS
+
+
+@pytest.mark.parametrize("dtype_source", K2_DTYPE_SOURCES)
+def test_k2_dtype_sources_instantiate_their_own_dtype(dtype_source):
+    """Each of K2's dtype sources defines, from the shared header, the
+    dispatch of the one dtype its file name says, and the entry point sends
+    that dtype's code (``kernels._DTYPE_CODES``) to it."""
+    import re
+
+    from localmd_tpu_torch.ops import kernels
+
+    text = open(os.path.join(PKG, "csrc", dtype_source)).read()
+    defined = re.findall(r"LMD_VP_DEFINE_DISPATCH\((\w+), (\w+)\)", text)
+    assert '#include "v_projection.cuh"' in text and len(defined) == 1
+    name, ctype = defined[0]
+    short = {"float32": "f32", "uint16": "u16", "int16": "i16", "uint8": "u8", "int8": "i8",
+             "float16": "f16", "bfloat16": "bf16"}[name]
+    assert dtype_source == f"v_projection_{short}.cu"
+    assert ctype == {"float32": "float", "float16": "__half",
+                     "bfloat16": "__nv_bfloat16"}.get(name, f"{name}_t")
+    entry = open(os.path.join(PKG, "csrc", "v_projection.cu")).read()
+    code = kernels._DTYPE_CODES[getattr(torch, name)]
+    assert re.findall(r"LMD_VP_DTYPE\((\d), (\w+)\)", entry).count((str(code), name)) == 1
+    header = open(os.path.join(PKG, "csrc", "v_projection.cuh")).read()
+    assert f"cudaError_t dispatch_{name}(LMD_VP_DISPATCH_PARAMS);" in header
+
 
 
 def test_build_compiles_each_source_at_once_then_links(tmp_path, monkeypatch):
@@ -135,7 +198,9 @@ def test_build_compiles_each_source_at_once_then_links(tmp_path, monkeypatch):
     path = _build.build()
     calls = log.read_text().splitlines()
     compiles = [c for c in calls if " -c " in f" {c} "]
-    assert len(compiles) == len(_build.SOURCES) == 4
+    assert len(compiles) == len(_build.SOURCES) == 11
+    # every listed source exactly once
+    assert sorted(c.split()[-1].rsplit("/", 1)[-1] for c in compiles) == sorted(_build.SOURCES)
     assert all("arch=compute_90a,code=sm_90a" in c for c in compiles)
     assert calls[-1].startswith("-shared -o ") and os.path.exists(path)
     assert sorted(os.listdir(tmp_path / "build")) == sorted([os.path.basename(path), "build.lock"])
@@ -149,6 +214,8 @@ def test_processes_starting_cold_together_build_once(tmp_path):
     on the lock and loads its library."""
     import subprocess
     import sys
+
+    from localmd_tpu_torch.ops import _build
 
     log = tmp_path / "calls.txt"
     fake = tmp_path / "nvcc"
@@ -178,7 +245,9 @@ def test_processes_starting_cold_together_build_once(tmp_path):
     paths, cached = zip(*(line.split() for line in outs))
     assert paths[0] == paths[1] and sorted(cached) == ["False", "True"]
     calls = log.read_text().splitlines()
-    assert len([c for c in calls if " -c " in f" {c} "]) == 4 and len(calls) == 5
+    compiled = [c.split()[-1].rsplit("/", 1)[-1] for c in calls if " -c " in f" {c} "]
+    # one build: every listed source compiled exactly once, then one link
+    assert sorted(compiled) == sorted(_build.SOURCES) and len(calls) == len(_build.SOURCES) + 1
 
 
 @pytest.mark.parametrize("call", ["movie_stats", "v_projection", "prepare_projector",

@@ -61,10 +61,16 @@ Phases (each prints one progress line; any failure raises, exit code != 0):
    exactly, ``close(materialize=False)`` freeing the factors, and the CLI
    (compress, info, export) in subprocesses against an in-process run.
 9. the call's options and the quality tools at full width:
-   ``sim.two_photon_movie(512, 512, 2048)`` made on the card and run with
+   ``sim.two_photon_movie(512, 512, 2048)`` made on the card; ``PMDLoader``
+   with the JAX package's parameters on it (no ``device``: the card; the
+   float64 crops; from the host at ``cache_fraction`` 0.5 and 0.25 with
+   the free memory held near 3.5 GiB: at most half the frames cached at
+   0.25, the statistics bit-equal, K1 launched in both); the movie run with
    bench.py's configuration, then ``metrics`` (compression ratio, both
    relative errors, the residual-to-noise ratio in (0.3, 3)) and
-   ``compute_qc_images`` with the PMDArray as source (K3); the same movie
+   ``compute_qc_images`` with the PMDArray as source (K3); the factorized
+   SVD with the decomposition's U as scipy CSR against its
+   ``BlockSparseMatrix`` (``s`` within 1e-5 relative); the same movie
    with the torch denoiser pair (finite, rank >= 1, K1 and K4 launched,
    the gather block stage), and the golden movie with the denoisers and the committed
    sketches on the card against the CPU (<= 1e-4); the same movie with
@@ -1262,9 +1268,101 @@ def golden_with_denoisers(device: str):
     return pmd.reconstruct_frames(np.arange(T)).cpu()
 
 
+CACHE_FREE_BYTES = 7 << 29      # free memory the cache_fraction runs see: 3.5 GiB
+CACHE_STATS_FRAMES = 256        # their statistics chunk, so a cache stops inside the movie
+
+
+def loader_checks(movie) -> dict:
+    """``PMDLoader`` with the JAX package's parameters on the card: every
+    default on the card-resident movie (the loader lands on the card, its
+    crops float32 there and float64 on request), then the movie from the
+    host at ``cache_fraction`` 0.5 and 0.25 with the card's free memory held
+    near ``CACHE_FREE_BYTES`` by an allocation: the 0.25 run caches at most
+    half the 0.5 run's frames, in whole chunks, and the statistics are
+    bit-equal. Returns the launches of the three loaders."""
+    import torch
+
+    from localmd_tpu_torch import PMDLoader
+    from localmd_tpu_torch.utils import device_free_bytes
+
+    loader, launches = counted(lambda: PMDLoader(movie))
+    crop = loader.temporal_crop(slice(0, 8))
+    log(f"  PMDLoader(movie): device {loader.device}, mean_img on {loader.mean_img.device}, "
+        f"crop {crop.dtype} on {crop.device}; launches {launches}")
+    check(loader.device.type == "cuda" and loader.mean_img.is_cuda and crop.is_cuda,
+          "PMDLoader(movie) did not land on the card")
+    check(crop.dtype == torch.float32 and torch.equal(crop, movie[:8].permute(1, 2, 0)),
+          "PMDLoader(movie).temporal_crop")
+    check(launches["movie_stats"] > 0, "PMDLoader(movie) never launched K1")
+    pre = {"mean_img": loader.mean_img.cpu().numpy(), "std_img": loader.std_img.cpu().numpy(),
+           "spatial_basis": loader.spatial_basis.cpu().numpy()}
+    wide = PMDLoader(movie, precomputed=pre, dtype="float64")
+    crop64 = wide.temporal_crop_standardized(slice(0, 8))
+    want = (movie[:8].permute(1, 2, 0).double() - loader.mean_img.double()[..., None]) \
+        / loader.std_img.double()[..., None]
+    check(crop64.dtype == torch.float64 and crop64.is_cuda and torch.equal(crop64, want),
+          "PMDLoader(dtype='float64').temporal_crop_standardized")
+    del loader, wide, crop, crop64, want
+
+    host = movie.cpu().numpy()
+    torch.cuda.empty_cache()
+    # the plan counts the allocator's cached, unallocated bytes as free
+    # (utils.device_free_bytes); the ballast is a new allocation beside them
+    spare = device_free_bytes("cuda") - CACHE_FREE_BYTES
+    ballast = torch.empty(max(0, spare), dtype=torch.uint8, device="cuda")
+    runs = {}
+    try:
+        for fraction in (0.5, 0.25):
+            ld, n = counted(lambda: PMDLoader(host, background_rank=0, cache_fraction=fraction,
+                                              frame_constant=CACHE_STATS_FRAMES))
+            runs[fraction] = (ld._cache_frames, ld.mean_img.cpu(), ld.std_img.cpu(), n)
+            launches = add_launches(launches, n)
+            log(f"  PMDLoader(host movie, cache_fraction={fraction}): {ld._cache_frames} of "
+                f"{host.shape[0]} frames cached, on {ld.device}; launches {n}")
+            del ld
+    finally:
+        del ballast
+        torch.cuda.empty_cache()
+    (half, m5, s5, n5), (quarter, m25, s25, n25) = runs[0.5], runs[0.25]
+    check(0 < quarter and 2 * quarter <= half < host.shape[0]
+          and half % CACHE_STATS_FRAMES == quarter % CACHE_STATS_FRAMES == 0,
+          f"cache_fraction: {quarter} frames at 0.25 against {half} at 0.5")
+    check(torch.equal(m5, m25) and torch.equal(s5, s25), "cache_fraction changed the statistics")
+    check(n5["movie_stats"] > 0 and n25["movie_stats"] > 0, "a cache_fraction run never launched K1")
+    return launches
+
+
+def scipy_u_check(pmd, frames: int = 128) -> None:
+    """``compute_lowrank_factorized_svd`` with the decomposition's U as
+    scipy CSR and its V = R s Vt (the first ``frames`` frames), on the
+    card, against the same product through the ``BlockSparseMatrix``:
+    singular values within 1e-5 relative."""
+    import torch
+
+    from localmd_tpu_torch import compute_lowrank_factorized_svd
+
+    u_csr = pmd.u
+    v = (pmd.r * pmd.s[None, :]) @ pmd.v[:, :frames]
+    bsm = pmd._blocksparse
+    v_pad = torch.zeros((bsm.shape[1], frames), dtype=torch.float32, device="cuda")
+    v_pad[torch.as_tensor(pmd._col_map, device="cuda")] = torch.as_tensor(v, device="cuda")
+    k = min(pmd.rank, frames)
+    (_, s_csr, _), secs_csr = timed(lambda: compute_lowrank_factorized_svd(
+        u_csr, torch.as_tensor(v, device="cuda"), expected_rank=k))
+    (_, s_bsm, _), secs_bsm = timed(lambda: compute_lowrank_factorized_svd(bsm, v_pad,
+                                                                          expected_rank=k))
+    err = float(torch.linalg.vector_norm(s_csr - s_bsm) / torch.linalg.vector_norm(s_bsm))
+    log(f"  compute_lowrank_factorized_svd, scipy U ({u_csr.shape[0]}x{u_csr.shape[1]}, "
+        f"{u_csr.nnz} nonzeros) against the BlockSparseMatrix, {frames} frames, rank {k}: "
+        f"s rel {err:.3e}; {secs_csr:.3f} s against {secs_bsm:.3f} s")
+    check(s_csr.is_cuda and s_csr.shape == s_bsm.shape, "scipy U: s not on the card or its shape")
+    check(err <= 1e-5, f"scipy U: s {err} from the BlockSparseMatrix path's")
+
+
 def phase_options() -> dict:
-    """Phase 9. Returns the launch counts of its pipeline runs and of the
-    metrics and QC pass, each counted from 0 just before it."""
+    """Phase 9. Returns the launch counts of its pipeline runs, of the
+    loader checks and of the metrics and QC pass, each counted from 0 just
+    before it."""
     import torch
 
     from bench_torch import timed_run
@@ -1275,12 +1373,14 @@ def phase_options() -> dict:
     log(f"  two_photon_movie(512, 512, 2048): {secs:.3f} s; mean {float(movie.mean()):.3f}, "
         f"std {float(movie.std()):.3f}")
     check(tuple(movie.shape) == (2048, 512, 512) and movie.is_cuda, "sim movie shape or device")
+    loader_launches = loader_checks(movie)
 
     (pmd, secs, peak), launches = counted(lambda: timed_run(movie))
     log(f"  sim movie, bench.py's configuration: {secs:.4f} s, peak {peak:.2f} GiB, ranks "
         f"{pmd.pipeline_ranks}, kept {pmd.rank}; launches {launches}; routes run {ROUTE_CALLS}")
     check(pmd.rank >= 1, "sim movie: rank 0")
     check_path("sim movie", launches, ROUTE_CALLS, expected_routes(512, 512))
+    launches = add_launches(launches, loader_launches)
 
     def quality():
         return [timed(lambda: metrics.compression_ratio(pmd)),
@@ -1301,6 +1401,7 @@ def phase_options() -> dict:
           "QC images not finite")
     check(quality_launches["block_reconstruct"] > 0, "metrics and QC never launched K3")
     launches = add_launches(launches, quality_launches)
+    scipy_u_check(pmd)
 
     (pmd_den, secs, _), den_launches = counted(lambda: timed_run(
         movie, spatial_denoiser=torch_spatial, temporal_denoiser=torch_temporal))

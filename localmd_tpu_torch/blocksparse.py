@@ -295,19 +295,28 @@ class BlockSparseMatrix:
     dense_basis: torch.Tensor     # (n_pixels, K) float32 (K >= 0)
     # block geometry: what K3 needs to reconstruct frames without a scatter
     # -- host block origins, block shape and the disjoint cosets of
-    # BlockGrid.cosets()
-    starts: np.ndarray            # (n_blocks, 2) int32
-    block_shape: Tuple[int, int]
-    cosets: tuple
-    # the grid's placement metadata (BlockGrid.coset_info): with it
-    # ``matmul`` places each coset by reshape and permute, without it one
-    # index_add_ per group of blocks (the same bits)
+    # BlockGrid.cosets(). The products need only the cosets; a U made from
+    # panels and rows alone, as the JAX package allows, gets the ids of
+    # ``coset_info`` when it has one, else one coset a block
+    starts: Optional[np.ndarray] = None       # (n_blocks, 2) int32
+    block_shape: Optional[Tuple[int, int]] = None
+    # the grid's placement metadata (BlockGrid.coset_info): with it and the
+    # block shape ``matmul`` places each coset by reshape and permute,
+    # without them one index_add_ per group of blocks (the same bits)
     coset_info: Optional[tuple] = None
     # (n1, n2, h1, h2) of a regular grid (BlockGrid.cell_geometry): the
     # banded Gram and the V projection's cell route need it; None keeps
     # the canvas Gram and K2
     cell_geom: Optional[Tuple[int, int, int, int]] = None
+    cosets: Optional[tuple] = None
     _by_coset: Optional[tuple] = field(default=None, init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        if self.cosets is None:
+            if self.coset_info is not None:
+                self.cosets = tuple(ids.cpu().numpy() for ids in self.coset_info[0])
+            else:
+                self.cosets = tuple(np.array([b]) for b in range(self.n_blocks))
 
     @property
     def n_blocks(self) -> int:
@@ -335,7 +344,7 @@ class BlockSparseMatrix:
         is a contiguous slice and no product gathers the panels."""
         if self._by_coset is None:
             order, bounds = coset_order(self.cosets, 0, self.n_blocks)
-            if self.coset_info is not None:
+            if self.coset_info is not None and self.block_shape is not None:
                 # the rows are not read by the placement
                 perm = torch.cat(self.coset_info[0])
                 rows = self.rows

@@ -253,7 +253,7 @@ def coset_stage_supported(b1: int, b2: int, spatial_avg_factor: int) -> bool:
 
 
 def coset_stage_eligible(b1: int, b2: int, spatial_avg_factor: int, spatial_denoiser,
-                         temporal_denoiser, checkpoint_path, device) -> bool:
+                         temporal_denoiser, checkpoint_path, device="cuda") -> bool:
     """The options' and the geometry's part of the coset dispatch
     (engine.py:339-370): no checkpoint, identity denoisers, a supported
     geometry and ``COSET_STAGE`` on for ``device``. The pipeline adds one
@@ -645,16 +645,18 @@ def threshold_heuristic(
     percentile_threshold: float = 5.0,
     generator: Optional[torch.Generator] = None,
     sim_batch: int = 32,
-    device="cuda",
+    as_device: bool = False,
     cache_token=None,
-) -> Tuple[float, float]:
+    device="cuda",
+):
     """Spatial/temporal roughness cutoffs from a noise-null Monte-Carlo:
     whole ``sim_batch`` batches of simulated blocks, the percentile taken
-    over exactly the first ``iters`` draws (engine.py:937-967). Runs on the
-    card unless ``device="cpu"`` is passed; raises without CUDA. With a
-    ``cache_token`` (which must name the generator's seed) the result is
-    memoized on it, the dimensions, the counts, the percentile, torch's fp32
-    matmul precision and the device."""
+    over exactly the first ``iters`` draws (engine.py:983-1053). Runs on the
+    card unless ``device="cpu"`` is passed; raises without CUDA. Returns two
+    floats, or with ``as_device`` two 0-d float32 tensors on ``device`` of
+    the same values. With a ``cache_token`` (which must name the generator's
+    seed) the result is memoized on it, the dimensions, the counts, the
+    percentile, torch's fp32 matmul precision and the device."""
     device = resolve_device(device)
     d1, d2, t = dimensions
     n_batches = max(1, -(-iters // sim_batch))
@@ -666,7 +668,7 @@ def threshold_heuristic(
         )
         cached = _threshold_cache.get(cache_key)
         if cached is not None:
-            return cached
+            return _thresholds_on(cached, device) if as_device else cached
     sps, tps = [], []
     for _ in range(n_batches):
         noise = normal((d1, d2, t), generator, device, batch=(sim_batch,))
@@ -684,4 +686,8 @@ def threshold_heuristic(
             if len(_threshold_cache) >= _THRESHOLD_CACHE_MAX:
                 _threshold_cache.pop(next(iter(_threshold_cache)), None)
             _threshold_cache[cache_key] = result
-    return result
+    return _thresholds_on(result, device) if as_device else result
+
+
+def _thresholds_on(result: Tuple[float, float], device) -> Tuple[torch.Tensor, torch.Tensor]:
+    return tuple(torch.tensor(x, dtype=torch.float32, device=device) for x in result)

@@ -6,12 +6,13 @@ products (``BlockSparseMatrix.gram_quadratic``: the banded form on a regular
 grid with ``blocksparse.BANDED_GRAM`` on, else Z^T Z); zero-padded slot columns of
 U give exact-zero eigenvalues that a relative cut drops. With a mesh the
 quadratic form splits the block panels over its ranks
-(``parallel.sharded_gram_quadratic``).
+(``parallel.sharded_gram_quadratic``). A scipy sparse U is accepted too, as
+in the JAX package: its products run in scipy on the host.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Tuple, Union
 
 import numpy as np
 import scipy.sparse
@@ -23,6 +24,32 @@ from localmd_tpu_torch.parallel.mesh import pad_to_multiple
 from localmd_tpu_torch.parallel.sharded import sharded_gram_quadratic
 
 DEFAULT_COL_CHUNK = 1024
+
+
+class _ScipySparseAdapter:
+    """The two products the SVD needs over a scipy sparse U
+    (factorization.py:34-49), computed in scipy on the host and returned on
+    the device and in the dtype of their argument."""
+
+    def __init__(self, u):
+        self._u = u.tocsr()
+        self.shape = u.shape
+
+    def gram_matmul(self, x: torch.Tensor, col_chunk=None) -> torch.Tensor:
+        host = self._u.T.dot(self._u.dot(x.detach().cpu().numpy()))
+        return torch.as_tensor(np.asarray(host), dtype=x.dtype, device=x.device)
+
+    def gram_quadratic(self, right: torch.Tensor, col_chunk=None) -> torch.Tensor:
+        g = right.T @ self.gram_matmul(right)
+        return 0.5 * (g + g.T)
+
+
+def _as_product_operator(u):
+    if isinstance(u, BlockSparseMatrix):
+        return u
+    if scipy.sparse.issparse(u):
+        return _ScipySparseAdapter(u)
+    raise TypeError(f"Unsupported spatial matrix type: {type(u)}")
 
 
 def _gram_quadratic_mesh(u: BlockSparseMatrix, right: torch.Tensor, mesh,
@@ -55,7 +82,7 @@ def eigh_plan(m: int, k: int) -> Tuple[str, int]:
 
 
 def compute_lowrank_factorized_svd(
-    u: BlockSparseMatrix,
+    u: Union[BlockSparseMatrix, "scipy.sparse.spmatrix"],
     v: torch.Tensor,
     only_left: bool = False,
     col_chunk: int = DEFAULT_COL_CHUNK,
@@ -69,12 +96,13 @@ def compute_lowrank_factorized_svd(
     directions are kept and rank-deficient ones zeroed on the device;
     without it the positive-eigenvalue cut runs on the host. With ``mesh``
     the Gram quadratic form is split over its ranks and every rank gets it
-    whole."""
+    whole; a scipy ``u`` takes the unsharded path (factorization.py:156)."""
+    u = _as_product_operator(u)
     r_cols = u.shape[1]
     t = v.shape[1]
     # work in V's row space when U has more columns than V has frames
     right = v if r_cols > t else torch.eye(r_cols, dtype=v.dtype, device=v.device)
-    if mesh is not None:
+    if mesh is not None and isinstance(u, BlockSparseMatrix):
         quad = _gram_quadratic_mesh(u, right, mesh, col_chunk=col_chunk)
     else:
         quad = u.gram_quadratic(right, col_chunk=col_chunk)

@@ -21,7 +21,7 @@ streamed V regression, host->device streaming and the device movie cache
   (``_PinnedStager``). A device tensor is never made from pageable memory.
 - The movie cache (loader.py:535-648): while the stats pass streams the
   movie, leading chunks are copied straight into one device buffer in
-  their native dtype, as many frames as ``CACHE_FRACTION`` of the free
+  their native dtype, as many frames as ``cache_fraction`` of the free
   device memory holds; the init frames, the background frames and the V
   regression then read those frames from the card -- contiguous ranges as
   views -- instead of streaming them again.
@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from localmd_tpu_torch import blocksparse
+from localmd_tpu_torch.config import resolve_device
 from localmd_tpu_torch.dataset import TensorMovie, as_dataset, frame_list
 from localmd_tpu_torch.ops import kernels
 from localmd_tpu_torch.ops.linalg import truncated_random_svd
@@ -357,15 +358,29 @@ def _rows_from_c(x: torch.Tensor, d1: int, d2: int, order: str) -> torch.Tensor:
 
 
 def standardize_and_filter(
-    raw: torch.Tensor,
+    data: torch.Tensor,
     mean_img: torch.Tensor,
     std_img: torch.Tensor,
     spatial_basis_flat: torch.Tensor,
     order: str = "F",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Standardize a raw (t, d1, d2) chunk and project out the background
-    basis (loader.py:262-340). Returns the filtered chunk as a contiguous
-    (d1, d2, t) f32 tensor and the background temporal projection (K, t).
+    """Standardize a (d1, d2, t) chunk and project out the background basis
+    (loader.py:326-340). ``order`` is the pixel order of
+    ``spatial_basis_flat``'s rows. Returns the filtered (d1, d2, t) chunk
+    and the background temporal projection (K, t)."""
+    return _standardize_frames(data.permute(2, 0, 1), mean_img, std_img, spatial_basis_flat, order)
+
+
+def _standardize_frames(
+    raw: torch.Tensor,
+    mean_img: torch.Tensor,
+    std_img: torch.Tensor,
+    spatial_basis_flat: torch.Tensor,
+    order: str,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``standardize_and_filter`` of a raw (t, d1, d2) chunk, the layout the
+    loader reads. The filtered chunk comes back as a contiguous (d1, d2, t)
+    f32 tensor.
 
     Works frames-major on C-order pixels, the raw chunk's own layout, with
     the (small) basis rows reordered instead: per pixel and frame the
@@ -393,12 +408,22 @@ def _torch_dtype(np_dtype: np.dtype) -> torch.dtype:
 
 
 class PMDLoader:
-    """Owns dataset access, per-pixel statistics and the background basis."""
+    """Owns dataset access, per-pixel statistics and the background basis.
+
+    The parameters are the JAX package's (loader.py:402-420) plus ``device``
+    (the card unless ``device="cpu"`` is passed; raises without CUDA) and
+    ``mesh``, both keyword-only. ``dtype`` is the dtype of
+    ``temporal_crop`` and ``temporal_crop_standardized``; the passes stream
+    in the movie's own dtype whatever it is. ``cache_fraction`` is the share
+    of the free device memory the movie cache may take. ``pixel_batch_size``
+    and ``cache_reserve_bytes`` are kept as attributes and have no effect:
+    the statistics pass reads the whole field of view at once, and JAX reads
+    ``cache_reserve_bytes`` only when its runtime reports no device memory,
+    which the card always reports."""
 
     def __init__(
         self,
         dataset,
-        device,
         background_rank: int = 15,
         batch_size: int = 2000,
         order: str = "F",
@@ -410,20 +435,30 @@ class PMDLoader:
         num_workers: Optional[int] = None,
         precomputed: Optional[dict] = None,
         cache_movie="auto",
-        mesh=None,
         stats_started_hook=None,
+        dtype: str = "float32",
+        pixel_batch_size: int = 5000,
+        cache_fraction: float = CACHE_FRACTION,
+        cache_reserve_bytes: Optional[int] = None,
+        *,
+        device="cuda",
+        mesh=None,
     ):
         if welch_compat not in ("scipy", "reference"):
             raise ValueError(
                 f"welch_compat must be 'scipy' or 'reference', got {welch_compat!r}"
             )
-        self.dataset = as_dataset(dataset)
-        dev = torch.device(device)
+        dev = resolve_device(device)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
         self.device = dev
+        self.dataset = as_dataset(dataset)
+        self.dtype = np.dtype(dtype)
+        self._crop_dtype = _torch_dtype(self.dtype)
         self.shape = tuple(int(s) for s in self.dataset.shape)
         self.batch_size = batch_size
+        self.pixel_batch_size = pixel_batch_size
+        self.cache_reserve_bytes = cache_reserve_bytes
         self._order = order
         self.background_rank = background_rank
         self.frame_constant = frame_constant
@@ -435,10 +470,11 @@ class PMDLoader:
         self._generator = make_generator(seed, self.device)
         self.stream_dtype = self._stream_dtype()
         # the movie cache (loader.py:448-466): "auto" caches as many leading
-        # frames as CACHE_FRACTION of the free device memory holds (on the
-        # CPU, with no memory query, only cache_movie=True caches, and then
-        # everything); False never caches
+        # frames as ``cache_fraction`` of the free device memory holds (on
+        # the CPU, with no memory query, only cache_movie=True caches, and
+        # then everything); False never caches
         self._cache_policy = cache_movie
+        self._cache_fraction = float(cache_fraction)
         self._cache: Optional[torch.Tensor] = None
         self._cache_frames = 0
         self._cache_building = False
@@ -627,7 +663,7 @@ class PMDLoader:
 
     def _plan_cache_frames(self) -> int:
         """How many leading frames to keep on the device during the stats
-        pass (loader.py:535-583): ``CACHE_FRACTION`` of the free device
+        pass (loader.py:535-583): ``cache_fraction`` of the free device
         memory (``utils.device_free_bytes``: the caching allocator's
         reserved but unallocated blocks count as free, as JAX counts
         ``bytes_limit - bytes_in_use``), at the bytes a frame takes in the
@@ -643,7 +679,7 @@ class PMDLoader:
         if free is None:
             return t_total if self._cache_policy is True else 0
         per_frame = self.n_pixels * torch.empty(0, dtype=self.stream_dtype).element_size()
-        n = min(t_total, max(0, int(free * CACHE_FRACTION)) // per_frame)
+        n = min(t_total, max(0, int(free * self._cache_fraction)) // per_frame)
         if n < t_total:
             n = (n // self.frame_constant) * self.frame_constant
         # not worth the bookkeeping below a couple of stats chunks
@@ -827,14 +863,17 @@ class PMDLoader:
     # -- raw and standardized crops -------------------------------------------
 
     def temporal_crop(self, frames) -> torch.Tensor:
-        """(d1, d2, T) float32 frames (a slice or ids) on the loader's device
-        (loader.py:522-525)."""
-        return self._load_raw(frames).to(torch.float32).permute(1, 2, 0)
+        """(d1, d2, T) frames (a slice or ids) in the loader's ``dtype`` on
+        its device (loader.py:522-525)."""
+        return self._load_raw(frames).to(self._crop_dtype).permute(1, 2, 0)
 
     def temporal_crop_standardized(self, frames) -> torch.Tensor:
         """(d1, d2, T) frames standardized with the loader's statistics,
-        (x - mean) / std (loader.py:988-992); no background filter."""
-        return (self.temporal_crop(frames) - self.mean_img[..., None]) / self.std_img[..., None]
+        (x - mean) / std in the loader's ``dtype`` (loader.py:988-992); no
+        background filter."""
+        mean = self.mean_img.to(self._crop_dtype)[..., None]
+        std = self.std_img.to(self._crop_dtype)[..., None]
+        return (self.temporal_crop(frames) - mean) / std
 
     # -- standardized init frames ---------------------------------------------
 
@@ -855,7 +894,7 @@ class PMDLoader:
             for s in spans
         ]
         if len(spans) == 1:
-            return standardize_and_filter(
+            return _standardize_frames(
                 self._load_raw(items[0]), self.mean_img, self.std_img, self.spatial_basis, self.order
             )
         buf = torch.empty((d1, d2, t), dtype=torch.float32, device=self.device)
@@ -863,7 +902,7 @@ class PMDLoader:
         chunks = self._stream(items)
         try:
             for start, raw in zip(spans, chunks):
-                filt, tb = standardize_and_filter(
+                filt, tb = _standardize_frames(
                     raw, self.mean_img, self.std_img, self.spatial_basis, self.order
                 )
                 buf[:, :, start : start + filt.shape[2]] = filt

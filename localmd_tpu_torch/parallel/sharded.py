@@ -201,7 +201,7 @@ def sharded_gram_quadratic(
     order, bounds = coset_order(cosets if cosets is not None else [[b] for b in range(n_blocks)],
                                 rank * nb_l, (rank + 1) * nb_l)
     placement = None
-    if cosets is not None and coset_info is not None:
+    if cosets is not None and coset_info is not None and block_shape is not None:
         placement = coset_placement(cosets, coset_info, block_shape, rank * nb_l,
                                     (rank + 1) * nb_l, panels.device)
     perm = torch.as_tensor(order, device=panels.device)

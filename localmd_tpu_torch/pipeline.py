@@ -238,7 +238,10 @@ def localmd_decomposition(
     .npy) or a dataset object. ``num_workers`` sets the prefetch depth and
     the native reader's threads; ``cache_movie`` ("auto", True or False)
     the device movie cache; ``checkpoint_path`` stage checkpoints.
-    ``dtype`` and ``pixel_batch_size`` are accepted and inert.
+    ``dtype`` and ``pixel_batch_size`` go to ``PMDLoader`` as in the JAX
+    package (pipeline.py:503-509): ``dtype`` is the dtype of the loader's
+    temporal crops, which the pipeline does not read, and
+    ``pixel_batch_size`` has no effect.
 
     ``mesh`` (``parallel.make_mesh()``, a 1-D ``DeviceMesh`` over every
     rank of a ``torch.distributed`` job) splits each block batch over the
@@ -301,20 +304,21 @@ def localmd_decomposition(
     with config.matmul_precision_scope(precision), _profile_scope(profile_dir, dev):
         return _decompose(
             dataset_obj, block_sizes, frame_range, max_components, background_rank, sim_conf,
-            frame_batch_size, num_workers, max_consecutive_failures, rank_prune,
-            rank_prune_factor, temporal_avg_factor, spatial_avg_factor, order, window_chunks,
-            compute_normalizer, pixel_weighting, spatial_denoiser, temporal_denoiser, seed,
-            block_batch_size, sim_iters, final_rank_tol, checkpoint_path, welch_compat,
-            cache_movie, mesh, dev,
+            frame_batch_size, dtype, num_workers, pixel_batch_size, max_consecutive_failures,
+            rank_prune, rank_prune_factor, temporal_avg_factor, spatial_avg_factor, order,
+            window_chunks, compute_normalizer, pixel_weighting, spatial_denoiser,
+            temporal_denoiser, seed, block_batch_size, sim_iters, final_rank_tol,
+            checkpoint_path, welch_compat, cache_movie, mesh, dev,
         )
 
 
 def _decompose(
     dataset_obj, block_sizes, frame_range, max_components, background_rank, sim_conf,
-    frame_batch_size, num_workers, max_consecutive_failures, rank_prune, rank_prune_factor,
-    temporal_avg_factor, spatial_avg_factor, order, window_chunks, compute_normalizer,
-    pixel_weighting, spatial_denoiser, temporal_denoiser, seed, block_batch_size, sim_iters,
-    final_rank_tol, checkpoint_path, welch_compat, cache_movie, mesh, dev: torch.device,
+    frame_batch_size, dtype, num_workers, pixel_batch_size, max_consecutive_failures, rank_prune,
+    rank_prune_factor, temporal_avg_factor, spatial_avg_factor, order, window_chunks,
+    compute_normalizer, pixel_weighting, spatial_denoiser, temporal_denoiser, seed,
+    block_batch_size, sim_iters, final_rank_tol, checkpoint_path, welch_compat, cache_movie,
+    mesh, dev: torch.device,
 ) -> PMDArray:
     """The body of ``localmd_decomposition`` on the resolved device, inside
     its precision and profiler scopes."""
@@ -370,9 +374,10 @@ def _decompose(
 
     load_obj = PMDLoader(
         dataset,
-        device=dev,
+        dtype=dtype,
         background_rank=background_rank,
         batch_size=frame_batch_size,
+        pixel_batch_size=pixel_batch_size,
         order=order,
         compute_normalizer=compute_normalizer,
         seed=seed,
@@ -381,6 +386,7 @@ def _decompose(
         num_workers=num_workers,
         precomputed=precomputed or None,
         cache_movie=cache_movie,
+        device=dev,
         mesh=mesh,
     )
     if not ckpt.has("stats"):

@@ -11,8 +11,7 @@ import numpy as np
 import torch
 
 from localmd_tpu_torch.dataset import as_dataset
-from localmd_tpu_torch.loader import PMDLoader, _chunk_ranges
-from localmd_tpu_torch.loader import standardize_and_filter as _standardize_and_filter
+from localmd_tpu_torch.loader import PMDLoader, _chunk_ranges, standardize_and_filter
 from localmd_tpu_torch.ops.linalg import DEFAULT_OVERSAMPLES
 from localmd_tpu_torch.ops.linalg import truncated_random_svd as _truncated_random_svd
 from localmd_tpu_torch.ops.tiling import flatten_fov
@@ -27,15 +26,6 @@ def truncated_random_svd(input_matrix: torch.Tensor, generator: Optional[torch.G
     u, s, vt = _truncated_random_svd(input_matrix, int(rank), generator=generator,
                                      num_oversamples=num_oversamples)
     return u, s[:, None] * vt
-
-
-def standardize_and_filter(data: torch.Tensor, mean_img: torch.Tensor, std_img: torch.Tensor,
-                           spatial_basis_flat: torch.Tensor, order: str = "F"):
-    """The reference signature (loader.py:326-340): a (d1, d2, t) chunk,
-    standardized and with the background basis projected out. Returns the
-    filtered (d1, d2, t) chunk and the background projection (K, t)."""
-    return _standardize_and_filter(data.permute(2, 0, 1), mean_img, std_img,
-                                   spatial_basis_flat, order)
 
 
 class FrameDataloader(torch.utils.data.Dataset):

@@ -4,6 +4,7 @@ from localmd_tpu_torch.utils.device import (
     is_device_oom,
     transient_budget_bytes,
 )
+from localmd_tpu_torch.utils.keys import make_jax_random_key, make_key, make_key_with_seed, split_keys
 from localmd_tpu_torch.utils.logging import display, get_logger
 from localmd_tpu_torch.utils.random import make_generator, normal, sketch_override, stage_seeds
 
@@ -14,6 +15,10 @@ __all__ = [
     "block_batch_budget",
     "is_device_oom",
     "transient_budget_bytes",
+    "make_key",
+    "make_key_with_seed",
+    "split_keys",
+    "make_jax_random_key",
     "make_generator",
     "normal",
     "sketch_override",

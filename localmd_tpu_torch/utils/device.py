@@ -9,14 +9,17 @@ import torch
 TRANSIENT_FLOOR_BYTES = 1 << 30
 
 
-def device_free_bytes(device, pending_bytes: int = 0):
+def device_free_bytes(device, assumed_live_bytes: int = 0, pending_bytes: int = 0):
     """Memory this process can still allocate on ``device``, or None on the
     CPU (utils/device.py:69-96): ``mem_get_info``'s free bytes plus the caching
     allocator's reserved but unallocated bytes, less ``pending_bytes``
     (buffers that will be live at dispatch but are not allocated yet). This
     is JAX's ``bytes_limit - bytes_in_use`` in the allocator's terms: the
     blocks a stream has cached are free to the next allocation, so the
-    count does not depend on what an earlier call left cached."""
+    count does not depend on what an earlier call left cached.
+    ``assumed_live_bytes`` has no effect: JAX subtracts it only from a
+    device's nominal memory when its runtime reports none, and the card
+    always reports its memory."""
     dev = torch.device(device)
     if dev.type != "cuda":
         return None
@@ -34,6 +37,7 @@ def block_batch_budget(
     per_block_bytes: int,
     n_blocks: int,
     block_batch_size: int,
+    assumed_live_bytes: int = 0,
     pending_bytes: int = 0,
 ) -> int:
     """The block stage's batch size (utils/device.py:99-142): as many blocks
@@ -44,7 +48,7 @@ def block_batch_budget(
     does not change the batches. Where JAX raises a batch below 16 to 16,
     this keeps a caller's ``block_batch_size`` below 16 and never exceeds
     ``n_blocks``: both mean the same batches. Mesh rounding stays with the
-    caller."""
+    caller. ``assumed_live_bytes`` has no effect (``device_free_bytes``)."""
     budget = int(1e9)
     free = device_free_bytes(device, pending_bytes=pending_bytes)
     if free is not None:
@@ -55,10 +59,13 @@ def block_batch_budget(
     return int(bb)
 
 
-def transient_budget_bytes(device) -> int:
+def transient_budget_bytes(device=None) -> int:
     """Per-call transient-buffer budget scaled to the card: its memory / 16,
-    floored at 1 GiB (utils/device.py:36-60). The CPU keeps the floor, so
+    floored at 1 GiB (utils/device.py:36-66). ``None`` is the current CUDA
+    device when there is one, else the CPU. The CPU keeps the floor, so
     test behaviour does not depend on the host."""
+    if device is None:
+        device = torch.device("cuda", torch.cuda.current_device()) if torch.cuda.is_available() else "cpu"
     dev = torch.device(device)
     if dev.type != "cuda":
         return TRANSIENT_FLOOR_BYTES

@@ -219,16 +219,16 @@ def test_loader_hook_fires_once_after_the_cache_is_allocated():
                       loader._cache_frames))
 
     movie = _movie()[:300]
-    loader = PMDLoader(movie, "cpu", background_rank=1, cache_movie=True, stats_started_hook=hook)
+    loader = PMDLoader(movie, device="cpu", background_rank=1, cache_movie=True, stats_started_hook=hook)
     assert calls == [(300, 300, 0)]
     assert loader.stats_hook_error is None and loader._cache_frames == 300
 
     def raising(loader, cache_target):
         raise ValueError("hook")
 
-    loader = PMDLoader(movie, "cpu", background_rank=1, stats_started_hook=raising)
+    loader = PMDLoader(movie, device="cpu", background_rank=1, stats_started_hook=raising)
     assert isinstance(loader.stats_hook_error, ValueError)
-    plain = PMDLoader(movie, "cpu", background_rank=1)
+    plain = PMDLoader(movie, device="cpu", background_rank=1)
     assert torch.equal(loader.mean_img, plain.mean_img) and torch.equal(loader.std_img, plain.std_img)
 
 
@@ -336,7 +336,7 @@ def test_stage_timer_matches_jax(caplog):
 @pytest.mark.parametrize("order", ["F", "C"])
 def test_loader_order_matches_jax(order):
     movie = _movie()[:300]
-    port = PMDLoader(movie, "cpu", background_rank=1, order=order)
+    port = PMDLoader(movie, device="cpu", background_rank=1, order=order)
     ref = jloader.PMDLoader(movie, background_rank=1, order=order)
     assert port.order == ref.order == order
     with pytest.raises(AttributeError):

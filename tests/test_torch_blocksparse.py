@@ -18,7 +18,7 @@ from localmd_tpu_torch import blocksparse as tb
 from localmd_tpu_torch import factorization as tf
 
 
-def _pair(rng, d1, d2, blocks, order, slots=4, k_bg=3):
+def _pair(rng, d1, d2, blocks, order, slots=4, k_bg=3, geometry=True):
     grid = BlockGrid(d1, d2, blocks, order)
     panels = rng.standard_normal((grid.n_blocks, grid.pixels_per_block, slots)).astype(np.float32)
     counts = rng.integers(0, slots + 1, size=grid.n_blocks)
@@ -28,18 +28,21 @@ def _pair(rng, d1, d2, blocks, order, slots=4, k_bg=3):
         panels=jnp.asarray(panels), rows=jnp.asarray(grid.rows), n_pixels=d1 * d2,
         dense_basis=jnp.asarray(bg),
     )
+    # without the geometry: U from panels and rows alone, as JAX allows
+    grid_kw = dict(starts=grid.starts, block_shape=blocks,
+                   cosets=tuple(ids for ids, _ in grid.cosets())) if geometry else {}
     tu = tb.BlockSparseMatrix(
         panels=t32(panels), rows=torch.as_tensor(grid.rows, dtype=torch.long),
-        n_pixels=d1 * d2, dense_basis=t32(bg), starts=grid.starts, block_shape=blocks,
-        cosets=tuple(ids for ids, _ in grid.cosets()),
+        n_pixels=d1 * d2, dense_basis=t32(bg), **grid_kw,
     )
     return ju, tu, counts
 
 
 @pytest.mark.parametrize("order", ["F", "C"])
 @pytest.mark.parametrize("d1,d2,blocks", [(40, 36, (16, 16)), (33, 47, (10, 12))])
-def test_products_match_jax(order, d1, d2, blocks, rng):
-    ju, tu, _ = _pair(rng, d1, d2, blocks, order)
+@pytest.mark.parametrize("geometry", [True, False])
+def test_products_match_jax(order, d1, d2, blocks, geometry, rng):
+    ju, tu, _ = _pair(rng, d1, d2, blocks, order, geometry=geometry)
     x = rng.standard_normal((tu.shape[1], 7)).astype(np.float32)
     y = rng.standard_normal((d1 * d2, 5)).astype(np.float32)
     assert rel_fro(tu.matmul(t32(x)), np.asarray(ju.matmul(jnp.asarray(x)))) <= 1e-5
@@ -81,6 +84,40 @@ def test_factorized_svd_matches_jax(expected_rank, rng):
     gram = up.T @ up
     kept = np.diag(gram) > 0.5
     np.testing.assert_allclose(gram, np.diag(kept.astype(np.float64)), atol=1e-4)
+
+
+class _NoMesh:
+    """A mesh no product may touch: a scipy U takes the unsharded path."""
+
+    def __getattr__(self, name):
+        raise AssertionError(f"the mesh was read ({name})")
+
+
+@pytest.mark.parametrize("n_cols,t", [(30, 200), (50, 20)])   # second: right = V
+@pytest.mark.parametrize("expected_rank", [None, "rank"])
+@pytest.mark.parametrize("mesh", [None, "unused"])
+def test_factorized_svd_of_a_scipy_u_matches_jax(n_cols, t, expected_rank, mesh):
+    """A scipy sparse U, as the JAX package accepts it
+    (factorization.py:34-56): the singular values within rtol 1e-5 of
+    JAX's, (U P') s Vt within 1e-5 of U V in both packages, and U P
+    orthonormal within 1e-5."""
+    rng = np.random.default_rng(14)
+    u = scipy.sparse.random(400, n_cols, density=0.2, format="csr", random_state=rng, dtype=np.float32)
+    v = rng.standard_normal((n_cols, t)).astype(np.float32)
+    k = None if expected_rank is None else min(n_cols, t)
+    mesh_t = mesh_j = None
+    if mesh:
+        mesh_t, mesh_j = _NoMesh(), _NoMesh()
+    p_t, s_t, vt_t = tf.compute_lowrank_factorized_svd(u, t32(v), mesh=mesh_t, expected_rank=k)
+    p_j, s_j, vt_j = jf.compute_lowrank_factorized_svd(u, jnp.asarray(v), mesh=mesh_j, expected_rank=k)
+    assert isinstance(p_t, torch.Tensor) and s_t.shape == np.asarray(s_j).shape
+    np.testing.assert_allclose(to_np(s_t), np.asarray(s_j), rtol=1e-5)
+    truth = u @ v.astype(np.float64)
+    for p, s, vt in ((p_t, s_t, vt_t), (p_j, s_j, vt_j)):
+        assert rel_fro((u @ to_np(p)) * to_np(s)[None, :] @ to_np(vt), truth) <= 1e-5
+    p_only = tf.compute_lowrank_factorized_svd(u, t32(v), only_left=True, mesh=mesh_t, expected_rank=k)
+    up = u @ to_np(p_only).astype(np.float64)
+    np.testing.assert_allclose(up.T @ up, np.eye(up.shape[1]), atol=1e-5)
 
 
 @pytest.mark.parametrize("rel_tol", [0.0, 1e-3, 0.5])

@@ -533,6 +533,32 @@ def test_block_batch_budget_matches_jax(free, reserved, allocated, per_block, n_
                                   block_batch_size=bbs)
     assert ours == ref
     assert ours == n_blocks or ours & (ours - 1) == 0
+    # JAX reads assumed_live_bytes only when its runtime reports no memory:
+    # with the card's memory known it changes neither package's answer
+    live = 9 << 30
+    fake = _FakeDevice(total, total - (free + reserved - allocated))
+    assert tdev.device_free_bytes(cuda, assumed_live_bytes=live) == jdev.device_free_bytes(
+        fake, assumed_live_bytes=live) == free + reserved - allocated
+    assert tdev.block_batch_budget(cuda, per_block_bytes=per_block, n_blocks=n_blocks,
+                                   block_batch_size=bbs, assumed_live_bytes=live) == jdev.block_batch_budget(
+        fake, per_block_bytes=per_block, n_blocks=n_blocks, block_batch_size=bbs,
+        assumed_live_bytes=live) == ours
+
+
+def test_transient_budget_defaults_to_the_current_device(monkeypatch):
+    """``transient_budget_bytes()`` with no device: the CPU floor here, as
+    JAX's on its CPU backend, and the current card's memory / 16 where CUDA
+    is available."""
+    assert tdev.transient_budget_bytes() == jdev.transient_budget_bytes() == 1 << 30
+    total = 80 << 30
+
+    class _Props:
+        total_memory = total
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda dev: _Props())
+    assert tdev.transient_budget_bytes() == tdev.transient_budget_bytes(torch.device("cuda", 0)) == total // 16
 
 
 def test_block_batch_budget_on_the_cpu_and_below_16():

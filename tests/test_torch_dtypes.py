@@ -189,7 +189,7 @@ def test_host_source_streams_and_caches_native(dtype, want, rng):
     wherever K1 reads it, else float32; the cached frames are the movie's
     values and the mean is the float64 mean's float32."""
     movie = _small_movie(dtype, rng)
-    loader = PMDLoader(NumpyArray(movie), "cpu", background_rank=1, cache_movie=True, seed=0)
+    loader = PMDLoader(NumpyArray(movie), device="cpu", background_rank=1, cache_movie=True, seed=0)
     assert loader.stream_dtype == getattr(torch, want)
     assert loader._cache is not None and loader._cache.dtype == getattr(torch, want)
     np.testing.assert_array_equal(to_np(loader._cache), movie.astype(want))
@@ -201,7 +201,7 @@ def test_uint32_above_2_31_is_not_wrapped(rng):
     """The JAX package's ``_cast_f32`` takes uint32 through int32, so values
     at or above 2^31 wrap negative; the port streams uint32 as float32."""
     movie = (rng.integers(0, 1000, (300, 8, 8)) + 3_000_000_000).astype(np.uint32)
-    loader = PMDLoader(NumpyArray(movie), "cpu", background_rank=1, seed=0)
+    loader = PMDLoader(NumpyArray(movie), device="cpu", background_rank=1, seed=0)
     assert loader.stream_dtype == torch.float32
     np.testing.assert_allclose(to_np(loader.mean_img), movie.astype(np.float64).mean(0),
                                rtol=1e-6)
@@ -216,7 +216,7 @@ def test_card_resident_stream_dtype_and_chunks(dtype):
         movie = torch.from_numpy(np.clip(np.rint(base * 40 + 1000), 0, 65535).astype(np.uint16))
     else:
         movie = _as_dtype(base, dtype)
-    loader = PMDLoader(TensorMovie(movie), "cpu", background_rank=1, cache_movie=True, seed=0)
+    loader = PMDLoader(TensorMovie(movie), device="cpu", background_rank=1, cache_movie=True, seed=0)
     want = movie.dtype if movie.dtype in kernels.KERNEL_DTYPES else torch.float32
     assert loader.stream_dtype == want and loader._cache is None
     chunk = loader._load_raw(slice(10, 50))
@@ -276,7 +276,7 @@ def test_file_sources_stream_native_through_the_native_reader(kind, dtype, rng, 
 
     monkeypatch.setattr(native.FastReader, "read_scatter", spy_scatter)
     monkeypatch.setattr(TiffReader, "_try_native_read", spy_tiff)
-    loader = PMDLoader(src, "cpu", background_rank=1, cache_movie=True, seed=0)
+    loader = PMDLoader(src, device="cpu", background_rank=1, cache_movie=True, seed=0)
     assert loader.stream_dtype == getattr(torch, dtype)
     assert loader._cache.dtype == getattr(torch, dtype)
     np.testing.assert_array_equal(to_np(loader._cache), movie)

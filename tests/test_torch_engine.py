@@ -121,6 +121,23 @@ def test_threshold_heuristic_deterministic_and_plausible():
         assert 0 < ours and abs(ours - theirs) / theirs < 0.2
 
 
+@pytest.mark.parametrize("cache_token", [None, ("as-device", 3)])
+def test_threshold_heuristic_as_device_gives_the_floats_as_tensors(cache_token):
+    """``as_device=True`` returns two 0-d float32 tensors on the device, of
+    the values the floats have, as JAX returns two device scalars
+    (engine.py:1051-1053); a memoized result too."""
+    dims = (12, 12, 40)
+    kw = dict(iters=8, sim_batch=4, device="cpu", cache_token=cache_token)
+    floats = te.threshold_heuristic(dims, generator=torch.Generator().manual_seed(3), **kw)
+    tensors = te.threshold_heuristic(dims, generator=torch.Generator().manual_seed(3), as_device=True,
+                                     **kw)
+    ref = je.threshold_heuristic(dims, iters=8, sim_batch=4, key=jax.random.PRNGKey(3), as_device=True)
+    for x, f, r in zip(tensors, floats, ref):
+        assert isinstance(x, torch.Tensor) and x.dim() == 0 and x.dtype == torch.float32
+        assert x.device == torch.device("cpu") and float(x) == f
+        assert np.asarray(r).ndim == 0 and np.asarray(r).dtype == np.float32
+
+
 def test_threshold_heuristic_under_override_is_one_simulation():
     dims = (10, 12, 40)
     noise = np.random.default_rng(1).standard_normal(dims).astype(np.float32)

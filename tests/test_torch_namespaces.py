@@ -130,21 +130,53 @@ def loaders():
     kw = dict(background_rank=2, seed=0, np_rng=np.random.RandomState(0))
     jax_loader = JaxLoader(movie, **kw)
     kw["np_rng"] = np.random.RandomState(0)
-    return movie, jax_loader, PMDLoader(movie, "cpu", **kw)
+    return movie, jax_loader, PMDLoader(movie, device="cpu", **kw)
 
 
 @pytest.mark.parametrize("frames", [slice(10, 60), [3, 7, 250, 8], range(290, 300)])
-def test_loader_temporal_crops_match_jax(loaders, frames):
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_loader_temporal_crops_match_jax(loaders, frames, dtype):
+    """The crops come in the loader's ``dtype``. The float64 pair is built
+    with the float32 pair's JAX statistics (``precomputed``), so the
+    standardized crops differ only by their own arithmetic."""
+    from localmd_tpu.loader import PMDLoader as JaxLoader
+    from localmd_tpu_torch import PMDLoader
+
     movie, jax_loader, port_loader = loaders
+    rtol, atol = 1e-4, 1e-4
+    if dtype != "float32":
+        pre = {"mean_img": np.array(jax_loader.mean_img), "std_img": np.array(jax_loader.std_img),
+               "spatial_basis": np.array(jax_loader.spatial_basis)}
+        kw = dict(background_rank=2, seed=0, precomputed=pre, dtype=dtype)
+        jax_loader = JaxLoader(movie, np_rng=np.random.RandomState(0), **kw)
+        port_loader = PMDLoader(movie, np_rng=np.random.RandomState(0), device="cpu", **kw)
+        rtol, atol = 1e-6, 0
     crop = port_loader.temporal_crop(frames)
-    np.testing.assert_array_equal(to_np(crop), jax_loader.temporal_crop(frames))
-    np.testing.assert_array_equal(to_np(crop), movie[frames].astype(np.float32).transpose(1, 2, 0))
-    np.testing.assert_allclose(to_np(port_loader.temporal_crop_standardized(frames)),
-                               jax_loader.temporal_crop_standardized(frames), rtol=1e-4, atol=1e-4)
+    ref = jax_loader.temporal_crop(frames)
+    assert ref.dtype == np.dtype(dtype) and to_np(crop).dtype == ref.dtype
+    np.testing.assert_array_equal(to_np(crop), ref)
+    np.testing.assert_array_equal(to_np(crop), movie[frames].astype(dtype).transpose(1, 2, 0))
+    ours, ref = to_np(port_loader.temporal_crop_standardized(frames)), jax_loader.temporal_crop_standardized(frames)
+    assert ref.dtype == np.dtype(dtype) and ours.dtype == ref.dtype
+    np.testing.assert_allclose(ours, ref, rtol=rtol, atol=atol)
+
+
+def test_loader_runs_on_the_card_unless_told(loaders):
+    """``device`` is a keyword with the card as its default, as in every
+    other entry point: without CUDA a call that names no device raises."""
+    from localmd_tpu_torch import PMDLoader
+
+    movie, _, port_loader = loaders
+    assert port_loader.device == torch.device("cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            PMDLoader(movie, background_rank=0)
 
 
 def test_pmd_loader_standardize_and_filter_matches_jax(rng):
+    import localmd_tpu.loader as jld
     import localmd_tpu.pmd_loader as jl
+    import localmd_tpu_torch.loader as tld
     import localmd_tpu_torch.pmd_loader as tl
 
     d1, d2, t, k = 8, 7, 30, 3
@@ -156,6 +188,14 @@ def test_pmd_loader_standardize_and_filter_matches_jax(rng):
         ours = tl.standardize_and_filter(t32(data), t32(mean), t32(std), t32(basis), order)
         ref = jl.standardize_and_filter(jnp.asarray(data), jnp.asarray(mean), jnp.asarray(std),
                                         jnp.asarray(basis), order)
+        for a, b in zip(ours, ref):
+            np.testing.assert_allclose(to_np(a), np.asarray(b), rtol=1e-4, atol=1e-4)
+        # the loader's own, called with the JAX package's keywords
+        kw = dict(mean_img=mean, std_img=std, spatial_basis_flat=basis, order=order)
+        ours = tld.standardize_and_filter(data=t32(data), **{k: t32(v) if k != "order" else v
+                                                             for k, v in kw.items()})
+        ref = jld.standardize_and_filter(data=jnp.asarray(data), **{k: jnp.asarray(v) if k != "order"
+                                                                     else v for k, v in kw.items()})
         for a, b in zip(ours, ref):
             np.testing.assert_allclose(to_np(a), np.asarray(b), rtol=1e-4, atol=1e-4)
 

@@ -168,7 +168,7 @@ def _u_and_p(d1, d2, rng):
 @pytest.fixture(scope="module")
 def in_memory():
     movie = _movie()
-    loader = PMDLoader(movie, CPU, background_rank=2, seed=0, np_rng=np.random.RandomState(0))
+    loader = PMDLoader(movie, device=CPU, background_rank=2, seed=0, np_rng=np.random.RandomState(0))
     u, p = _u_and_p(20, 18, np.random.default_rng(1))
     return movie, loader, u, p, loader.v_projection(u, p)
 
@@ -178,7 +178,7 @@ def in_memory():
 def test_file_sources_equal_the_in_memory_source(kind, cache, in_memory, tmp_path):
     movie, ref, u, p, v_ref = in_memory
     src = _sources(movie, tmp_path)[kind]
-    loader = PMDLoader(src, CPU, background_rank=2, seed=0, np_rng=np.random.RandomState(0),
+    loader = PMDLoader(src, device=CPU, background_rank=2, seed=0, np_rng=np.random.RandomState(0),
                        num_workers=3, cache_movie=cache)
     assert loader.stream_dtype == torch.uint16
     assert loader._cache_frames == (movie.shape[0] if cache else 0)
@@ -204,7 +204,7 @@ def test_file_sources_match_the_jax_loader(kind, in_memory, tmp_path):
     src = _sources(movie, tmp_path)[kind]
     jsrc = {"raw": lambda f: jd.RawBinaryArray(f, movie.shape, "uint16"),
             "tiff": jd.TiffArray, "npy": jd.NpyArray}[kind](str(tmp_path / path))
-    ours = PMDLoader(src, CPU, background_rank=0, num_workers=2)
+    ours = PMDLoader(src, device=CPU, background_rank=0, num_workers=2)
     theirs = JaxLoader(jsrc, background_rank=0, num_workers=2)
     assert rel_fro(ours.mean_img, np.asarray(theirs.mean_img)) <= 1e-5
     assert rel_fro(ours.std_img, np.asarray(theirs.std_img)) <= 1e-5
@@ -218,7 +218,7 @@ def test_v_regression_does_not_depend_on_the_chunking(in_memory, tmp_path, monke
     movie, ref, u, p, v_ref = in_memory
     monkeypatch.setattr(port_loader, "transient_budget_bytes", lambda device: 1 << 18)
     monkeypatch.setattr(port_loader, "STREAM_CHUNK_BYTES", 1 << 16)
-    loader = PMDLoader(_sources(movie, tmp_path)["raw"], CPU, background_rank=2, seed=0,
+    loader = PMDLoader(_sources(movie, tmp_path)["raw"], device=CPU, background_rank=2, seed=0,
                        np_rng=np.random.RandomState(0))
     assert loader._stream_chunk_frames() == (1 << 18) // (20 * 18 * 4)
     chunks = [c.shape[0] for c in loader._iter_raw_chunks()]
@@ -233,7 +233,7 @@ def test_v_regression_does_not_depend_on_the_chunking(in_memory, tmp_path, monke
 ])
 def test_stream_chunk_frames_from_the_transient_budget(budget, batch, want, monkeypatch):
     monkeypatch.setattr(port_loader, "transient_budget_bytes", lambda device: budget)
-    loader = PMDLoader(np.zeros((300, 20, 18), np.float32), CPU, background_rank=0,
+    loader = PMDLoader(np.zeros((300, 20, 18), np.float32), device=CPU, background_rank=0,
                        batch_size=batch)
     assert loader._stream_chunk_frames() == want
 
@@ -245,12 +245,12 @@ def test_stream_chunk_frames_from_the_transient_budget(budget, batch, want, monk
 def raw_loader(in_memory, tmp_path):
     movie, _, u, p, v_ref = in_memory
     src = _sources(movie, tmp_path)["raw"]
-    return PMDLoader(src, CPU, background_rank=0, seed=0), u, p, v_ref, movie
+    return PMDLoader(src, device=CPU, background_rank=0, seed=0), u, p, v_ref, movie
 
 
 def test_prefetched_v_projection_identical(raw_loader, in_memory):
     loader, u, p, _, movie = raw_loader
-    base = PMDLoader(movie, CPU, background_rank=0, seed=0)
+    base = PMDLoader(movie, device=CPU, background_rank=0, seed=0)
     v_ref = base.v_projection(u, p)
     assert loader.start_v_prefetch() is True
     assert loader.start_v_prefetch() is False          # one already pending
@@ -265,15 +265,15 @@ def test_release_cache_invalidates_pending_prefetch(raw_loader):
     it = loader._v_prefetch["iter"]
     loader.release_cache()
     assert loader._v_prefetch is None and it._stop.is_set()
-    base = PMDLoader(movie, CPU, background_rank=0, seed=0)
+    base = PMDLoader(movie, device=CPU, background_rank=0, seed=0)
     assert torch.equal(loader.v_projection(u, p), base.v_projection(u, p))
 
 
 def test_resident_or_cached_movie_skips_prefetch(in_memory):
     movie = in_memory[0]
-    resident = PMDLoader(TensorMovie(torch.from_numpy(movie)), CPU, background_rank=0)
+    resident = PMDLoader(TensorMovie(torch.from_numpy(movie)), device=CPU, background_rank=0)
     assert resident._device_resident and resident.start_v_prefetch() is False
-    cached = PMDLoader(movie, CPU, background_rank=0, cache_movie=True)
+    cached = PMDLoader(movie, device=CPU, background_rank=0, cache_movie=True)
     assert cached._cache_frames == movie.shape[0] and cached.start_v_prefetch() is False
     # cache-served ranges are views of the cache, not copies
     chunk = cached._load_raw(slice(10, 50))
@@ -307,7 +307,7 @@ def test_cache_movie_end_to_end_identical(clean_run):
 
 def test_stats_pass_oom_drops_cache_and_retries(monkeypatch):
     movie = (np.random.default_rng(10).standard_normal((300, 20, 20)) * 2 + 5).astype(np.float32)
-    clean = PMDLoader(movie, CPU, background_rank=1, seed=0, cache_movie=False)
+    clean = PMDLoader(movie, device=CPU, background_rank=1, seed=0, cache_movie=False)
     calls = []
     real = PMDLoader._initialize_normalizers
 
@@ -319,7 +319,7 @@ def test_stats_pass_oom_drops_cache_and_retries(monkeypatch):
         return real(self)
 
     monkeypatch.setattr(PMDLoader, "_initialize_normalizers", flaky)
-    loader = PMDLoader(movie, CPU, background_rank=1, seed=0, cache_movie=True)
+    loader = PMDLoader(movie, device=CPU, background_rank=1, seed=0, cache_movie=True)
     assert len(calls) == 2
     assert loader._cache is None and loader._cache_policy is False
     assert torch.equal(loader.mean_img, clean.mean_img)
@@ -408,14 +408,16 @@ class _FakeDevice:
     ("float32", "uint16"),      # a TIFF of uint16 read as float32: cached as uint16
     ("int16", None), ("uint8", None), ("int8", None)])   # cached at their native width
 @pytest.mark.parametrize("policy", ["auto", True])
+@pytest.mark.parametrize("cache_fraction", [0.5, 0.25])
 def test_cache_plan_matches_jax(free, reserved, allocated, t, dtype, raw_dtype, policy,
-                                monkeypatch):
+                                cache_fraction, monkeypatch):
     """The movie-cache plan counts the caching allocator's reserved but
     unallocated bytes as free, as JAX's ``bytes_limit - bytes_in_use``
     (loader.py:535-583): a warm call in one process, whose free memory is
     what the cold call's cache left cached, plans the cold call's cache.
     Equal to JAX's own plan for the same source on a device reporting the
-    same free bytes: both cache the stored dtype (the port's stream dtype)."""
+    same free bytes: both cache the stored dtype (the port's stream dtype),
+    at the same ``cache_fraction``."""
     from localmd_tpu import loader as jl
 
     total = 80 << 30
@@ -426,12 +428,12 @@ def test_cache_plan_matches_jax(free, reserved, allocated, t, dtype, raw_dtype, 
     ours = PMDLoader.__new__(PMDLoader)
     ours.dataset, ours.device, ours._cache_policy = _Source(t, dtype, raw_dtype), torch.device("cuda", 0), policy
     ours.shape, ours.frame_constant = ours.dataset.shape, port_loader.STATS_CHUNK_FRAMES
-    ours.stream_dtype = ours._stream_dtype()
+    ours.stream_dtype, ours._cache_fraction = ours._stream_dtype(), cache_fraction
     cached = np.dtype(str(ours.stream_dtype).removeprefix("torch."))
     assert cached == np.dtype(raw_dtype or dtype)
     ref = jl.PMDLoader.__new__(jl.PMDLoader)
     ref.dataset, ref.shape, ref._cache_policy = _Source(t, dtype, raw_dtype), (t, 512, 512), policy
-    ref._cache_fraction, ref._cache_reserve_bytes = 0.5, int(7.5e9)
+    ref._cache_fraction, ref._cache_reserve_bytes = cache_fraction, int(7.5e9)
     ref.frame_constant = jl.STATS_CHUNK_FRAMES
     ref._device = _FakeDevice(total, total - (free + reserved - allocated))
     assert ours._plan_cache_frames() == ref._plan_cache_frames()
@@ -452,6 +454,6 @@ def test_cache_plan_reads_cached_blocks_as_free(monkeypatch):
             _Source(30000, "uint16"), torch.device("cuda", 0), "auto")
         loader.dataset.shape = (30000, 1024, 1024)
         loader.shape, loader.frame_constant = loader.dataset.shape, port_loader.STATS_CHUNK_FRAMES
-        loader.stream_dtype = torch.uint16
+        loader.stream_dtype, loader._cache_fraction = torch.uint16, port_loader.CACHE_FRACTION
         plans.append(loader._plan_cache_frames())
     assert plans[0] == plans[1] == 17408

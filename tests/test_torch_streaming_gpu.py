@@ -81,9 +81,9 @@ def test_file_loader_equals_the_resident_loader(cuda, files, kind, cache, monkey
     # small stream chunks, so the V pass runs several copies through the ring
     monkeypatch.setattr(port_loader, "transient_budget_bytes", lambda device: 1 << 20)
     monkeypatch.setattr(port_loader, "STREAM_CHUNK_BYTES", 1 << 20)
-    resident = PMDLoader(torch.from_numpy(movie).to(cuda), cuda, background_rank=2, seed=0,
+    resident = PMDLoader(torch.from_numpy(movie).to(cuda), device=cuda, background_rank=2, seed=0,
                          np_rng=np.random.RandomState(0))
-    loader = PMDLoader(_source(kind, movie, path), cuda, background_rank=2, seed=0,
+    loader = PMDLoader(_source(kind, movie, path), device=cuda, background_rank=2, seed=0,
                        np_rng=np.random.RandomState(0), num_workers=4, cache_movie=cache)
     assert loader.stream_dtype == torch.uint16
     assert loader._cache_frames == (movie.shape[0] if cache else 0)
@@ -113,7 +113,7 @@ def test_cache_fill_waits_for_work_queued_on_the_consumer_stream(cuda, files):
     torch.cuda._sleep(int(2e9))          # about a second of spinning, then
     block.fill_(255)                     # a late write into the block
     del block
-    loader = PMDLoader(RawBinaryArray(path, movie.shape, "uint16"), cuda, background_rank=0,
+    loader = PMDLoader(RawBinaryArray(path, movie.shape, "uint16"), device=cuda, background_rank=0,
                        cache_movie=True)
     assert loader._cache.data_ptr() == ptr      # the cache took the freed block
     assert loader._cache_frames == movie.shape[0]
@@ -127,7 +127,7 @@ def test_abandoned_stream_releases_ring_and_chunks(cuda, files):
     from localmd_tpu_torch.loader import PMDLoader
 
     movie, path = files
-    loader = PMDLoader(RawBinaryArray(path, movie.shape, "uint16"), cuda, background_rank=0,
+    loader = PMDLoader(RawBinaryArray(path, movie.shape, "uint16"), device=cuda, background_rank=0,
                        cache_movie=False)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
@@ -150,7 +150,7 @@ def test_worker_thread_runs_on_the_loader_device(cuda, files):
     from localmd_tpu_torch.loader import PMDLoader
 
     movie, path = files
-    loader = PMDLoader(RawBinaryArray(path, movie.shape, "uint16"), cuda, background_rank=0,
+    loader = PMDLoader(RawBinaryArray(path, movie.shape, "uint16"), device=cuda, background_rank=0,
                        cache_movie=False)
     seen = []
     real = loader._read_into

@@ -16,9 +16,10 @@ Phases (each prints one progress line; any failure raises, exit code != 0):
    on this card and, where one PyTorch call computes the same function,
    that call's time (K2: ``torch.matmul``; K4: cuSOLVER's
    ``torch.linalg.eigh``, timed in alternation with K4 at every shape of
-   ``K4_SHAPES``, and also its float64 eigenvalues as K4's reference); K3
-   is timed at each case it checks, with its block lists prepared once as
-   the path keeps them.
+   ``K4_SHAPES``, and also its float64 eigenvalues as K4's reference; K3:
+   ``torch.sparse.mm`` of a CSR U built once from the same panels, held to
+   K3's plain twin at 1e-5); K3 is timed at each case it checks, with its
+   block lists prepared once as the path keeps them.
 3. golden: the port on the golden movie with the committed injected
    sketches and pinned thresholds, against tests/golden/reference_golden.npz
    (K4 on the path: every small eigh; its 40 x 36 grid has a snapped tail,
@@ -146,6 +147,21 @@ Phases (each prints one progress line; any failure raises, exit code != 0):
    coset ids); (c) ``localmd-tpu-torch info`` on phase 8's .npz (the
    demo's without phase 8), the installed script or, where the tree is
    not installed, pyproject.toml's entry point through ``python3 -c``.
+14. the card against the JAX package: every case of
+   ``tests/torch_parity_cases.py`` (order C, uint16, int16 with negative
+   samples, a statistics tail, rank_prune, four windows, the call options,
+   a regular grid, odd geometry, ...), its movie made with numpy and passed
+   as the CPU tests pass it, the sketch, the stored rank-prune matrix and
+   the JAX package's thresholds injected, against the JAX package's result
+   committed in ``tests/golden/torch_parity/`` (remade by
+   ``tests/golden/generate_torch_parity.py``, which needs jax):
+   ``reconstruct_frames`` of every frame (K3) and ``pmd[:, :, :]`` within
+   1e-4 relative Frobenius, ``pipeline_ranks`` and kept rank equal,
+   ``mean_img`` and ``var_img`` within rtol 1e-4. Prints each case's
+   errors, ranks, the kept-rank cut's margin, launches and routes; a case
+   that misses is run again with the routes off for the report. K1-K4
+   each launch in the phase, ``regular_48`` takes every route and every
+   irregular grid K2. ``--phases 14`` runs the build and this phase.
 
 Wherever a path runs, the kernels and routes it launched are checked
 against the route it should take (``expected_routes``): K2 where the cell
@@ -153,7 +169,7 @@ V projection does not run, the route's own calls where it does.
 
 The last two lines are a JSON object with one entry per kernel (its
 launches summed over the runs of phases 3, 4 (the "auto" side), 5, 7 (the
-"auto" side), 8, 9, 10, 11, 12 and 13, each counted from 0) and the result line
+"auto" side), 8, 9, 10, 11, 12, 13 and 14, each counted from 0) and the result line
 ``{"ok": true, "device": {...}}``.
 
 Run from the repository root: ``python3 chip_smoke.py`` (one card; phase 8
@@ -196,7 +212,7 @@ KERNELS = {
     "jacobi_eigh": ("localmd_tpu_torch/csrc/jacobi_eigh.cu",
                     "scripts/ablate_jacobi_kernel.py:103"),
 }
-ALL_PHASES = (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13)
+ALL_PHASES = (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14)
 # K4's cases: the shapes the paths give it -- the rSVD Gram (256 and 225
 # blocks, k = 30), svd_gram_left (k = 20), the threshold Monte-Carlo (131
 # simulations, k = 11, odd), the background rSVD (k = 25) -- and k = 64
@@ -275,10 +291,12 @@ def reset_route_calls() -> None:
         ROUTE_CALLS[name] = 0
 
 
-def expected_routes(d1: int, d2: int, blocks=(32, 32), single_window=True, world: int = 0) -> dict:
+def expected_routes(d1: int, d2: int, blocks=(32, 32), single_window=True, world: int = 0,
+                    spatial_avg_factor: int = 2) -> dict:
     """The routes a call takes with the flags as they are, ``world`` the
     mesh's size (0: no mesh): the coset stage for one window without a
-    mesh on a grid of coset lattices (its memory gate aside), the banded
+    mesh on a grid of coset lattices whose blocks suit
+    ``spatial_avg_factor`` (its memory gate aside), the banded
     Gram on a regular grid except on a one-rank mesh (whose Gram is
     ``sharded_gram_quadratic``; above one rank every rank forms the whole
     Gram, as the JAX package does) and the cell V projection on a regular
@@ -291,7 +309,7 @@ def expected_routes(d1: int, d2: int, blocks=(32, 32), single_window=True, world
     return {
         "coset_stage": (single_window and not world
                         and route_enabled(engine.COSET_STAGE, "cuda")
-                        and engine.coset_stage_supported(blocks[0], blocks[1], 2)
+                        and engine.coset_stage_supported(blocks[0], blocks[1], spatial_avg_factor)
                         and engine.coset_stage_plan(d1, d2, *blocks) is not None),
         "banded_gram": regular and world != 1 and route_enabled(blocksparse.BANDED_GRAM, "cuda"),
         "cell_vproj": regular and route_enabled(blocksparse.COSET_VPROJ, "cuda"),
@@ -340,6 +358,26 @@ def log_bound(label: str, ms: float, b: dict) -> None:
     log(f"  {label} bound: fp32 {b['fp32_ms']:.3f} ms, 3xTF32 {b['x3_ms']:.3f} ms, "
         f"bytes {b['bytes_ms']:.3f} ms -> {b['bound_ms']:.3f} ms ({b['bound_by']}); "
         f"kernel {ms:.3f} ms = {b['bound_ms'] / ms:.1%} of the bound")
+
+
+def k3_csr(panels, starts, fov, block_shape):
+    """K3's function as one sparse matrix: a CSR U of (d1 d2, N S) whose
+    column n S + s holds block n's panel column s at its canvas pixels
+    (C order), so that U @ temporal.reshape(N S, f) is K3's canvas."""
+    import torch
+
+    n, p, s_slots = panels.shape
+    (d1, d2), (b1, b2) = fov, block_shape
+    dev = panels.device
+    st = torch.as_tensor(np.asarray(starts), dtype=torch.long, device=dev)
+    rows = ((st[:, 0, None, None] + torch.arange(b1, device=dev)[None, :, None]) * d2
+            + st[:, 1, None, None] + torch.arange(b2, device=dev)[None, None, :]).reshape(n, p, 1)
+    cols = (torch.arange(n, device=dev)[:, None, None] * s_slots
+            + torch.arange(s_slots, device=dev)[None, None, :])
+    index = torch.stack([rows.expand(n, p, s_slots).reshape(-1),
+                         cols.expand(n, p, s_slots).reshape(-1)])
+    coo = torch.sparse_coo_tensor(index, panels.reshape(-1), (d1 * d2, n * s_slots))
+    return coo.coalesce().to_sparse_csr()
 
 
 def phase_kernels(results: dict) -> None:
@@ -465,15 +503,26 @@ def phase_kernels(results: dict) -> None:
         check(err <= 1e-5, f"K3 {name}: error {err}")
         ms = cuda_ms(lambda: kernels.block_reconstruct(*args, plan), reps=10)
         plain_ms = cuda_ms(lambda: kernels.block_reconstruct_plain(*args))
+        # the library call: torch.sparse.mm of a CSR U (rows the canvas
+        # pixels, columns each block's S slots), built once, by the stacked
+        # temporal factors
+        u_csr = k3_csr(panels, grid.starts, (d1, d2), (blk, blk))
+        stacked = temporal.reshape(n * s_slots, f)
+        out_l = torch.sparse.mm(u_csr, stacked)
+        torch.cuda.synchronize()
+        err_l = rel_fro(out_l, out_p.reshape(d1 * d2, f))
+        check(err_l <= 1e-5, f"K3 {name}: torch.sparse.mm against the plain twin {err_l}")
+        lib_ms = cuda_ms(lambda: torch.sparse.mm(u_csr, stacked), reps=10)
         b = bound(2.0 * n * blk * blk * s_slots * f,
                   4 * (n * blk * blk * s_slots + n * s_slots * f + d1 * d2 * f), True)
         log(f"  K3 block_reconstruct {name}: rel Frobenius err {err:.3e}; kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.3f} ms")
+            f"plain {plain_ms:.3f} ms, torch.sparse.mm (CSR U, {u_csr._nnz()} nonzeros; "
+            f"{err_l:.3e} from the plain twin) {lib_ms:.3f} ms = kernel x {lib_ms / ms:.2f}")
         log_bound(f"K3 {name}", ms, b)
         if first is None:
             first = dict(max_abs_err=max_abs(out_k, out_p), ms=ms, plain_ms=plain_ms,
-                         bound_ms=b["bound_ms"], bound_by=b["bound_by"], library_ms=None)
-        del panels, temporal, out_k, out_p
+                         bound_ms=b["bound_ms"], bound_by=b["bound_by"], library_ms=lib_ms)
+        del panels, temporal, out_k, out_p, out_l, u_csr, stacked
     results["block_reconstruct"] = first
 
     # K4: eigenvalues within 1e-5 |lambda_max| of the plain twin's and of
@@ -2259,6 +2308,169 @@ def phase_demo_and_grid_cache(tmp: str, cli_npz) -> dict:
     return add_launches(launches_a, launches_b)
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the card against the JAX package on every parity case
+# ---------------------------------------------------------------------------
+
+PARITY_DIR = os.path.join(HERE, "tests", "golden", "torch_parity")
+PARITY_RECON_TOL = 1e-4         # relative Frobenius, through K3 and through slicing
+PARITY_IMG_RTOL = 1e-4          # mean_img and var_img
+
+
+def parity_module():
+    """``tests/torch_parity_cases.py``: numpy only, the case table."""
+    if os.path.join(HERE, "tests") not in sys.path:
+        sys.path.insert(0, os.path.join(HERE, "tests"))
+    import torch_parity_cases
+
+    return torch_parity_cases
+
+
+def parity_cases():
+    """The case table and the JAX package's committed records: (module,
+    cases.json, the stored draws)."""
+    with open(os.path.join(PARITY_DIR, "cases.json")) as f:
+        records = json.load(f)
+    return parity_module(), records, dict(np.load(os.path.join(PARITY_DIR, "draws.npz")))
+
+
+def parity_run(name: str, device: str, records: dict, draws: dict):
+    """One parity case through the port as its CPU test runs it: the movie
+    as a numpy array, the case's sketch and stored rank-prune matrix
+    injected, ``threshold_heuristic`` pinned to the JAX package's values."""
+    import localmd_tpu_torch.pipeline as port_pipeline
+    from localmd_tpu_torch.utils.random import sketch_override
+
+    cases = parity_module()
+    thresholds = tuple(records[name]["thresholds"])
+    saved = port_pipeline.threshold_heuristic
+    port_pipeline.threshold_heuristic = lambda *a, **k: thresholds
+    try:
+        with sketch_override(cases.draws(name, draws.get(name))):
+            return port_pipeline.localmd_decomposition(
+                cases.movie(name), cases.CASES[name]["blocks"], device=device,
+                **cases.options(name))
+    finally:
+        port_pipeline.threshold_heuristic = saved
+
+
+def cut_margin(s, rel_tol: float) -> float:
+    """The relative distance from the kept-rank cut (``rel_tol`` s_0) of the
+    singular value nearest it: small means a rounding can move the kept
+    rank."""
+    s = np.asarray(s, np.float64)
+    cut = rel_tol * s[0]
+    return float(np.min(np.abs(s - cut)) / cut) if cut > 0 else float("inf")
+
+
+def parity_errors(pmd, ref) -> dict:
+    """The port's result against the JAX package's (a host PMDArray)."""
+    want = ref[:, :, :]
+    norm = np.linalg.norm(want)
+    recon = pmd.reconstruct_frames(np.arange(pmd.shape[0])).cpu().numpy()
+    mean, var = ref.mean_img, ref.var_img
+    return dict(
+        k3=float(np.linalg.norm(recon - want) / norm),
+        slicing=float(np.linalg.norm(pmd[:, :, :] - want) / norm),
+        mean=float(np.max(np.abs(pmd.mean_img - mean) / (np.abs(mean) + 1e-5 * np.abs(mean).max()))),
+        var=float(np.max(np.abs(pmd.var_img - var) / np.abs(var))),
+    )
+
+
+def phase_parity() -> dict:
+    """Phase 14: every case of ``tests/torch_parity_cases.py`` on the card
+    against the JAX package's committed result. Every case runs and is
+    reported before the phase fails on any miss; a case that misses is run
+    again with the routes forced off, for the report. Returns the launch
+    counts of the phase's runs and read-backs (counted from 0)."""
+    import torch
+
+    import localmd_tpu_torch.pipeline as port_pipeline
+    from bench_torch import set_routes
+    from localmd_tpu_torch import factorization, load_decomposition
+    from localmd_tpu_torch.ops import kernels
+
+    cases, records, draws = parity_cases()
+    log(f"phase 14 the card against the JAX package: {len(cases.CASES)} cases of "
+        f"tests/torch_parity_cases.py, fixtures {os.path.relpath(PARITY_DIR, HERE)}")
+    singular = {}
+    real_final, real_svd = port_pipeline.final_svd_reformat, factorization.projected_svd
+
+    def svd_spy(p, v):
+        out = real_svd(p, v)
+        singular["s"] = out[1].cpu().numpy()
+        return out
+
+    def final_spy(p, v, rel_tol=1e-3):
+        singular["tol"] = rel_tol
+        factorization.projected_svd = svd_spy
+        try:
+            return real_final(p, v, rel_tol=rel_tol)
+        finally:
+            factorization.projected_svd = real_svd
+
+    port_pipeline.final_svd_reformat = final_spy
+    misses, irregular_k2 = [], []
+    t_phase = time.perf_counter()
+    kernels.reset_launch_counts()
+    try:
+        for name, case in cases.CASES.items():
+            record = records[name]
+            ref = load_decomposition(os.path.join(PARITY_DIR, f"{name}.npz"), device=None)
+            before = kernels.launch_counts()
+            reset_route_calls()
+            t0 = time.perf_counter()
+            pmd = parity_run(name, "cuda", records, draws)
+            secs = time.perf_counter() - t0
+            err = parity_errors(pmd, ref)
+            routes = dict(ROUTE_CALLS)
+            launched = {k: n - before[k] for k, n in kernels.launch_counts().items()}
+            opts = cases.options(name)
+            d1, d2 = case["shape"][1:]
+            want = expected_routes(d1, d2, case["blocks"], single_window=not case.get("window_chunks"),
+                                   spatial_avg_factor=opts.get("spatial_avg_factor", 2))
+            margin = cut_margin(singular["s"], singular["tol"])
+            log(f"  {name} {case['shape']} {case['dtype']} blocks {case['blocks']}: {secs:.2f} s; "
+                f"rel Frobenius {err['k3']:.3e} (K3) / {err['slicing']:.3e} (slicing); mean "
+                f"{err['mean']:.2e}, var {err['var']:.2e}; ranks {pmd.pipeline_ranks} kept "
+                f"{pmd.rank} (JAX {record['pipeline_ranks']} kept {record['rank']}); kept-rank "
+                f"cut margin {margin:.3e}; launches {launched}; routes {routes}")
+            check_path(f"parity {name}", launched, routes, want,
+                       kernels_run=("movie_stats", "block_reconstruct", "jacobi_eigh"))
+            if name == "regular_48":
+                check(all(want.values()), f"parity regular_48: expected every route, {want}")
+            if not want["cell_vproj"]:
+                irregular_k2.append(name)
+            missed = [what for what, bad in (
+                ("reconstruction", max(err["k3"], err["slicing"]) > PARITY_RECON_TOL),
+                ("mean_img", err["mean"] > PARITY_IMG_RTOL),
+                ("var_img", err["var"] > PARITY_IMG_RTOL),
+                ("pipeline_ranks", pmd.pipeline_ranks != record["pipeline_ranks"]),
+                ("kept rank", pmd.rank != record["rank"])) if bad]
+            if missed:
+                misses.append(f"{name}: {', '.join(missed)}")
+                set_routes(False)
+                try:
+                    off = parity_run(name, "cuda", records, draws)
+                finally:
+                    set_routes("auto")
+                err_off = parity_errors(off, ref)
+                log(f"  {name} MISSED {missed}; routes off: rel Frobenius {err_off['k3']:.3e} / "
+                    f"{err_off['slicing']:.3e}, ranks {off.pipeline_ranks} kept {off.rank}")
+                del off
+            del pmd
+            torch.cuda.empty_cache()
+    finally:
+        port_pipeline.final_svd_reformat = real_final
+    launches = kernels.launch_counts()
+    log(f"  phase 14: {time.perf_counter() - t_phase:.2f} s for {len(cases.CASES)} cases; launches "
+        f"{launches}; cases taking K2 (irregular grids): {irregular_k2}")
+    check(not misses, "phase 14: " + "; ".join(misses))
+    for name in KERNELS:
+        check(launches[name] > 0, f"phase 14 never launched {name}")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(map(str, ALL_PHASES)),
@@ -2430,6 +2642,10 @@ def main(argv=None) -> int:
     finally:
         if tmp is not None:
             shutil.rmtree(tmp, ignore_errors=True)
+    if 14 in phases:
+        launches_14 = phase_parity()
+        if launches is not None:
+            launches = add_launches(launches, launches_14)
 
     if phases != set(ALL_PHASES):
         log(f"partial run (phases {sorted(phases)}): no result line")

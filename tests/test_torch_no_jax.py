@@ -14,8 +14,11 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "localmd_tpu_torch")
-# the scripts that drive the port on the card, where jax is not installed
-SCRIPTS = ("chip_smoke.py", "bench_torch.py", "kernel_variants.py", "demos/demo_torch.py")
+# the scripts that drive the port on the card, where jax is not installed,
+# and the numpy-only case table chip_smoke.py phase 14 reads from tests/
+SCRIPTS = ("chip_smoke.py", "bench_torch.py", "kernel_variants.py", "demos/demo_torch.py",
+           "tests/torch_parity_cases.py")
+PARITY_CASES = os.path.join(ROOT, "tests", "torch_parity_cases.py")
 FORBIDDEN = ("jax", "jaxlib", "localmd_tpu")
 
 
@@ -78,6 +81,22 @@ def test_native_reader_builds_from_the_port_source_into_its_build_dir():
 def test_module_imports_no_jax(path):
     bad = [m for m in _imported_roots(path) if m in FORBIDDEN]
     assert not bad, f"{path} imports {bad}"
+
+
+def test_parity_cases_import_only_numpy():
+    """chip_smoke.py phase 14 and the JAX fixture generator read
+    tests/torch_parity_cases.py: numpy and nothing else (no jax, torch or
+    conftest, which imports jax), wherever in the module."""
+    assert set(_imported_roots(PARITY_CASES)) == {"numpy"}
+
+
+def test_chip_smoke_reads_the_parity_cases_and_nothing_of_jax():
+    """Phase 14 imports the case table from tests/ and neither jax nor the
+    JAX package, in any function."""
+    roots = set(_imported_roots(os.path.join(ROOT, "chip_smoke.py")))
+    assert "torch_parity_cases" in roots
+    assert not roots & set(FORBIDDEN)
+    assert "generate_torch_parity" not in roots
 
 
 def _top_level_imports(path):

@@ -16,131 +16,31 @@ injected sketch), whose thresholds must equal the JAX package's to 1e-4.
 Plus the state carried across: ``PMDArray.from_reference_state`` and .npz
 files in both directions. Tolerance: reconstruction 1e-4 relative
 Frobenius, std image rtol 1e-4, ``pipeline_ranks`` and kept rank equal;
-identical factors reconstruct to 1e-5."""
+identical factors reconstruct to 1e-5.
+
+The cases live in ``tests/torch_parity_cases.py`` and the JAX side runs as
+``tests/golden/generate_torch_parity.py`` runs it, whose committed results
+``chip_smoke.py`` phase 14 holds the card to: the JAX run here remakes
+each fixture (1e-6), and the port's run here meets it at the bars above
+(``tests/test_torch_card_parity.py`` does the same for the other cases)."""
+
+import os
+import sys
 
 import numpy as np
 import pytest
 import torch
 
-from _torch_util import rel_fro, to_np
+from _torch_util import assert_fixture_is_current, assert_port_meets_fixture, rel_fro, to_np
 
-from conftest import make_low_rank_movie
+import torch_parity_cases as parity
 
-CASES = {
-    "order_c": dict(shape=(600, 60, 52), dtype="float32", order="C", frame_range=600, blocks=(20, 20)),
-    "uint16": dict(shape=(600, 60, 52), dtype="uint16", order="F", frame_range=600, blocks=(20, 20)),
-    "tail_1100": dict(shape=(1100, 40, 36), dtype="float32", order="F", frame_range=500, blocks=(16, 16)),
-    "rank_prune": dict(shape=(700, 60, 52), dtype="float32", order="F", frame_range=500,
-                       blocks=(15, 15), rank_prune=True),
-    "multi_window_f32": dict(shape=(800, 48, 40), dtype="float32", order="F", frame_range=400,
-                             blocks=(16, 16), window_chunks=100, noise=0.3),
-    "multi_window_u16": dict(shape=(800, 48, 40), dtype="uint16", order="F", frame_range=400,
-                             blocks=(16, 16), window_chunks=100, noise=0.3),
-}
-# the call options, each on a golden-sized noisy movie; "thresholds": "jax"
-# pins the port to the JAX package's own Monte-Carlo result, "injected"
-# runs the port's Monte-Carlo on the JAX package's draws
-OPTION_BASE = dict(shape=(500, 40, 36), dtype="float32", order="F", frame_range=500,
-                   blocks=(16, 16), noise=0.3)
-CASES.update({
-    "pixel_weighting": dict(OPTION_BASE, pixel_weighting=True),
-    "max_failures_1": dict(OPTION_BASE, max_consecutive_failures=1, thresholds="jax"),
-    "max_failures_2": dict(OPTION_BASE, max_consecutive_failures=2, thresholds="jax"),
-    "frame_batch_size": dict(OPTION_BASE, frame_batch_size=128, thresholds="jax"),
-    # T is not the crop's 500: the background rSVD's sketch is (T, k) for
-    # T <= 1000, and _port_draws tells the rank-prune matrix by its rows
-    "rank_prune_factor": dict(OPTION_BASE, shape=(600, 40, 36), rank_prune=True,
-                              rank_prune_factor=0.5),
-    "sim_conf": dict(OPTION_BASE, sim_conf=10.0, sim_iters=24, thresholds="injected"),
-})
-MULTI_WINDOW = [name for name, case in CASES.items() if "window_chunks" in case]
-SETTINGS = dict(max_components=6, background_rank=2, temporal_avg_factor=5, seed=0)
-OPTIONS = ("max_consecutive_failures", "frame_batch_size", "rank_prune_factor", "sim_conf",
-           "sim_iters")
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden"))
+import generate_torch_parity as generator  # noqa: E402
 
-
-def _movie(case):
-    movie = make_low_rank_movie(
-        4, case["shape"], rng=np.random.default_rng(3), noise=case.get("noise", 1e-4)
-    )
-    if case["dtype"] == "uint16":
-        movie = np.clip(np.rint(movie * 2000.0 + 500.0), 0, 65535).astype(np.uint16)
-    return movie
-
-
-def _sketch(shape):
-    return np.random.default_rng(1234).standard_normal(shape).astype(np.float32)
-
-
-def _port_draws(case):
-    """The port's draws: the fixed sketch, and for ``rank_prune`` the JAX
-    package's rank-prune matrix, recognized by its (crop frames, m) shape
-    (so a rank-prune case's T must not equal its crop)."""
-    if not case.get("rank_prune"):
-        return _sketch
-    import jax
-
-    key = jax.random.PRNGKey(SETTINGS["seed"])
-    for _ in range(3):
-        key, sub = jax.random.split(key)
-    crop = case["frame_range"] // SETTINGS["temporal_avg_factor"] * SETTINGS["temporal_avg_factor"]
-
-    def draw(shape):
-        if len(shape) == 2 and shape[0] == crop:
-            return np.asarray(jax.random.normal(sub, tuple(shape)))
-        return _sketch(shape)
-
-    return draw
-
-
-def _options(case):
-    opts = dict(
-        frame_range=case["frame_range"], order=case["order"],
-        rank_prune=case.get("rank_prune", False), window_chunks=case.get("window_chunks"),
-        **SETTINGS,
-    )
-    opts.update((k, case[k]) for k in OPTIONS if k in case)
-    if case.get("pixel_weighting"):
-        opts["pixel_weighting"] = np.random.default_rng(5).uniform(
-            0.5, 2.0, case["shape"][1:]).astype(np.float32)
-    return opts
-
-
-def _jax_thresholds(case):
-    """The JAX package's Monte-Carlo thresholds for the case's blocks and
-    window (its own key tree: the first split of PRNGKey(seed))."""
-    import jax
-
-    from localmd_tpu.engine import threshold_heuristic
-
-    _, sub = jax.random.split(jax.random.PRNGKey(SETTINGS["seed"]))
-    dims = (*case["blocks"], case["window_chunks"])
-    return tuple(float(x) for x in threshold_heuristic(dims, iters=250, key=sub))
-
-
-def _run_jax(movie, case, monkeypatch, thresholds=(1e9, 1e9), seen=None):
-    """``thresholds=None`` runs the JAX package's own Monte-Carlo (its cache
-    emptied, so the injected sketch reaches it) and appends each call's
-    arguments and thresholds to ``seen``."""
-    import jax.numpy as jnp
-
-    import localmd_tpu.engine as jax_engine
-    import localmd_tpu.pipeline as jax_pipeline
-    from localmd_tpu.ops.linalg import sketch_override
-
-    if thresholds is None:
-        real = jax_pipeline.threshold_heuristic
-
-        def spy(*a, **k):
-            seen.append((a, k, tuple(float(x) for x in real(*a, **k))))
-            return seen[-1][2]
-
-        monkeypatch.setattr(jax_engine, "_threshold_cache", {})
-        monkeypatch.setattr(jax_pipeline, "threshold_heuristic", spy)
-    else:
-        monkeypatch.setattr(jax_pipeline, "threshold_heuristic", lambda *a, **k: thresholds)
-    with sketch_override(lambda shape: jnp.asarray(_sketch(shape))):
-        return jax_pipeline.localmd_decomposition(movie, case["blocks"], **_options(case))
+CASES = {name: parity.CASES[name] for name in parity.PIPELINE_CASES}
+MULTI_WINDOW = [name for name in CASES if name in parity.MULTI_WINDOW]
+SETTINGS = parity.SETTINGS
 
 
 def _jax_noise_blocks(call):
@@ -173,9 +73,11 @@ def _inject_jax_noise(monkeypatch, call):
     monkeypatch.setattr(port_engine, "normal", normal)
 
 
-def _run_port(movie, case, monkeypatch, thresholds=(1e9, 1e9), residual_calls=None, seen=None):
+def _run_port(movie, name, monkeypatch, thresholds=(1e9, 1e9), residual_calls=None, seen=None,
+              prune_matrix=None):
     """``thresholds=None`` runs the port's own Monte-Carlo and appends its
-    thresholds to ``seen``."""
+    thresholds to ``seen``; ``prune_matrix`` is a ``rank_prune`` case's
+    draw from the JAX key tree."""
     import localmd_tpu_torch.engine as port_engine
     import localmd_tpu_torch.pipeline as port_pipeline
     from localmd_tpu_torch.utils.random import sketch_override
@@ -190,32 +92,34 @@ def _run_port(movie, case, monkeypatch, thresholds=(1e9, 1e9), residual_calls=No
         residual = port_engine.single_residual_block_md_batched
         monkeypatch.setattr(port_engine, "single_residual_block_md_batched",
                             lambda *a, **k: residual_calls.append(1) or residual(*a, **k))
-    with sketch_override(_port_draws(case)):
+    with sketch_override(parity.draws(name, prune_matrix)):
         return port_pipeline.localmd_decomposition(
-            movie, case["blocks"], device="cpu", **_options(case)
+            movie, CASES[name]["blocks"], device="cpu", **parity.options(name)
         )
 
 
 @pytest.fixture(scope="module")
 def runs():
-    """Each case run once through both packages, shared by the tests."""
+    """Each case run once through both packages, shared by the tests: the
+    JAX package as ``tests/golden/generate_torch_parity.py`` runs it, the
+    port pinned to the thresholds the JAX run took (or, for ``sim_conf``,
+    running its own Monte-Carlo on the JAX package's draws)."""
     mp = pytest.MonkeyPatch()
     out = {}
     try:
         for name, case in CASES.items():
-            movie = _movie(case)
-            thr = _jax_thresholds(case) if name in MULTI_WINDOW else (1e9, 1e9)
-            calls, jax_seen, port_seen = [], [], []
-            mode = case.get("thresholds")
-            jax_pmd = _run_jax(movie, case, mp, None if mode else thr, jax_seen)
-            if mode == "jax":
-                thr = jax_seen[0][2]
-            elif mode == "injected":
-                _inject_jax_noise(mp, jax_seen[0])
+            movie = parity.movie(name)
+            calls, port_seen = [], []
+            jax_pmd, record = generator.run_jax(name, movie)
+            thr = record["thresholds"]
+            if case.get("thresholds") == "injected":
+                _inject_jax_noise(mp, record["seen"][0])
                 thr = None
-            port_pmd = _run_port(movie, case, mp, thr, calls, port_seen)
+            prune = generator.prune_matrix(name, jax_pmd.pipeline_ranks)
+            port_pmd = _run_port(movie, name, mp, thr, calls, port_seen, prune)
             port_pmd.residual_calls = len(calls)
-            port_pmd.thresholds = (jax_seen, port_seen)
+            port_pmd.thresholds = (record["seen"], port_seen)
+            jax_pmd.record, jax_pmd.prune_matrix = record, prune
             out[name] = (movie, jax_pmd, port_pmd)
             mp.undo()
     finally:
@@ -237,6 +141,17 @@ def test_port_matches_live_jax_pipeline(name, runs):
     )
     assert port_pmd.rank == jax_pmd.rank
     assert port_pmd.pipeline_ranks == jax_pmd.pipeline_ranks
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_committed_fixture_is_the_jax_result(name, runs):
+    _, jax_pmd, _ = runs[name]
+    assert_fixture_is_current(name, jax_pmd, jax_pmd.record["thresholds"], jax_pmd.prune_matrix)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_port_meets_committed_fixture(name, runs):
+    assert_port_meets_fixture(name, runs[name][2])
 
 
 THRESHOLD_CASES = [name for name, case in CASES.items() if "thresholds" in case]
@@ -366,10 +281,9 @@ def test_unsupported_options_raise(kwargs, monkeypatch):
 
 def test_tensor_input_matches_numpy_input(runs):
     movie, _, port_pmd = runs["uint16"]
-    case = CASES["uint16"]
     mp = pytest.MonkeyPatch()
     try:
-        again = _run_port(torch.from_numpy(movie), case, mp)
+        again = _run_port(torch.from_numpy(movie), "uint16", mp)
     finally:
         mp.undo()
     assert rel_fro(again[:, :, :], port_pmd[:, :, :]) <= 1e-6

@@ -162,6 +162,30 @@ Phases (each prints one progress line; any failure raises, exit code != 0):
    that misses is run again with the routes off for the report. K1-K4
    each launch in the phase, ``regular_48`` takes every route and every
    irregular grid K2. ``--phases 14`` runs the build and this phase.
+15. the card against the JAX package at the main path's full width:
+   bench.py's configuration (blocks 32, frame_range 1024, max_components
+   20, background_rank 15, temporal_avg_factor 10, sim_iters 250,
+   rank_prune) on ``tests/torch_parity_full.py``'s 512 x 512 x 2048 movie
+   (rank 4, noise 0.3; made on the host in 256-frame chunks), float32 with
+   the routes at "auto" and forced off and uint16 at "auto", the sketch,
+   the stored rank-prune matrix and the JAX package's thresholds injected,
+   against the JAX package's result committed in
+   ``tests/golden/torch_parity_full/`` (remade by
+   ``tests/golden/generate_torch_parity_full.py``, which needs jax): the
+   reconstruction's fingerprints (through ``reconstruct_frames``, K3, over
+   all 2048 frames) and ``s`` within 1e-4 relative, ``mean_img`` and
+   ``var_img`` within rtol 1e-4, ``pipeline_ranks`` and kept rank equal.
+   Prints each run's seconds, errors, the kept-rank cut's margin,
+   launches and routes and the host memory the movies took. Where a
+   block's kept count differs from the JAX package's, it prints the block
+   and the first component decided differently, with both packages'
+   statistics beside the threshold (the JAX package's are stored); when
+   every such statistic lies within 1e-4 of its threshold in both
+   packages (an fp32 tie), the run is made again with the JAX package's
+   decision at each tie, as its thresholds and draws are injected, and
+   that run is held to every bar; any other difference is a miss. K1, K3
+   and K4 launch in every run, K2 in the routes-off run, every route in
+   the "auto" runs. ``--phases 15`` runs the build and this phase.
 
 Wherever a path runs, the kernels and routes it launched are checked
 against the route it should take (``expected_routes``): K2 where the cell
@@ -169,7 +193,7 @@ V projection does not run, the route's own calls where it does.
 
 The last two lines are a JSON object with one entry per kernel (its
 launches summed over the runs of phases 3, 4 (the "auto" side), 5, 7 (the
-"auto" side), 8, 9, 10, 11, 12, 13 and 14, each counted from 0) and the result line
+"auto" side), 8, 9, 10, 11, 12, 13, 14 and 15, each counted from 0) and the result line
 ``{"ok": true, "device": {...}}``.
 
 Run from the repository root: ``python3 chip_smoke.py`` (one card; phase 8
@@ -187,6 +211,7 @@ Repeated warm timings and a profile: ``bench_torch.py``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import os
@@ -212,7 +237,7 @@ KERNELS = {
     "jacobi_eigh": ("localmd_tpu_torch/csrc/jacobi_eigh.cu",
                     "scripts/ablate_jacobi_kernel.py:103"),
 }
-ALL_PHASES = (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14)
+ALL_PHASES = (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15)
 # K4's cases: the shapes the paths give it -- the rSVD Gram (256 and 225
 # blocks, k = 30), svd_gram_left (k = 20), the threshold Monte-Carlo (131
 # simulations, k = 11, odd), the background rSVD (k = 25) -- and k = 64
@@ -2334,24 +2359,31 @@ def parity_cases():
     return parity_module(), records, dict(np.load(os.path.join(PARITY_DIR, "draws.npz")))
 
 
+def pinned_run(movie, blocks, device: str, thresholds, draw, **options):
+    """``localmd_decomposition`` with every Gaussian draw replaced by
+    ``draw`` and ``threshold_heuristic`` pinned to ``thresholds``: the port
+    where the JAX package's result was made with the same draws."""
+    import localmd_tpu_torch.pipeline as port_pipeline
+    from localmd_tpu_torch.utils.random import sketch_override
+
+    thresholds = tuple(thresholds)
+    saved = port_pipeline.threshold_heuristic
+    port_pipeline.threshold_heuristic = lambda *a, **k: thresholds
+    try:
+        with sketch_override(draw):
+            return port_pipeline.localmd_decomposition(movie, blocks, device=device, **options)
+    finally:
+        port_pipeline.threshold_heuristic = saved
+
+
 def parity_run(name: str, device: str, records: dict, draws: dict):
     """One parity case through the port as its CPU test runs it: the movie
     as a numpy array, the case's sketch and stored rank-prune matrix
     injected, ``threshold_heuristic`` pinned to the JAX package's values."""
-    import localmd_tpu_torch.pipeline as port_pipeline
-    from localmd_tpu_torch.utils.random import sketch_override
-
     cases = parity_module()
-    thresholds = tuple(records[name]["thresholds"])
-    saved = port_pipeline.threshold_heuristic
-    port_pipeline.threshold_heuristic = lambda *a, **k: thresholds
-    try:
-        with sketch_override(cases.draws(name, draws.get(name))):
-            return port_pipeline.localmd_decomposition(
-                cases.movie(name), cases.CASES[name]["blocks"], device=device,
-                **cases.options(name))
-    finally:
-        port_pipeline.threshold_heuristic = saved
+    return pinned_run(cases.movie(name), cases.CASES[name]["blocks"], device,
+                      records[name]["thresholds"], cases.draws(name, draws.get(name)),
+                      **cases.options(name))
 
 
 def cut_margin(s, rel_tol: float) -> float:
@@ -2363,18 +2395,58 @@ def cut_margin(s, rel_tol: float) -> float:
     return float(np.min(np.abs(s - cut)) / cut) if cut > 0 else float("inf")
 
 
+def image_errors(mean, var, ref_mean, ref_var) -> dict:
+    """The largest relative error of each statistics image (the mean's
+    floored at 1e-5 of its largest value)."""
+    ref_mean, ref_var = np.asarray(ref_mean), np.asarray(ref_var)
+    return dict(
+        mean=float(np.max(np.abs(mean - ref_mean)
+                          / (np.abs(ref_mean) + 1e-5 * np.abs(ref_mean).max()))),
+        var=float(np.max(np.abs(var - ref_var) / np.abs(ref_var))),
+    )
+
+
 def parity_errors(pmd, ref) -> dict:
     """The port's result against the JAX package's (a host PMDArray)."""
     want = ref[:, :, :]
     norm = np.linalg.norm(want)
     recon = pmd.reconstruct_frames(np.arange(pmd.shape[0])).cpu().numpy()
-    mean, var = ref.mean_img, ref.var_img
     return dict(
         k3=float(np.linalg.norm(recon - want) / norm),
         slicing=float(np.linalg.norm(pmd[:, :, :] - want) / norm),
-        mean=float(np.max(np.abs(pmd.mean_img - mean) / (np.abs(mean) + 1e-5 * np.abs(mean).max()))),
-        var=float(np.max(np.abs(pmd.var_img - var) / np.abs(var))),
+        **image_errors(pmd.mean_img, pmd.var_img, ref.mean_img, ref.var_img),
     )
+
+
+@contextlib.contextmanager
+def singular_spy():
+    """Within the block, ``values["s"]`` and ``values["tol"]`` hold the
+    singular values the final reformat cut and its relative tolerance, for
+    ``cut_margin``."""
+    import localmd_tpu_torch.pipeline as port_pipeline
+    from localmd_tpu_torch import factorization
+
+    values = {}
+    real_final, real_svd = port_pipeline.final_svd_reformat, factorization.projected_svd
+
+    def svd_spy(p, v):
+        out = real_svd(p, v)
+        values["s"] = out[1].cpu().numpy()
+        return out
+
+    def final_spy(p, v, rel_tol=1e-3):
+        values["tol"] = rel_tol
+        factorization.projected_svd = svd_spy
+        try:
+            return real_final(p, v, rel_tol=rel_tol)
+        finally:
+            factorization.projected_svd = real_svd
+
+    port_pipeline.final_svd_reformat = final_spy
+    try:
+        yield values
+    finally:
+        port_pipeline.final_svd_reformat, factorization.projected_svd = real_final, real_svd
 
 
 def phase_parity() -> dict:
@@ -2385,35 +2457,17 @@ def phase_parity() -> dict:
     counts of the phase's runs and read-backs (counted from 0)."""
     import torch
 
-    import localmd_tpu_torch.pipeline as port_pipeline
     from bench_torch import set_routes
-    from localmd_tpu_torch import factorization, load_decomposition
+    from localmd_tpu_torch import load_decomposition
     from localmd_tpu_torch.ops import kernels
 
     cases, records, draws = parity_cases()
     log(f"phase 14 the card against the JAX package: {len(cases.CASES)} cases of "
         f"tests/torch_parity_cases.py, fixtures {os.path.relpath(PARITY_DIR, HERE)}")
-    singular = {}
-    real_final, real_svd = port_pipeline.final_svd_reformat, factorization.projected_svd
-
-    def svd_spy(p, v):
-        out = real_svd(p, v)
-        singular["s"] = out[1].cpu().numpy()
-        return out
-
-    def final_spy(p, v, rel_tol=1e-3):
-        singular["tol"] = rel_tol
-        factorization.projected_svd = svd_spy
-        try:
-            return real_final(p, v, rel_tol=rel_tol)
-        finally:
-            factorization.projected_svd = real_svd
-
-    port_pipeline.final_svd_reformat = final_spy
     misses, irregular_k2 = [], []
     t_phase = time.perf_counter()
     kernels.reset_launch_counts()
-    try:
+    with singular_spy() as singular:
         for name, case in cases.CASES.items():
             record = records[name]
             ref = load_decomposition(os.path.join(PARITY_DIR, f"{name}.npz"), device=None)
@@ -2460,14 +2514,351 @@ def phase_parity() -> dict:
                 del off
             del pmd
             torch.cuda.empty_cache()
-    finally:
-        port_pipeline.final_svd_reformat = real_final
     launches = kernels.launch_counts()
     log(f"  phase 14: {time.perf_counter() - t_phase:.2f} s for {len(cases.CASES)} cases; launches "
         f"{launches}; cases taking K2 (irregular grids): {irregular_k2}")
     check(not misses, "phase 14: " + "; ".join(misses))
     for name in KERNELS:
         check(launches[name] > 0, f"phase 14 never launched {name}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the card against the JAX package at the main path's full width
+# ---------------------------------------------------------------------------
+
+FULL_DIR = os.path.join(HERE, "tests", "golden", "torch_parity_full")
+FULL_TOL = 1e-4                 # both fingerprints and s, relative
+# a keep decision whose statistic lies this close to its threshold in both
+# packages (relative) is an fp32 tie, taken from the JAX package
+FULL_TIE_RTOL = 1e-4
+# (case, routes): the coset stage, the banded Gram and the cell V route;
+# the gather stage, the canvas Gram and K2 (the JAX CPU reference's forms);
+# K1 reading uint16
+FULL_RUNS = (("full_512_f32", "auto"), ("full_512_f32", False), ("full_512_u16", "auto"))
+
+
+def full_module():
+    """``tests/torch_parity_full.py``: numpy only, the full-width cases."""
+    parity_module()
+    import torch_parity_full
+
+    return torch_parity_full
+
+
+def full_fixtures():
+    """The JAX package's committed full-width results: (cases.json, the
+    rank-prune matrix, {case: its arrays})."""
+    with open(os.path.join(FULL_DIR, "cases.json")) as f:
+        records = json.load(f)
+    prune = np.load(os.path.join(FULL_DIR, "draws.npz"))["prune"]
+    refs = {name: dict(np.load(os.path.join(FULL_DIR, f"{name}.npz"))) for name in records}
+    return records, prune, refs
+
+
+def full_run(name: str, device: str, movie, record: dict, prune):
+    """One full-width case through the port: the sketch and the stored
+    rank-prune matrix injected, the thresholds pinned to the JAX
+    package's Monte-Carlo."""
+    full = full_module()
+    return pinned_run(movie, full.FULL_CASES[name]["blocks"], device, record["thresholds"],
+                      full.draws(prune), **full.OPTIONS)
+
+
+def full_width_errors(pmd, ref: dict) -> tuple:
+    """The port's result against the JAX package's stored arrays: (errors,
+    the port's fingerprint). The errors: both fingerprints of
+    ``reconstruct_frames`` (K3) over every frame, ``s`` and the images,
+    each relative."""
+    import torch
+
+    full = full_module()
+
+    def frames(lo, hi):
+        out = pmd.reconstruct_frames(np.arange(lo, hi)).cpu().numpy()
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+        return out
+
+    fp = full.fingerprint(frames, tuple(pmd.shape))
+    err = full.fingerprint_errors(fp, ref)
+    s, s_ref = np.asarray(pmd.s, np.float64), ref["s"].astype(np.float64)
+    err["s"] = (float(np.linalg.norm(s - s_ref) / np.linalg.norm(s_ref))
+                if s.shape == s_ref.shape else float("inf"))
+    err.update(image_errors(pmd.mean_img, pmd.var_img, ref["mean_img"], ref["var_img"]))
+    return err, fp
+
+
+def full_width_misses(err: dict, pipeline_ranks: dict, rank: int, record: dict) -> list:
+    """The bars phase 15 holds each run to, and the CPU tests too: the
+    names of those it misses (a NaN error misses)."""
+    return [what for what, bad in (
+        ("fingerprint psi_y", not err["psi_y"] <= FULL_TOL),
+        ("fingerprint y_omega", not err["y_omega"] <= FULL_TOL),
+        ("s", not err["s"] <= FULL_TOL),
+        ("mean_img", not err["mean"] <= PARITY_IMG_RTOL),
+        ("var_img", not err["var"] <= PARITY_IMG_RTOL),
+        ("pipeline_ranks", dict(pipeline_ranks) != record["pipeline_ranks"]),
+        ("kept rank", rank != record["rank"])) if bad]
+
+
+@contextlib.contextmanager
+def block_spy(order=None, overrides=None):
+    """Within the block: ``values["counts"]``, the kept count of each block
+    as the pipeline hands them to its checkpoint, and ``values["stats"]``,
+    the (spatial, temporal) roughness statistics of each
+    ``evaluate_fitness`` call in call order. ``order`` is the block id of
+    each row of those calls in turn (the coset plan's lattice order, or
+    block order for gathered batches); ``overrides`` maps (block,
+    component) to the keep decision that replaces the port's there, and
+    ``values["forced"]`` counts the replacements made."""
+    from localmd_tpu_torch import checkpoint, engine
+    from localmd_tpu_torch.ops.roughness import spatial_roughness_stat, temporal_roughness_stat
+
+    values = dict(counts=None, stats=[], forced=0)
+    overrides = dict(overrides or {})
+    real_save, real_fitness = checkpoint.PipelineCheckpoint.save, engine.evaluate_fitness
+
+    def save(ckpt, stage, **arrays):
+        if stage == "blocks":
+            values["counts"] = np.asarray(arrays["counts"])
+        return real_save(ckpt, stage, **arrays)
+
+    def fitness(images, traces, spatial_threshold, temporal_threshold):
+        decisions = real_fitness(images, traces, spatial_threshold, temporal_threshold)
+        lo = sum(len(sp) for sp, _ in values["stats"])
+        values["stats"].append((spatial_roughness_stat(images), temporal_roughness_stat(traces)))
+        for (b, k), keep in overrides.items():
+            rows = np.flatnonzero(order[lo:lo + len(decisions)] == b)
+            if rows.size:
+                decisions[int(rows[0]), k] = int(keep)
+                values["forced"] += 1
+        return decisions
+
+    checkpoint.PipelineCheckpoint.save, engine.evaluate_fitness = save, fitness
+    try:
+        yield values
+    finally:
+        checkpoint.PipelineCheckpoint.save, engine.evaluate_fitness = real_save, real_fitness
+
+
+def block_order(coset: bool) -> np.ndarray:
+    """The block id of each ``evaluate_fitness`` row of a full-width run:
+    the coset stage's lattice order, or block order for gathered batches."""
+    from localmd_tpu_torch import engine
+    from localmd_tpu_torch.ops.tiling import block_grid
+
+    full = full_module()
+    (_, d1, d2), (b1, b2) = full.SHAPE, full.BLOCKS
+    if not coset:
+        return np.arange(block_grid(d1, d2, (b1, b2)).n_blocks)
+    _, ids, remainder = engine.coset_stage_plan(d1, d2, b1, b2)
+    return np.concatenate([np.asarray(ids), np.asarray(remainder, dtype=np.int64)])
+
+
+def block_stats(values: dict, order) -> tuple:
+    """The port's (spatial, temporal) statistics of a run, (blocks,
+    components) in block order; None when the calls' rows are not one per
+    block."""
+    if sum(len(sp) for sp, _ in values["stats"]) != len(order):
+        return None
+    out = []
+    for i in (0, 1):
+        rows = np.concatenate([st[i].cpu().numpy() for st in values["stats"]])
+        stat = np.empty_like(rows)
+        stat[order] = rows
+        out.append(stat)
+    return tuple(out)
+
+
+def block_flips(port_stats, jax_stats, thresholds, port_counts, jax_counts) -> list:
+    """One entry per block whose kept count differs from the JAX
+    package's: the first component whose keep decision differs, each
+    package's statistic of every kind that decides it differently beside
+    the threshold, and whether that is an fp32 tie (every such statistic,
+    in both packages, within ``FULL_TIE_RTOL`` of its threshold)."""
+    full = full_module()
+    keep_port = full.keep_decisions(*port_stats, thresholds)
+    keep_jax = full.keep_decisions(*jax_stats, thresholds)
+    flips = []
+    for b in np.flatnonzero(np.asarray(port_counts) != np.asarray(jax_counts)):
+        differ = np.flatnonzero(keep_port[b] != keep_jax[b])
+        entry = dict(block=int(b), port_count=int(port_counts[b]), jax_count=int(jax_counts[b]),
+                     component=None, jax_keeps=None, kinds={}, tie=False)
+        if differ.size:
+            k = int(differ[0])
+            entry.update(component=k, jax_keeps=bool(keep_jax[b, k]))
+            for i, kind in enumerate(("spatial", "temporal")):
+                port, jax, thr = float(port_stats[i][b, k]), float(jax_stats[i][b, k]), thresholds[i]
+                if (port < thr) != (jax < thr):
+                    entry["kinds"][kind] = (port, jax, thr)
+            entry["tie"] = bool(entry["kinds"]) and all(
+                abs(port - thr) <= FULL_TIE_RTOL * thr and abs(jax - thr) <= FULL_TIE_RTOL * thr
+                for port, jax, thr in entry["kinds"].values())
+        flips.append(entry)
+    return flips
+
+
+def describe_flip(flip: dict, starts) -> str:
+    line = (f"block {flip['block']} at {tuple(int(x) for x in starts[flip['block']])}: kept "
+            f"{flip['port_count']}, JAX {flip['jax_count']}")
+    if flip["component"] is None:
+        return line + "; no component's keep decision differs"
+    line += f"; component {flip['component']}"
+    for kind, (port, jax, thr) in flip["kinds"].items():
+        line += (f", {kind} {port:.7g} (JAX {jax:.7g}, threshold {thr:.7g}; "
+                 f"{(port - thr) / thr:+.2e} / {(jax - thr) / thr:+.2e} of it)")
+    return line + ("; an fp32 tie" if flip["tie"] else "; NOT a tie")
+
+
+def full_width_check(name: str, routes_setting, device: str, movie, record: dict, prune,
+                     ref: dict) -> dict:
+    """One full-width run held to the JAX package's stored result at phase
+    15's bars, on the card or on the CPU. Where the blockwise ranks differ,
+    the blocks that differ are reported; if every one is an fp32 tie (the
+    deciding statistic within ``FULL_TIE_RTOL`` of its threshold in both
+    packages), the run is made again with the JAX package's decision at
+    each tie, as its thresholds and draws are injected, and that run is
+    held to every bar. Returns ``misses`` (empty when the bars are met),
+    ``ties`` and each run's numbers."""
+    from bench_torch import set_routes
+    from localmd_tpu_torch.ops.tiling import block_grid
+
+    full = full_module()
+    (_, d1, d2), blocks = full.SHAPE, full.BLOCKS
+    set_routes(routes_setting)
+    try:
+        result = dict(runs=[], ties=[], misses=[])
+        order, overrides = None, {}
+        for attempt in ("run", "ties injected"):
+            reset_route_calls()
+            with singular_spy() as singular, block_spy(order, overrides) as spied:
+                t0 = time.perf_counter()
+                pmd = full_run(name, device, movie, record, prune)
+                secs = time.perf_counter() - t0
+            routes = dict(ROUTE_CALLS)
+            t0 = time.perf_counter()
+            err, fp = full_width_errors(pmd, ref)
+            run = dict(attempt=attempt, secs=secs, read_secs=time.perf_counter() - t0, err=err,
+                       fingerprint=fp,
+                       ranks=dict(pmd.pipeline_ranks), rank=int(pmd.rank), routes=routes,
+                       margin=cut_margin(singular["s"], singular["tol"]), forced=spied["forced"])
+            s_rel = (np.abs(np.asarray(pmd.s, np.float64) - ref["s"]) / ref["s"]
+                     if len(pmd.s) == len(ref["s"]) else None)
+            del pmd
+            result["runs"].append(run)
+            missed = full_width_misses(err, run["ranks"], run["rank"], record)
+            log(f"  {name} routes {routes_setting} ({attempt}): {secs:.2f} s the call, "
+                f"{run['read_secs']:.2f} s the fingerprint (K3 over {full.SHAPE[0]} frames); "
+                f"fingerprint psi_y {err['psi_y']:.3e}, y_omega {err['y_omega']:.3e}; s "
+                f"{err['s']:.3e}; mean {err['mean']:.2e}, var {err['var']:.2e}; ranks "
+                f"{run['ranks']} kept {run['rank']} (JAX {record['pipeline_ranks']} kept "
+                f"{record['rank']}); kept-rank cut margin {run['margin']:.3e}; routes {routes}"
+                + (f"; decisions replaced {spied['forced']}" if overrides else ""))
+            order = block_order(routes["coset_stage"] > 0)
+            stats = block_stats(spied, order)
+            if s_rel is not None:
+                log(f"    s by index against JAX (relative): s_0 {s_rel[0]:.2e}, the first 12 "
+                    f"within {s_rel[:12].max():.2e}, the rest median {np.median(s_rel[12:]):.2e} "
+                    f"and max {s_rel[12:].max():.2e}")
+            if stats is not None:
+                jax_stats = ref["block_spatial"], ref["block_temporal"]
+                diff = [np.median(np.abs(p - j) / np.abs(j)) for p, j in zip(stats, jax_stats)]
+                near = min(float(np.min(np.abs(p - t) / t))
+                           for p, t in zip(stats, record["thresholds"]))
+                log(f"    block statistics against JAX's: median relative difference "
+                    f"{diff[0]:.2e} (spatial), {diff[1]:.2e} (temporal); the port's nearest to a "
+                    f"threshold {near:.2e} of it")
+            if attempt == "ties injected":
+                if spied["forced"] != len(overrides):
+                    missed.append(f"{spied['forced']} of {len(overrides)} tie decisions replaced")
+                result["misses"] = missed
+                break
+            if np.array_equal(spied["counts"], ref["block_counts"]):
+                result["misses"] = missed
+                break
+            if stats is None or not np.array_equal(
+                    full.kept_counts(*stats, record["thresholds"]), spied["counts"]):
+                result["misses"] = missed + ["the port's block statistics were not captured"]
+                break
+            flips = block_flips(stats, (ref["block_spatial"], ref["block_temporal"]),
+                                record["thresholds"], spied["counts"], ref["block_counts"])
+            starts = block_grid(d1, d2, blocks).starts
+            for flip in flips:
+                log(f"    {describe_flip(flip, starts)}")
+            if not all(flip["tie"] for flip in flips):
+                result["misses"] = missed + ["blockwise ranks past an fp32 tie"]
+                break
+            result["ties"] = flips
+            overrides = {(f["block"], f["component"]): f["jax_keeps"] for f in flips}
+        return result
+    finally:
+        set_routes("auto")
+
+
+def phase_full_width() -> dict:
+    """Phase 15: bench.py's configuration at full width (512 x 512 x 2048,
+    ``tests/torch_parity_full.py``) on the card against the JAX package's
+    committed result, in ``FULL_RUNS``. Every run is reported before the
+    phase fails on any miss. Returns the launch counts of the phase's runs
+    and read-backs (counted from 0)."""
+    import tracemalloc
+
+    import torch
+
+    from localmd_tpu_torch.ops import kernels
+
+    full = full_module()
+    records, prune, refs = full_fixtures()
+    log(f"phase 15 the card against the JAX package at full width: {full.SHAPE} blocks "
+        f"{full.BLOCKS} {full.OPTIONS}, fixtures {os.path.relpath(FULL_DIR, HERE)}")
+    t_phase = time.perf_counter()
+    movies = {}
+    tracemalloc.start()
+    t0 = time.perf_counter()
+    movies["full_512_f32"] = full.movie("full_512_f32")
+    made = dict(full_512_f32=(time.perf_counter() - t0, tracemalloc.get_traced_memory()[1]))
+    tracemalloc.reset_peak()
+    t0 = time.perf_counter()
+    u16 = np.empty(full.SHAPE, np.uint16)
+    for lo in range(0, full.SHAPE[0], 256):
+        u16[lo:lo + 256] = full.convert("uint16", movies["full_512_f32"][lo:lo + 256])
+    movies["full_512_u16"] = u16
+    made["full_512_u16"] = (time.perf_counter() - t0, tracemalloc.get_traced_memory()[1])
+    tracemalloc.stop()
+    for name, (secs, peak) in made.items():
+        log(f"  {name}: made in {secs:.2f} s on the host, traced host peak {peak / 2**30:.3f} GiB")
+    misses, ties, prints = [], [], {}
+    kernels.reset_launch_counts()
+    for name, routes_setting in FULL_RUNS:
+        label = f"{name} routes {routes_setting}"
+        before = kernels.launch_counts()
+        result = full_width_check(name, routes_setting, "cuda", movies[name], records[name],
+                                  prune, refs[name])
+        prints[name, routes_setting] = result["runs"][-1]["fingerprint"]
+        launched = {k: n - before[k] for k, n in kernels.launch_counts().items()}
+        log(f"  {label}: launches {launched}")
+        want = dict(coset_stage=False, banded_gram=False, cell_vproj=False)
+        if routes_setting == "auto":
+            want = expected_routes(*full.SHAPE[1:], full.BLOCKS)
+            check(all(want.values()), f"full width {label}: expected every route, {want}")
+        for run in result["runs"]:
+            check_path(f"full width {label} ({run['attempt']})", launched, run["routes"], want,
+                       kernels_run=("movie_stats", "block_reconstruct", "jacobi_eigh"))
+        ties += [f"{label}: block {f['block']} component {f['component']}" for f in result["ties"]]
+        if result["misses"]:
+            misses.append(f"{label}: {', '.join(result['misses'])}")
+        torch.cuda.empty_cache()
+    del movies, u16
+    # how far the card's own two forms of one computation lie apart: the
+    # scale of the fp32 rounding the reduction to the pruned rank amplifies
+    apart = full.fingerprint_errors(prints["full_512_f32", "auto"], prints["full_512_f32", False])
+    log(f"  full_512_f32 routes auto against routes off on the card: fingerprint psi_y "
+        f"{apart['psi_y']:.3e}, y_omega {apart['y_omega']:.3e}")
+    launches = kernels.launch_counts()
+    log(f"  phase 15: {time.perf_counter() - t_phase:.2f} s for {len(FULL_RUNS)} cases; "
+        f"launches {launches}; fp32 ties given the JAX package's decision: {ties or 'none'}")
+    check(not misses, "phase 15: " + "; ".join(misses))
     return launches
 
 
@@ -2646,6 +3037,10 @@ def main(argv=None) -> int:
         launches_14 = phase_parity()
         if launches is not None:
             launches = add_launches(launches, launches_14)
+    if 15 in phases:
+        launches_15 = phase_full_width()
+        if launches is not None:
+            launches = add_launches(launches, launches_15)
 
     if phases != set(ALL_PHASES):
         log(f"partial run (phases {sorted(phases)}): no result line")

@@ -8,6 +8,12 @@ eigh with k <= 64 goes to K4, the batched cyclic-Jacobi kernel
 to numpy's LAPACK. ``jacobi_eigh_plain`` is K4's
 plain twin. Random sketches are drawn through ``utils.random.normal`` so
 tests can inject the JAX package's draws.
+
+Under the JAX module's names, this module also gives ``sketch_override``
+(the draw seam, ``utils.random``) and ``jacobi_eigh``, which is K4's route
+``ops.jacobi_eigh`` (the kernel on a card tensor, its plain twin on a CPU
+tensor), looked up on first use because ``ops.kernels`` imports this
+module.
 """
 
 from __future__ import annotations
@@ -17,10 +23,18 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from localmd_tpu_torch.utils.random import make_generator, normal
+from localmd_tpu_torch.utils.random import make_generator, normal, sketch_override  # noqa: F401
 
 DEFAULT_OVERSAMPLES = 10
 JACOBI_MAX_DIM = 64
+
+
+def __getattr__(name):
+    if name == "jacobi_eigh":
+        from localmd_tpu_torch.ops.kernels import jacobi_eigh
+
+        return jacobi_eigh
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def cholesky_qr2(y: torch.Tensor) -> torch.Tensor:

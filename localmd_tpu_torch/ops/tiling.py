@@ -18,6 +18,8 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from localmd_tpu_torch.config import resolve_device
+
 # Uploads of a grid's constants to a device (``BlockGrid.device_constants``),
 # one per grid and device: a warm call of a memoized grid adds none. The
 # lock makes the check, the upload and the count one step: volumetric
@@ -26,11 +28,14 @@ UPLOADS = {"device_constants": 0}
 _UPLOAD_LOCK = threading.Lock()
 
 
-def _device_key(device) -> torch.device:
+def _device_key(device=None) -> torch.device:
     """The cache key of ``device``: an index-less CUDA device names the
     current one, which differs between threads that set their own
-    (volumetric planes on a list of devices)."""
-    dev = torch.device(device)
+    (volumetric planes on a list of devices). ``None`` is the card, as the
+    JAX package's default device is its accelerator: the current CUDA
+    device, through ``config.resolve_device``, which raises without CUDA
+    and asks for ``device="cpu"``."""
+    dev = resolve_device("cuda") if device is None else torch.device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
@@ -167,8 +172,9 @@ class BlockGrid:
     def pixels_per_block(self) -> int:
         return self.block_sizes[0] * self.block_sizes[1]
 
-    def device_constants(self, device):
-        """The per-run constants on ``device`` (ops/tiling.py:190-210):
+    def device_constants(self, device=None):
+        """The per-run constants on ``device`` (ops/tiling.py:190-210; ``None``:
+        the current CUDA device, see :func:`_device_key`):
         ``(weights_flat (p,), cum_flat (d,), rows (N, p) int64, starts (N, 2)
         int32)``. ``weights_flat`` flattens the panel row layout (always F
         within a block), ``cum_flat`` follows the grid's ``order``. Uploaded
@@ -270,9 +276,10 @@ class BlockGrid:
         object.__setattr__(self, "_cell_geometry", geom if geom is not None else "none")
         return geom
 
-    def coset_info(self, device):
+    def coset_info(self, device=None):
         """The coset placement metadata of ``BlockSparseMatrix.matmul``
-        (ops/tiling.py:306-332): ``(block-id tensors on device, metas, d1,
+        (ops/tiling.py:306-332; ``device`` as in :meth:`device_constants`):
+        ``(block-id tensors on device, metas, d1,
         d2, order, inv)``, ``metas`` the ``(nc1, nc2, st1, st2, a1, a2)`` of
         each coset from :meth:`cosets` and ``inv`` the map from block id to
         its row in the coset-order concatenation. The device copies are

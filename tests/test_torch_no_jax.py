@@ -15,10 +15,12 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "localmd_tpu_torch")
 # the scripts that drive the port on the card, where jax is not installed,
-# and the numpy-only case table chip_smoke.py phase 14 reads from tests/
+# and the numpy-only case tables chip_smoke.py phases 14 and 15 read from
+# tests/
 SCRIPTS = ("chip_smoke.py", "bench_torch.py", "kernel_variants.py", "demos/demo_torch.py",
-           "tests/torch_parity_cases.py")
+           "tests/torch_parity_cases.py", "tests/torch_parity_full.py")
 PARITY_CASES = os.path.join(ROOT, "tests", "torch_parity_cases.py")
+PARITY_FULL = os.path.join(ROOT, "tests", "torch_parity_full.py")
 FORBIDDEN = ("jax", "jaxlib", "localmd_tpu")
 
 
@@ -90,13 +92,21 @@ def test_parity_cases_import_only_numpy():
     assert set(_imported_roots(PARITY_CASES)) == {"numpy"}
 
 
+def test_full_width_cases_import_only_numpy_and_the_case_table():
+    """chip_smoke.py phase 15 reads tests/torch_parity_full.py on the
+    machine with the card: numpy and tests/torch_parity_cases.py, nothing
+    else (no jax, no localmd_tpu, no torch), wherever in the module."""
+    assert set(_imported_roots(PARITY_FULL)) == {"numpy", "torch_parity_cases"}
+
+
 def test_chip_smoke_reads_the_parity_cases_and_nothing_of_jax():
-    """Phase 14 imports the case table from tests/ and neither jax nor the
-    JAX package, in any function."""
+    """Phases 14 and 15 import the case tables from tests/ and neither jax
+    nor the JAX package, nor the generators that need them, in any
+    function."""
     roots = set(_imported_roots(os.path.join(ROOT, "chip_smoke.py")))
-    assert "torch_parity_cases" in roots
+    assert {"torch_parity_cases", "torch_parity_full"} <= roots
     assert not roots & set(FORBIDDEN)
-    assert "generate_torch_parity" not in roots
+    assert not roots & {"generate_torch_parity", "generate_torch_parity_full"}
 
 
 def _top_level_imports(path):

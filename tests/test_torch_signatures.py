@@ -2,9 +2,10 @@
 (no JAX computation runs). The callables: every name of the JAX package's
 top-level ``__all__``, of the ``__all__`` of each reference-name namespace
 (``test_torch_namespaces.NAMESPACES``), and the public functions and
-classes that ``utils``, ``loader``, ``engine``, ``factorization``,
-``blocksparse``, ``pmd_array``, ``dataset`` and ``parallel``'s modules
-define; for a class, its constructor and its public methods. Two rules,
+classes that every JAX module with a port counterpart defines
+(``MODULES``: ``utils``, ``loader``, ``engine``, the ``ops`` modules, the
+pipeline, the I/O, quality and command-line modules, ``parallel``'s
+modules, ...); for a class, its constructor and its public methods. Two rules,
 each a case of one parametrised test per callable:
 
 - ``names``: every JAX parameter name is a parameter of the port's
@@ -25,7 +26,11 @@ from test_torch_namespaces import NAMESPACES
 
 MODULES = ["utils", "utils.device", "utils.keys", "utils.logging", "loader", "engine",
            "factorization", "blocksparse", "pmd_array", "dataset", "parallel.mesh",
-           "parallel.multihost", "parallel.sharded"]
+           "parallel.multihost", "parallel.sharded", "ops.tiling", "ops.linalg", "ops.noise",
+           "ops.pooling", "ops.roughness", "pipeline", "aot", "checkpoint", "volumetric",
+           "metrics", "sim", "diagnostics", "serialization", "compat", "io.tiff", "io.native",
+           "decomposition", "evaluation", "pmd_loader", "preprocessing_utils", "cli",
+           "diagnostic_plots"]
 
 PRNG = "a JAX PRNG key is a seeded torch.Generator in the port"
 SKETCHES = "JAX's per-block PRNG keys are the per-block sketches themselves, drawn by the caller"
@@ -79,6 +84,18 @@ SUBSTITUTIONS = {
                                                      "device; every port entry point takes device="),
     ("loader.nominal_hbm_bytes", None): (None, NOT_PORTED + "utils/device.py's nominal-HBM fallback; "
                                          "the card reports its memory"),
+    ("aot.BlockProgramWarmer.__init__", None): (None, NOT_PORTED + "aot.py's warms; no warm shortened a cold "
+                                       "call on the card"),
+    ("aot.StageWarmer.__init__", None): (None, NOT_PORTED + "aot.py's warms; no warm shortened a cold call on "
+                                "the card"),
+    ("aot.plan_block_stage", None): (None, NOT_PORTED + "it plans the block stage's warm programs, "
+                                     "and the port warms none"),
+    ("aot.clear_warm_registry", None): (None, NOT_PORTED + "the registry of warm programs, and the "
+                                        "port warms none"),
+    ("aot.snapshot_jax_program_configs", None): (None, NOT_PORTED + "it carries JAX's precision "
+                                                 "config onto a warm thread"),
+    ("aot.replay_jax_program_configs", None): (None, NOT_PORTED + "it carries JAX's precision "
+                                               "config onto a warm thread"),
 }
 
 
@@ -246,5 +263,7 @@ def test_the_cases_cover_the_named_callables():
                 "engine.threshold_heuristic", "utils.device.transient_budget_bytes",
                 "utils.device.device_free_bytes", "utils.device.block_batch_budget",
                 "loader.standardize_and_filter", "blocksparse.BlockSparseMatrix.__init__",
-                "parallel.multihost.replicate_frame_sharded"):
+                "parallel.multihost.replicate_frame_sharded",
+                "ops.tiling.BlockGrid.device_constants", "ops.tiling.BlockGrid.coset_info",
+                "ops.linalg.sketch_override"):
         assert cid in CASES and CASES[cid][1] is not None, cid

@@ -179,13 +179,13 @@ def stream_legs(path: str, t: int, frames: int = 2048, dtype="uint16") -> dict:
                 pinned_h2d_GBps=nbytes / float(np.median(times[1:])) / 1e9)
 
 
-NATIVE_READS = {"calls": 0, "bytes": 0}
+NATIVE_READS = {"calls": 0, "bytes": 0, "seconds": 0.0}
 
 
 def count_native_reads() -> None:
-    """Count the native reader's scatter reads (calls, bytes) in
-    ``NATIVE_READS``: a dataset reads through it only where the host buffer
-    has the file's dtype (``dataset._MemmapFrames.read_into``)."""
+    """Count the native reader's scatter reads (calls, bytes, seconds
+    inside them) in ``NATIVE_READS``: a dataset reads through it only where
+    the host buffer has the file's dtype (``dataset._MemmapFrames.read_into``)."""
     from localmd_tpu_torch.io.native import FastReader
 
     if getattr(FastReader.read_scatter, "counted", False):
@@ -193,9 +193,13 @@ def count_native_reads() -> None:
     read = FastReader.read_scatter
 
     def counted(self, offsets, sizes, out):
-        NATIVE_READS["calls"] += 1
-        NATIVE_READS["bytes"] += int(sum(sizes))
-        return read(self, offsets, sizes, out)
+        t0 = time.perf_counter()
+        try:
+            return read(self, offsets, sizes, out)
+        finally:
+            NATIVE_READS["calls"] += 1
+            NATIVE_READS["bytes"] += int(sum(sizes))
+            NATIVE_READS["seconds"] += time.perf_counter() - t0
 
     counted.counted = True
     FastReader.read_scatter = counted

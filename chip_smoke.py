@@ -185,7 +185,35 @@ Phases (each prints one progress line; any failure raises, exit code != 0):
    decision at each tie, as its thresholds and draws are injected, and
    that run is held to every bar; any other difference is a miss. K1, K3
    and K4 launch in every run, K2 in the routes-off run, every route in
-   the "auto" runs. ``--phases 15`` runs the build and this phase.
+   the "auto" runs. Before the runs, the float32 movie's statistics are
+   formed on the card through K1 and through its plain twin in float64,
+   each printed against the fixture's images (a measurement, not a
+   gate). ``--phases 15`` runs the build and this phase.
+16. the card against the JAX package on the other cells ``bench_torch.py``
+   times, at full width, nothing cut, the routes at "auto"
+   (``tests/torch_parity_cells.py``): 1024_u16 (1024 x 1024 x 4096
+   uint16, blocks 40, snapped tails) by default; ``--cells`` names others
+   of voltage_f32 (256 x 256 x 20000 float32, two windows) and
+   northstar_u16 (512 x 512 x 30000 uint16 written to a raw file and read
+   through ``dataset.RawBinaryArray``, num_workers 4), which miss the
+   bars (``OPEN_CELLS``). Each movie is made on the host chunk by chunk on
+   threads and checked against the fixture's digest; every Gaussian draw
+   the numpy sketch, the thresholds the JAX package's, against the
+   results committed in ``tests/golden/torch_parity_cells/`` (remade by
+   ``tests/golden/generate_torch_parity_cells.py``, which needs jax):
+   phase 15's bars (the fingerprint, computed on the card in float64 over
+   every frame through ``reconstruct_frames``, K3, with a temporal probe
+   in place of psi^T Y for T > 4096; ``s``; the images at a fixed pixel
+   sample past 512 x 512 pixels and through psi; ranks) and phase 15's tie
+   rule per (window, block, component), with up to two reruns. Prints per
+   case the JAX package's own spread (its run with every sketch moved one
+   float32 ulp, a measurement), the errors, ``s`` by index, ranks, the
+   cuts' margins (the kept rank's and the factorized SVD's Gram),
+   launches and routes, the seconds of the call, the fingerprint and the
+   movie (and its write), for the north star the native reader's GB/s and
+   the share of the file in the page cache, and a routes-off run against
+   the first (a measurement). ``--phases 16`` runs the build and this
+   phase.
 
 Wherever a path runs, the kernels and routes it launched are checked
 against the route it should take (``expected_routes``): K2 where the cell
@@ -193,11 +221,12 @@ V projection does not run, the route's own calls where it does.
 
 The last two lines are a JSON object with one entry per kernel (its
 launches summed over the runs of phases 3, 4 (the "auto" side), 5, 7 (the
-"auto" side), 8, 9, 10, 11, 12, 13, 14 and 15, each counted from 0) and the result line
+"auto" side), 8, 9, 10, 11, 12, 13, 14, 15 and 16, each counted from 0) and the result line
 ``{"ok": true, "device": {...}}``.
 
 Run from the repository root: ``python3 chip_smoke.py`` (one card; phase 8
-needs ~19 GB of free temporary disk, or prints its cut). ``--phases 0,1,2``
+needs ~19 GB of free temporary disk, or prints its cut; phase 16's north
+star 16.7 GB). ``--phases 0,1,2``
 runs a subset (the result line needs all of them), ``--phases 0,1,10`` the
 mesh path alone, ``--phases 0,1,11`` the cold calls alone (writing the
 north star's raw file itself), ``--phases 0,1,2,8,12`` the kernels and
@@ -237,7 +266,7 @@ KERNELS = {
     "jacobi_eigh": ("localmd_tpu_torch/csrc/jacobi_eigh.cu",
                     "scripts/ablate_jacobi_kernel.py:103"),
 }
-ALL_PHASES = (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15)
+ALL_PHASES = (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16)
 # K4's cases: the shapes the paths give it -- the rSVD Gram (256 and 225
 # blocks, k = 30), svd_gram_left (k = 20), the threshold Monte-Carlo (131
 # simulations, k = 11, odd), the background rSVD (k = 25) -- and k = 64
@@ -2395,17 +2424,6 @@ def cut_margin(s, rel_tol: float) -> float:
     return float(np.min(np.abs(s - cut)) / cut) if cut > 0 else float("inf")
 
 
-def image_errors(mean, var, ref_mean, ref_var) -> dict:
-    """The largest relative error of each statistics image (the mean's
-    floored at 1e-5 of its largest value)."""
-    ref_mean, ref_var = np.asarray(ref_mean), np.asarray(ref_var)
-    return dict(
-        mean=float(np.max(np.abs(mean - ref_mean)
-                          / (np.abs(ref_mean) + 1e-5 * np.abs(ref_mean).max()))),
-        var=float(np.max(np.abs(var - ref_var) / np.abs(ref_var))),
-    )
-
-
 def parity_errors(pmd, ref) -> dict:
     """The port's result against the JAX package's (a host PMDArray)."""
     want = ref[:, :, :]
@@ -2414,7 +2432,7 @@ def parity_errors(pmd, ref) -> dict:
     return dict(
         k3=float(np.linalg.norm(recon - want) / norm),
         slicing=float(np.linalg.norm(pmd[:, :, :] - want) / norm),
-        **image_errors(pmd.mean_img, pmd.var_img, ref.mean_img, ref.var_img),
+        **cells_module().image_errors(pmd.mean_img, pmd.var_img, ref.mean_img, ref.var_img),
     )
 
 
@@ -2568,36 +2586,45 @@ def full_run(name: str, device: str, movie, record: dict, prune):
 def full_width_errors(pmd, ref: dict) -> tuple:
     """The port's result against the JAX package's stored arrays: (errors,
     the port's fingerprint). The errors: both fingerprints of
-    ``reconstruct_frames`` (K3) over every frame, ``s`` and the images,
-    each relative."""
-    import torch
-
+    ``reconstruct_frames`` (K3) over every frame (``card_fingerprint``,
+    float64 on the run's device), ``s`` and the images, each relative."""
     full = full_module()
-
-    def frames(lo, hi):
-        out = pmd.reconstruct_frames(np.arange(lo, hi)).cpu().numpy()
-        if torch.cuda.is_available():
-            torch.cuda.empty_cache()
-        return out
-
-    fp = full.fingerprint(frames, tuple(pmd.shape))
+    fp = card_fingerprint(pmd, full.probes(tuple(pmd.shape)), full.FINGERPRINT_CHUNK)
     err = full.fingerprint_errors(fp, ref)
     s, s_ref = np.asarray(pmd.s, np.float64), ref["s"].astype(np.float64)
     err["s"] = (float(np.linalg.norm(s - s_ref) / np.linalg.norm(s_ref))
                 if s.shape == s_ref.shape else float("inf"))
-    err.update(image_errors(pmd.mean_img, pmd.var_img, ref["mean_img"], ref["var_img"]))
+    err.update(cells_module().image_errors(pmd.mean_img, pmd.var_img, ref["mean_img"],
+                                           ref["var_img"]))
     return err, fp
 
 
+def s_by_index(s, s_ref) -> str:
+    """Where ``s`` differs from the JAX package's ``s_ref``: each value's
+    relative difference, over the shorter of the two."""
+    n = min(len(s), len(s_ref))
+    line = f"s by index against JAX (relative, over {n} of {len(s)} and {len(s_ref)})"
+    if not n:
+        return line
+    rel = np.abs(np.asarray(s[:n], np.float64) - s_ref[:n]) / np.asarray(s_ref[:n], np.float64)
+    line += f": s_0 {rel[0]:.2e}, the first 12 within {rel[:12].max():.2e}"
+    if n > 12:
+        line += f", the rest median {np.median(rel[12:]):.2e} and max {rel[12:].max():.2e}"
+    return line
+
+
 def full_width_misses(err: dict, pipeline_ranks: dict, rank: int, record: dict) -> list:
-    """The bars phase 15 holds each run to, and the CPU tests too: the
-    names of those it misses (a NaN error misses)."""
+    """The bars phases 15 and 16 hold each run to, and the CPU tests too:
+    the names of those it misses (a NaN error misses)."""
     return [what for what, bad in (
         ("fingerprint psi_y", not err["psi_y"] <= FULL_TOL),
         ("fingerprint y_omega", not err["y_omega"] <= FULL_TOL),
         ("s", not err["s"] <= FULL_TOL),
         ("mean_img", not err["mean"] <= PARITY_IMG_RTOL),
         ("var_img", not err["var"] <= PARITY_IMG_RTOL),
+        # phase 16's images seen through psi as well
+        ("mean_img probe", "mean_probe" in err and not err["mean_probe"] <= FULL_TOL),
+        ("var_img probe", "var_probe" in err and not err["var_probe"] <= FULL_TOL),
         ("pipeline_ranks", dict(pipeline_ranks) != record["pipeline_ranks"]),
         ("kept rank", rank != record["rank"])) if bad]
 
@@ -2605,69 +2632,106 @@ def full_width_misses(err: dict, pipeline_ranks: dict, rank: int, record: dict) 
 @contextlib.contextmanager
 def block_spy(order=None, overrides=None):
     """Within the block: ``values["counts"]``, the kept count of each block
-    as the pipeline hands them to its checkpoint, and ``values["stats"]``,
-    the (spatial, temporal) roughness statistics of each
-    ``evaluate_fitness`` call in call order. ``order`` is the block id of
-    each row of those calls in turn (the coset plan's lattice order, or
-    block order for gathered batches); ``overrides`` maps (block,
-    component) to the keep decision that replaces the port's there, and
-    ``values["forced"]`` counts the replacements made."""
+    as the pipeline hands them to its checkpoint, ``values["stats"]``, the
+    (spatial, temporal) roughness statistics of each ``evaluate_fitness``
+    call in call order, and ``values["windows"]``, each call's window (0
+    for the two-stage kernel's, w for the w-th residual window since, -1
+    for the zero-count fallback). ``order`` is the block id of each row of
+    a window's calls in turn (the coset plan's lattice order, or block
+    order for gathered batches); ``overrides`` maps (block, component), or
+    (window, block, component), to the keep decision that replaces the
+    port's there, and ``values["forced"]`` counts the replacements made."""
     from localmd_tpu_torch import checkpoint, engine
     from localmd_tpu_torch.ops.roughness import spatial_roughness_stat, temporal_roughness_stat
 
-    values = dict(counts=None, stats=[], forced=0)
-    overrides = dict(overrides or {})
+    values = dict(counts=None, stats=[], windows=[], forced=0)
+    overrides = {(key if len(key) == 3 else (0, *key)): keep
+                 for key, keep in dict(overrides or {}).items()}
+    state = dict(window=0, kind="first")
     real_save, real_fitness = checkpoint.PipelineCheckpoint.save, engine.evaluate_fitness
+    real_residual, real_fallback = engine.single_residual_block_md_batched, engine._fallback_rerun
 
     def save(ckpt, stage, **arrays):
         if stage == "blocks":
             values["counts"] = np.asarray(arrays["counts"])
         return real_save(ckpt, stage, **arrays)
 
+    def tagged(fn, kind):
+        def run(*args, **kwargs):
+            if kind == "residual":
+                state["window"] += 1
+            state["kind"] = kind
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                state["kind"] = "first"
+        return run
+
     def fitness(images, traces, spatial_threshold, temporal_threshold):
         decisions = real_fitness(images, traces, spatial_threshold, temporal_threshold)
-        lo = sum(len(sp) for sp, _ in values["stats"])
+        if state["kind"] == "first":
+            state["window"] = 0
+        w = -1 if state["kind"] == "fallback" else state["window"]
+        lo = sum(len(sp) for (sp, _), ww in zip(values["stats"], values["windows"]) if ww == w)
         values["stats"].append((spatial_roughness_stat(images), temporal_roughness_stat(traces)))
-        for (b, k), keep in overrides.items():
-            rows = np.flatnonzero(order[lo:lo + len(decisions)] == b)
-            if rows.size:
+        values["windows"].append(w)
+        for (ow, b, k), keep in overrides.items():
+            rows = np.flatnonzero(order[lo:lo + len(decisions)] == b) if ow == w else ()
+            if len(rows):
                 decisions[int(rows[0]), k] = int(keep)
                 values["forced"] += 1
         return decisions
 
-    checkpoint.PipelineCheckpoint.save, engine.evaluate_fitness = save, fitness
+    changes = ((checkpoint.PipelineCheckpoint, "save", save, real_save),
+               (engine, "evaluate_fitness", fitness, real_fitness),
+               (engine, "single_residual_block_md_batched", tagged(real_residual, "residual"),
+                real_residual),
+               (engine, "_fallback_rerun", tagged(real_fallback, "fallback"), real_fallback))
+    for owner, attr, spy, _ in changes:
+        setattr(owner, attr, spy)
     try:
         yield values
     finally:
-        checkpoint.PipelineCheckpoint.save, engine.evaluate_fitness = real_save, real_fitness
+        for owner, attr, _, real in changes:
+            setattr(owner, attr, real)
 
 
-def block_order(coset: bool) -> np.ndarray:
-    """The block id of each ``evaluate_fitness`` row of a full-width run:
-    the coset stage's lattice order, or block order for gathered batches."""
+def block_order(coset: bool, shape=None, blocks=None) -> np.ndarray:
+    """The block id of each ``evaluate_fitness`` row of one window of a run
+    on ``shape``'s FOV (T, d1, d2) with ``blocks`` (phase 15's by default):
+    the coset stage's lattice order and then the blocks off its lattices
+    (a snapped tail, one gathered batch), or block order for gathered
+    batches."""
     from localmd_tpu_torch import engine
     from localmd_tpu_torch.ops.tiling import block_grid
 
     full = full_module()
-    (_, d1, d2), (b1, b2) = full.SHAPE, full.BLOCKS
+    (_, d1, d2), (b1, b2) = shape or full.SHAPE, blocks or full.BLOCKS
     if not coset:
         return np.arange(block_grid(d1, d2, (b1, b2)).n_blocks)
     _, ids, remainder = engine.coset_stage_plan(d1, d2, b1, b2)
     return np.concatenate([np.asarray(ids), np.asarray(remainder, dtype=np.int64)])
 
 
-def block_stats(values: dict, order) -> tuple:
-    """The port's (spatial, temporal) statistics of a run, (blocks,
-    components) in block order; None when the calls' rows are not one per
-    block."""
-    if sum(len(sp) for sp, _ in values["stats"]) != len(order):
+def window_stats(values: dict, order, n_windows: int = 1) -> tuple:
+    """The port's (spatial, temporal) statistics of a run, each (windows,
+    blocks, components) in block order; None when a window's rows are not
+    one per block or the fallback ran."""
+    if -1 in values["windows"]:
         return None
     out = []
     for i in (0, 1):
-        rows = np.concatenate([st[i].cpu().numpy() for st in values["stats"]])
-        stat = np.empty_like(rows)
-        stat[order] = rows
-        out.append(stat)
+        per = []
+        for w in range(n_windows):
+            parts = [st[i].cpu().numpy() for st, ww in zip(values["stats"], values["windows"])
+                     if ww == w]
+            if sum(len(p) for p in parts) != len(order):
+                return None
+            rows = np.concatenate(parts)
+            stat = np.empty_like(rows)
+            stat[order] = rows
+            per.append(stat)
+        out.append(np.stack(per))
     return tuple(out)
 
 
@@ -2700,7 +2764,7 @@ def block_flips(port_stats, jax_stats, thresholds, port_counts, jax_counts) -> l
 
 
 def describe_flip(flip: dict, starts) -> str:
-    line = (f"block {flip['block']} at {tuple(int(x) for x in starts[flip['block']])}: kept "
+    line = (f"window {flip['window']}, " if "window" in flip else "") + (f"block {flip['block']} at {tuple(int(x) for x in starts[flip['block']])}: kept "
             f"{flip['port_count']}, JAX {flip['jax_count']}")
     if flip["component"] is None:
         return line + "; no component's keep decision differs"
@@ -2743,8 +2807,7 @@ def full_width_check(name: str, routes_setting, device: str, movie, record: dict
                        fingerprint=fp,
                        ranks=dict(pmd.pipeline_ranks), rank=int(pmd.rank), routes=routes,
                        margin=cut_margin(singular["s"], singular["tol"]), forced=spied["forced"])
-            s_rel = (np.abs(np.asarray(pmd.s, np.float64) - ref["s"]) / ref["s"]
-                     if len(pmd.s) == len(ref["s"]) else None)
+            s_line = s_by_index(pmd.s, ref["s"])
             del pmd
             result["runs"].append(run)
             missed = full_width_misses(err, run["ranks"], run["rank"], record)
@@ -2756,11 +2819,9 @@ def full_width_check(name: str, routes_setting, device: str, movie, record: dict
                 f"{record['rank']}); kept-rank cut margin {run['margin']:.3e}; routes {routes}"
                 + (f"; decisions replaced {spied['forced']}" if overrides else ""))
             order = block_order(routes["coset_stage"] > 0)
-            stats = block_stats(spied, order)
-            if s_rel is not None:
-                log(f"    s by index against JAX (relative): s_0 {s_rel[0]:.2e}, the first 12 "
-                    f"within {s_rel[:12].max():.2e}, the rest median {np.median(s_rel[12:]):.2e} "
-                    f"and max {s_rel[12:].max():.2e}")
+            stats = window_stats(spied, order)
+            stats = None if stats is None else (stats[0][0], stats[1][0])
+            log(f"    {s_line}")
             if stats is not None:
                 jax_stats = ref["block_spatial"], ref["block_temporal"]
                 diff = [np.median(np.abs(p - j) / np.abs(j)) for p, j in zip(stats, jax_stats)]
@@ -2796,6 +2857,65 @@ def full_width_check(name: str, routes_setting, device: str, movie, record: dict
         set_routes("auto")
 
 
+def stats_f64(chunk2d, mean_divisor, compute_noise: bool, pixels: int = 65536) -> tuple:
+    """K1's plain twin (``ops.kernels.movie_stats_plain``) in float64 on the
+    chunk's device: (mean, sigma), float64. The windowed DFT matrices are
+    the float32 ones K1 is given (their angles carry the reference's
+    rounding), widened; ``pixels`` traces at a time."""
+    import torch
+
+    from localmd_tpu_torch.ops.noise import NOVERLAP, NPERSEG, _band_dft_matrices, welch_scale
+
+    x = chunk2d.to(torch.float64)
+    mean = x.sum(dim=0) / mean_divisor
+    if not compute_noise:
+        return mean, torch.zeros_like(mean)
+    cos_m, sin_m, cos_1, sin_1 = (m.to(torch.float64) for m in _band_dft_matrices(NPERSEG, x.device))
+    scale = welch_scale(NPERSEG, x.device).to(torch.float64)
+    k = torch.arange(NPERSEG // 4 + 1, NPERSEG // 2 + 1, device=x.device)
+    sigma = torch.empty_like(mean)
+    for lo in range(0, x.shape[1], pixels):
+        segs = x[:, lo:lo + pixels].T.unfold(-1, NPERSEG, NPERSEG - NOVERLAP)
+        m = segs.mean(dim=-1, keepdim=True)
+        re = segs @ cos_m - m * cos_1
+        im = segs @ sin_m - m * sin_1
+        band = ((re * re + im * im) * scale).mean(dim=-2)
+        band = torch.where(2 * k >= NPERSEG, band * 0.5, band)
+        sigma[lo:lo + pixels] = torch.sqrt(band.mean(dim=-1))
+    return mean, sigma
+
+
+def k1_attribution(movie, ref: dict) -> dict:
+    """The statistics of ``movie`` (T, d1, d2) on the card twice, as the
+    loader forms them (1024-frame chunks, the means summed, sigma averaged
+    over the chunks of at least 256 frames): through K1, and through its
+    plain twin in float64 (``stats_f64``). Returns each side's largest
+    relative error of ``mean_img`` and ``var_img`` against the JAX
+    package's ``ref``. A measurement: nothing checks it."""
+    import torch
+
+    from localmd_tpu_torch.loader import MIN_NOISE_FRAMES, STATS_CHUNK_FRAMES
+    from localmd_tpu_torch.ops import kernels
+
+    t, d1, d2 = movie.shape
+    sums = {"K1": [0, 0, 0], "plain float64": [0, 0, 0]}
+    for lo in range(0, t, STATS_CHUNK_FRAMES):
+        hi = min(t, lo + STATS_CHUNK_FRAMES)
+        chunk = torch.from_numpy(np.ascontiguousarray(movie[lo:hi])).cuda().reshape(hi - lo, d1 * d2)
+        noise = hi - lo >= MIN_NOISE_FRAMES
+        for side, (m, sig) in (("K1", kernels.movie_stats(chunk, t, compute_noise=noise)),
+                               ("plain float64", stats_f64(chunk, t, noise))):
+            acc = sums[side]
+            acc[0], acc[1], acc[2] = acc[0] + m, acc[1] + (sig if noise else 0), acc[2] + noise
+        del chunk
+    out = {}
+    for side, (mean, noise, n) in sums.items():
+        std = (noise / n).reshape(d1, d2).double().cpu().numpy()
+        out[side] = cells_module().image_errors(mean.reshape(d1, d2).double().cpu().numpy(), std,
+                                                ref["mean_img"], ref["var_img"])
+    return out
+
+
 def phase_full_width() -> dict:
     """Phase 15: bench.py's configuration at full width (512 x 512 x 2048,
     ``tests/torch_parity_full.py``) on the card against the JAX package's
@@ -2828,6 +2948,11 @@ def phase_full_width() -> dict:
     tracemalloc.stop()
     for name, (secs, peak) in made.items():
         log(f"  {name}: made in {secs:.2f} s on the host, traced host peak {peak / 2**30:.3f} GiB")
+    # where the card's var_img and s_0 gap to the JAX package comes from:
+    # K1 against its plain twin in float64 on the same chunks (not counted)
+    attribution = k1_attribution(movies["full_512_f32"], refs["full_512_f32"])
+    log("  full_512_f32 statistics against JAX's: " + "; ".join(
+        f"{side} mean {e['mean']:.3e}, var {e['var']:.3e}" for side, e in attribution.items()))
     misses, ties, prints = [], [], {}
     kernels.reset_launch_counts()
     for name, routes_setting in FULL_RUNS:
@@ -2862,6 +2987,383 @@ def phase_full_width() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the card against the JAX package on the other timed cells
+# ---------------------------------------------------------------------------
+
+CELLS_DIR = os.path.join(HERE, "tests", "golden", "torch_parity_cells")
+# the cells phase 16 holds at full width with the routes at "auto", as
+# users run them; ``--cells`` names others. OPEN_CELLS miss phase 15's bars
+# (the fingerprint and ``s`` past 1e-4 of the JAX package's, which moves
+# by more than 1e-4 itself when its sketches move one float32 ulp): they
+# stay out of the default run until that gap is settled (ROADMAP Queue 3)
+CELL_RUNS = ("1024_u16",)
+OPEN_CELLS = ("voltage_f32", "northstar_u16")
+# a run, then up to two more with the JAX package's decision at the fp32
+# ties found (a tie in one window can hide one in a later window)
+CELL_ATTEMPTS = 3
+
+
+def cells_module():
+    """``tests/torch_parity_cells.py``: numpy only, the timed cells."""
+    parity_module()
+    import torch_parity_cells
+
+    return torch_parity_cells
+
+
+def cell_fixtures():
+    """The JAX package's committed results on the cells: (cases.json,
+    {case: its arrays})."""
+    with open(os.path.join(CELLS_DIR, "cases.json")) as f:
+        records = json.load(f)
+    refs = {name: dict(np.load(os.path.join(CELLS_DIR, f"{name}.npz"))) for name in records}
+    return records, refs
+
+
+def card_fingerprint(pmd, probe: dict, chunk: int) -> dict:
+    """``torch_parity_full.fingerprint`` of ``pmd`` on its own device in
+    float64: ``reconstruct_frames`` (K3) ``chunk`` frames at a time, each
+    chunk through the probes there; the probes are the host's, copied."""
+    import torch
+
+    full = full_module()
+    t, d1, d2 = (int(x) for x in pmd.shape)
+    dev = psi = omega = phi = psi_y = y_omega = None
+    for lo in range(0, t, chunk):
+        hi = min(t, lo + chunk)
+        y = pmd.reconstruct_frames(np.arange(lo, hi))
+        if dev is None:
+            dev = y.device
+            psi, omega = (torch.as_tensor(probe[k], device=dev) for k in ("psi", "omega"))
+            phi = torch.as_tensor(probe["phi"], device=dev) if "phi" in probe else None
+            psi_y = torch.zeros((full.PROBES, full.PHI_COLUMNS if phi is not None else t),
+                                dtype=torch.float64, device=dev)
+            y_omega = torch.zeros(d1 * d2, dtype=torch.float64, device=dev)
+        y = y.reshape(hi - lo, d1 * d2).to(torch.float64)
+        py = (y @ psi).T
+        if phi is not None:
+            psi_y += py @ phi[lo:hi]
+        else:
+            psi_y[:, lo:hi] = py
+        y_omega += omega[lo:hi] @ y
+        del y, py
+    key = "psi_y_phi" if phi is not None else "psi_y"
+    return {key: psi_y.cpu().numpy(), "y_omega": y_omega.cpu().numpy()[full.pixel_sample(d1 * d2)]}
+
+
+def cell_arrays(pmd, probe: dict) -> dict:
+    """The port's result as the fixture holds the JAX package's: ``s``,
+    the images at the stored pixels and through psi, and the fingerprint
+    (``card_fingerprint``)."""
+    cells = cells_module()
+    mean, var = np.asarray(pmd.mean_img, np.float32), np.asarray(pmd.var_img, np.float32)
+    sample = cells.pixel_sample(mean.size)
+    return dict(card_fingerprint(pmd, probe, cells.FINGERPRINT_CHUNK), s=np.asarray(pmd.s),
+                mean_img=mean.ravel()[sample], var_img=var.ravel()[sample],
+                image_probe=cells.image_probe(mean, var, probe["psi"]))
+
+
+def window_flips(port_stats, jax_stats, thresholds, port_counts, jax_counts) -> list:
+    """``block_flips`` window by window: for each block, the first window
+    after which its kept count differs from the JAX package's (``*_counts``
+    are (windows, blocks), the counts after each window), with that
+    window's statistics; each entry also names its ``window``."""
+    flips = []
+    same_before = np.ones(np.shape(port_counts)[1], bool)
+    for w, (pc, jc) in enumerate(zip(port_counts, jax_counts)):
+        first = (pc != jc) & same_before
+        for flip in block_flips((port_stats[0][w], port_stats[1][w]),
+                                (jax_stats[0][w], jax_stats[1][w]), thresholds,
+                                np.where(first, pc, 0), np.where(first, jc, 0)):
+            flips.append(dict(flip, window=w))
+        same_before &= pc == jc
+    return flips
+
+
+@contextlib.contextmanager
+def eigen_cut_spy():
+    """Within the block, ``values["vals"]``: the eigenvalues of the last
+    factorized SVD's Gram (``factorization.compute_lowrank_factorized_svd``),
+    whose directions at or below ``torch_parity_cells.GRAM_CUT`` of the
+    largest are dropped."""
+    from localmd_tpu_torch import factorization
+
+    values = {}
+    real = factorization.subspace_eigh, factorization.eigh_descending
+
+    def spy(fn):
+        def run(*args, **kwargs):
+            vals, vecs = fn(*args, **kwargs)
+            values["vals"] = vals.cpu().numpy()
+            return vals, vecs
+        return run
+
+    factorization.subspace_eigh, factorization.eigh_descending = (spy(fn) for fn in real)
+    try:
+        yield values
+    finally:
+        factorization.subspace_eigh, factorization.eigh_descending = real
+
+
+def eigen_cut(vals) -> tuple:
+    """(directions kept, the relative distance from the cut of the
+    eigenvalue nearest it) of a factorized SVD's Gram eigenvalues."""
+    cells = cells_module()
+    vals = np.asarray(vals, np.float64)
+    cut = max(vals[0], 0.0) * cells.GRAM_CUT
+    return cells.gram_kept(vals), (float(np.min(np.abs(vals - cut)) / cut) if cut > 0
+                                   else float("inf"))
+
+
+def gram_flip(port_vals, jax_vals):
+    """None where the port's factorized SVD keeps as many Gram directions
+    as the JAX package's; else the directions decided differently and each
+    package's eigenvalues there over its own cut (None past either's
+    length). A report: the kept rank's bar judges it."""
+    pv, jv = (np.asarray(v, np.float64) for v in (port_vals, jax_vals))
+    (pn, _), (jn, _) = eigen_cut(pv), eigen_cut(jv)
+    if pn == jn:
+        return None
+    idx = np.arange(min(pn, jn), max(pn, jn))
+    flip = dict(port_kept=pn, jax_kept=jn, indices=idx, port_ratio=None, jax_ratio=None)
+    if idx[-1] < min(len(pv), len(jv)):
+        cut = cells_module().GRAM_CUT
+        flip.update(port_ratio=pv[idx] / (pv[0] * cut), jax_ratio=jv[idx] / (jv[0] * cut))
+    return flip
+
+
+def describe_gram_flip(flip: dict, n_vals: int) -> str:
+    line = (f"factorized SVD: the port keeps {flip['port_kept']} of {n_vals} Gram directions past "
+            f"its cut, JAX {flip['jax_kept']}")
+    if flip["port_ratio"] is None:
+        return line
+    return line + "; eigenvalues over the cut at the directions decided differently " + ", ".join(
+        f"{i}: {p:.5f} (JAX {j:.5f})"
+        for i, p, j in zip(flip["indices"], flip["port_ratio"], flip["jax_ratio"]))
+
+
+def cell_check(name: str, device: str, source, record: dict, ref: dict) -> dict:
+    """One cell held to the JAX package's stored result at phase 15's bars
+    (``full_width_misses``, with the images also through psi), on the card
+    or on the CPU, with the routes as they are. Where a block's count
+    after some window differs, the first such window's flips are reported;
+    if every one is an fp32 tie (``block_flips``), the run is made again
+    with the JAX package's decision at each (window, block, component)
+    found so far, up to ``CELL_ATTEMPTS`` runs; the last is held to every
+    bar. Where the factorized SVD keeps another number of Gram directions
+    than the JAX package's, the directions decided differently are
+    reported. Returns ``misses`` (empty when the bars are met), ``ties``
+    and each run's numbers and arrays (``cell_arrays``)."""
+    from localmd_tpu_torch.ops.tiling import block_grid
+
+    cells = cells_module()
+    case = cells.CELL_CASES[name]
+    (t, d1, d2), blocks = case["shape"], case["blocks"]
+    opts = cells.options(name)
+    n_windows, thresholds = cells.n_windows(name), record["thresholds"]
+    probe = cells.probes(case["shape"])
+    samples = [dict(record["spread"], rank=record["spread_rank"]), *record.get("spread_samples", ())]
+    log(f"  {name}: the JAX package against itself, every sketch one float32 ulp up on half its "
+        f"entries, {len(samples)} nudge seed(s) (a measurement, not a bar): " + ", ".join(
+            f"{k} {min(x[k] for x in samples):.3e} to {max(x[k] for x in samples):.3e}"
+            for k in ("psi_y", "y_omega", "s")) + f", kept {sorted({x['rank'] for x in samples})}")
+    jax_stats = ref["block_spatial"], ref["block_temporal"]
+    result = dict(runs=[], ties=[], misses=[])
+    order, overrides = None, {}
+    for attempt in range(CELL_ATTEMPTS):
+        label = "run" if attempt == 0 else f"ties injected ({len(overrides)} decisions)"
+        reset_route_calls()
+        with singular_spy() as singular, block_spy(order, overrides) as spied, \
+                eigen_cut_spy() as eig:
+            t0 = time.perf_counter()
+            pmd = pinned_run(source, blocks, device, thresholds, cells.sketch, **opts)
+            secs = time.perf_counter() - t0
+        routes = dict(ROUTE_CALLS)
+        t0 = time.perf_counter()
+        arrays = cell_arrays(pmd, probe)
+        err = cells.errors(arrays, ref)
+        run = dict(attempt=label, secs=secs, read_secs=time.perf_counter() - t0, err=err,
+                   arrays=arrays,
+                   ranks=dict(pmd.pipeline_ranks), rank=int(pmd.rank), routes=routes,
+                   margin=cut_margin(singular["s"], singular["tol"]), forced=spied["forced"],
+                   eigen_cut=eigen_cut(eig["vals"]))
+        del pmd
+        result["runs"].append(run)
+        missed = full_width_misses(err, run["ranks"], run["rank"], record)
+        log(f"  {name} ({label}): {secs:.2f} s the call, {run['read_secs']:.2f} s the "
+            f"fingerprint (K3 over {t} frames, float64 on {device}); fingerprint psi_y "
+            f"{err['psi_y']:.3e}, y_omega {err['y_omega']:.3e}; s {err['s']:.3e}; mean "
+            f"{err['mean']:.2e}, var {err['var']:.2e} (at {len(ref['mean_img'])} pixels), "
+            f"through psi {err['mean_probe']:.2e} / {err['var_probe']:.2e}; ranks {run['ranks']} "
+            f"kept {run['rank']} (JAX {record['pipeline_ranks']} kept {record['rank']}); kept-rank "
+            f"cut margin {run['margin']:.3e}; factorized SVD {run['eigen_cut'][0]} of "
+            f"{len(eig['vals'])} Gram directions past its cut, the nearest {run['eigen_cut'][1]:.3e} "
+            f"of it away; routes {routes}"
+            + (f"; decisions replaced {spied['forced']}" if attempt else "")
+            + (f"; misses {missed}" if missed else ""))
+        log(f"    {s_by_index(arrays['s'], ref['s'])}")
+        order = block_order(routes["coset_stage"] > 0, case["shape"], blocks)
+        stats = window_stats(spied, order, n_windows)
+        counts = (None if stats is None
+                  else cells.window_counts(*stats, thresholds, opts["max_components"]))
+        if stats is not None:
+            for w in range(n_windows):
+                diff = [np.median(np.abs(p[w] - j[w]) / np.abs(j[w])) for p, j in zip(stats, jax_stats)]
+                near = min(float(np.min(np.abs(p[w] - thr) / thr)) for p, thr in zip(stats, thresholds))
+                log(f"    window {w} block statistics against JAX's: median relative difference "
+                    f"{diff[0]:.2e} (spatial), {diff[1]:.2e} (temporal); the port's nearest to a "
+                    f"threshold {near:.2e} of it; kept {int(counts[w].sum())} after it (JAX "
+                    f"{int(ref['window_counts'][w].sum())})")
+        gflip = gram_flip(eig["vals"], ref["gram_vals"])
+        if gflip is not None:
+            log(f"    {describe_gram_flip(gflip, len(eig['vals']))}")
+        if attempt and spied["forced"] != len(overrides):
+            missed.append(f"{spied['forced']} of {len(overrides)} tie decisions replaced")
+        if np.array_equal(spied["counts"], ref["block_counts"]) and (
+                counts is None or np.array_equal(counts, ref["window_counts"])):
+            result["misses"] = missed
+            break
+        if counts is None or not np.array_equal(counts[-1], spied["counts"]):
+            result["misses"] = missed + ["the port's block statistics were not captured"]
+            break
+        flips = window_flips(stats, jax_stats, thresholds, counts, ref["window_counts"])
+        starts = block_grid(d1, d2, blocks).starts
+        for flip in flips:
+            log(f"    {describe_flip(flip, starts)}")
+        if not flips or not all(flip["tie"] for flip in flips):
+            result["misses"] = missed + ["blockwise ranks past an fp32 tie"]
+            break
+        result["ties"] += [dict(f, what=f"window {f['window']} block {f['block']} component "
+                                         f"{f['component']}") for f in flips]
+        overrides.update({(f["window"], f["block"], f["component"]): f["jax_keeps"] for f in flips})
+        result["misses"] = missed + [f"ties remain after {CELL_ATTEMPTS} runs"]
+    return result
+
+
+def page_cache_share(path: str):
+    """The share of ``path``'s pages in the page cache (``mincore`` on a
+    private mapping), or None where that cannot be read."""
+    import ctypes
+    import mmap
+
+    try:
+        size = os.path.getsize(path)
+        with open(path, "rb") as f:
+            mm = mmap.mmap(f.fileno(), size, access=mmap.ACCESS_COPY)
+        try:
+            n = -(-size // mmap.PAGESIZE)
+            vec = (ctypes.c_ubyte * n)()
+            base = ctypes.c_char.from_buffer(mm)
+            libc = ctypes.CDLL(None, use_errno=True)
+            code = libc.mincore(ctypes.c_void_p(ctypes.addressof(base)), ctypes.c_size_t(size), vec)
+            del base
+            return None if code else float(np.mean(np.frombuffer(vec, np.uint8) & 1))
+        finally:
+            mm.close()
+    except (OSError, ValueError, AttributeError):
+        return None
+
+
+def phase_cells(device: str = "cuda", names=CELL_RUNS) -> dict:
+    """Phase 16: the cells ``names`` at full width (``tests/torch_parity_cells.py``)
+    on ``device`` against the JAX package's committed results, the routes
+    at "auto"; the north star read from a raw file. Every case is reported
+    before the phase fails on any miss. Each cell then runs once more with
+    the routes off (the Gram as Z^T Z, V through K2), printed against its
+    first run: the scale of the port's own float32 rounding there, a
+    measurement. Returns the launch counts of the phase's runs and
+    read-backs (counted from 0)."""
+    import torch
+
+    from bench_torch import NATIVE_READS, count_native_reads, set_routes
+    from localmd_tpu_torch.dataset import RawBinaryArray
+    from localmd_tpu_torch.ops import kernels
+
+    cells = cells_module()
+    records, refs = cell_fixtures()
+    count_native_reads()
+    shapes = ", ".join(f"{n} {cells.CELL_CASES[n]['shape']}" for n in names)
+    log(f"phase 16 the card against the JAX package on the other timed cells, full width, routes "
+        f"auto: {shapes}, fixtures {os.path.relpath(CELLS_DIR, HERE)}")
+    t_phase = time.perf_counter()
+    misses, ties = [], []
+    kernels.reset_launch_counts()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cells_")
+    try:
+        for name in names:
+            case, record = cells.CELL_CASES[name], records[name]
+            (t, d1, d2), blocks = case["shape"], case["blocks"]
+            mov = cells.movie(name)
+            digest = cells.digest(mov)
+            if digest != record["movie_digest"]:
+                misses.append(f"{name}: the movie's digest {digest[:12]} is not the fixture's "
+                              f"{record['movie_digest'][:12]}")
+                continue
+            t0 = time.perf_counter()
+            if case["source"] == "raw":
+                path = os.path.join(tmp, f"{name}.raw")
+                built, written = mov.write(path)
+                source = RawBinaryArray(path, case["shape"], case["dtype"])
+                cached = page_cache_share(path)
+                made = (f"made in {built:.2f} s and written in {written:.2f} s "
+                        f"({os.path.getsize(path) / written / 1e9:.2f} GB/s) to a raw file, "
+                        f"{'unknown' if cached is None else f'{cached:.1%}'} of its pages in the "
+                        f"page cache before the call")
+            else:
+                source = mov.array()
+                made = f"made in {time.perf_counter() - t0:.2f} s on the host ({source.nbytes / 1e9:.2f} GB)"
+            log(f"  {name} {case['dtype']} {case['shape']} blocks {blocks} {cells.options(name)}: "
+                f"movie {made}")
+            before = kernels.launch_counts()
+            NATIVE_READS.update(calls=0, bytes=0, seconds=0.0)
+            result = cell_check(name, device, source, record, refs[name])
+            reads = dict(NATIVE_READS)
+            launched = {k: n - before[k] for k, n in kernels.launch_counts().items()}
+            line = f"  {name}: launches {launched}"
+            if case["source"] == "raw":
+                runs = len(result["runs"])
+                line += (f"; native reader {reads['bytes'] / 1e9:.2f} GB in {reads['calls']} calls "
+                         f"over {runs} call(s), {reads['seconds']:.2f} s inside them "
+                         f"({reads['bytes'] / max(reads['seconds'], 1e-9) / 1e9:.2f} GB/s), "
+                         f"{reads['bytes'] / runs / 1e9 / result['runs'][0]['secs']:.2f} GB/s "
+                         f"of the first call's wall")
+            log(line)
+            want = expected_routes(d1, d2, blocks, single_window=cells.n_windows(name) == 1)
+            for run in result["runs"]:
+                check_path(f"cell {name} ({run['attempt']})", launched, run["routes"], want,
+                           kernels_run=("movie_stats", "block_reconstruct", "jacobi_eigh"))
+            ties += [f"{name}: {f['what']}" for f in result["ties"]]
+            if result["misses"]:
+                misses.append(f"{name}: {', '.join(result['misses'])}")
+            t0 = time.perf_counter()
+            set_routes(False)
+            try:
+                pmd = pinned_run(source, blocks, device, record["thresholds"], cells.sketch,
+                                 **cells.options(name))
+                off, off_rank = cell_arrays(pmd, cells.probes(case["shape"])), int(pmd.rank)
+                del pmd
+            finally:
+                set_routes("auto")
+            first = result["runs"][0]
+            apart = cells.errors(off, first["arrays"], s_prefix=True)
+            log(f"  {name} routes off against its first run, on {device} "
+                f"({time.perf_counter() - t0:.2f} s, a measurement): fingerprint psi_y "
+                f"{apart['psi_y']:.3e}, y_omega {apart['y_omega']:.3e}; s {apart['s']:.3e} (over "
+                f"the shorter); kept {off_rank} and {first['rank']}")
+            del source, mov
+            if case["source"] == "raw":
+                os.remove(path)
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = kernels.launch_counts()
+    log(f"  phase 16: {time.perf_counter() - t_phase:.2f} s for {len(names)} cells; launches "
+        f"{launches}; fp32 ties given the JAX package's decision: {ties or 'none'}")
+    check(not misses, "phase 16: " + "; ".join(misses))
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(map(str, ALL_PHASES)),
@@ -2875,8 +3377,14 @@ def main(argv=None) -> int:
                     metavar=("CELL", "OUT", "SPAWN_TIME", "RAW", "FRAMES", "SAVE_RECON",
                              "AOT_WARM", "PROFILED"),
                     help="run one process of phase 11 (started by phase 11 itself)")
+    ap.add_argument("--cells", default=",".join(CELL_RUNS),
+                    help=f"comma-separated cells of phase 16 (default: {','.join(CELL_RUNS)}; "
+                         f"{', '.join(OPEN_CELLS)} miss its bars, ROADMAP Queue 3)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
+    cell_names = tuple(args.cells.split(","))
+    if not set(cell_names) <= set(CELL_RUNS + OPEN_CELLS):
+        ap.error(f"--cells {args.cells}: the cells are {', '.join(CELL_RUNS + OPEN_CELLS)}")
 
     import torch
 
@@ -3041,6 +3549,10 @@ def main(argv=None) -> int:
         launches_15 = phase_full_width()
         if launches is not None:
             launches = add_launches(launches, launches_15)
+    if 16 in phases:
+        launches_16 = phase_cells(names=cell_names)
+        if launches is not None:
+            launches = add_launches(launches, launches_16)
 
     if phases != set(ALL_PHASES):
         log(f"partial run (phases {sorted(phases)}): no result line")

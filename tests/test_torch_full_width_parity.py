@@ -124,7 +124,9 @@ def test_fingerprint_is_chunk_independent_and_linear():
     small = full.fingerprint(lambda lo, hi: y[lo:hi], y.shape, chunk=37)
     for key in ("psi_y", "y_omega"):
         np.testing.assert_allclose(small[key], whole[key], rtol=1e-12, atol=1e-12)
-    psi, omega = full.probes(y.shape)
+    probe = full.probes(y.shape)
+    assert set(probe) == {"psi", "omega"}                   # no temporal probe up to 4096 frames
+    psi, omega = probe["psi"], probe["omega"]
     flat = y.reshape(y.shape[0], -1).astype(np.float64)        # (T, pixels), C order
     np.testing.assert_allclose(whole["psi_y"], psi.T @ flat.T, rtol=1e-10, atol=1e-9)
     np.testing.assert_allclose(whole["y_omega"], flat.T @ omega, rtol=1e-10, atol=1e-9)

@@ -15,12 +15,14 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "localmd_tpu_torch")
 # the scripts that drive the port on the card, where jax is not installed,
-# and the numpy-only case tables chip_smoke.py phases 14 and 15 read from
+# and the numpy-only case tables chip_smoke.py phases 14, 15 and 16 read from
 # tests/
 SCRIPTS = ("chip_smoke.py", "bench_torch.py", "kernel_variants.py", "demos/demo_torch.py",
-           "tests/torch_parity_cases.py", "tests/torch_parity_full.py")
+           "tests/torch_parity_cases.py", "tests/torch_parity_full.py",
+           "tests/torch_parity_cells.py")
 PARITY_CASES = os.path.join(ROOT, "tests", "torch_parity_cases.py")
 PARITY_FULL = os.path.join(ROOT, "tests", "torch_parity_full.py")
+PARITY_CELLS = os.path.join(ROOT, "tests", "torch_parity_cells.py")
 FORBIDDEN = ("jax", "jaxlib", "localmd_tpu")
 
 
@@ -99,14 +101,25 @@ def test_full_width_cases_import_only_numpy_and_the_case_table():
     assert set(_imported_roots(PARITY_FULL)) == {"numpy", "torch_parity_cases"}
 
 
+def test_cell_cases_import_only_numpy_the_standard_library_and_the_case_tables():
+    """chip_smoke.py phase 16 reads tests/torch_parity_cells.py on the
+    machine with the card: numpy, the standard library and the two case
+    tables, nothing else (no jax, no localmd_tpu, no torch), wherever in
+    the module."""
+    assert set(_imported_roots(PARITY_CELLS)) == {
+        "numpy", "torch_parity_cases", "torch_parity_full", "hashlib", "os", "shutil", "time",
+        "concurrent"}
+
+
 def test_chip_smoke_reads_the_parity_cases_and_nothing_of_jax():
-    """Phases 14 and 15 import the case tables from tests/ and neither jax
-    nor the JAX package, nor the generators that need them, in any
+    """Phases 14, 15 and 16 import the case tables from tests/ and neither
+    jax nor the JAX package, nor the generators that need them, in any
     function."""
     roots = set(_imported_roots(os.path.join(ROOT, "chip_smoke.py")))
-    assert {"torch_parity_cases", "torch_parity_full"} <= roots
+    assert {"torch_parity_cases", "torch_parity_full", "torch_parity_cells"} <= roots
     assert not roots & set(FORBIDDEN)
-    assert not roots & {"generate_torch_parity", "generate_torch_parity_full"}
+    assert not roots & {"generate_torch_parity", "generate_torch_parity_full",
+                        "generate_torch_parity_cells"}
 
 
 def _top_level_imports(path):

@@ -13,7 +13,9 @@ without jax, ``tests/golden/generate_torch_parity_full.py`` runs each case
 through the JAX package and commits what the card is held to under
 ``tests/golden/torch_parity_full/``. A 2 GB reconstruction is not stored:
 both sides keep its ``fingerprint``, the reconstruction seen through fixed
-Gaussian probes.
+Gaussian probes (with a temporal probe past 4096 frames and a pixel sample
+past 512 x 512 pixels, for ``torch_parity_cells``' longer and wider
+movies; neither applies here).
 
 Thresholds are ``"jax"``: the JAX package runs its own Monte-Carlo, and
 the port is pinned to the values it recorded. The rank-prune matrix comes
@@ -42,6 +44,11 @@ PROBES = 64                     # columns of the spatial probe
 FINGERPRINT_SEED = 11
 FINGERPRINT_CHUNK = 512         # frames a frames_fn call returns
 FINGERPRINT_SLICE = 64          # frames taken to float64 at a time
+PHI_FROM_T = 4096               # T above which psi^T Y is kept as psi^T Y Phi
+PHI_COLUMNS = 512
+SAMPLE_FROM_PIXELS = 512 * 512  # pixels above which per-pixel arrays are sampled
+SAMPLE_PIXELS = 65536
+SAMPLE_SEED = 13
 
 sketch = cases.sketch
 
@@ -137,40 +144,61 @@ def kept_counts(spatial, temporal, thresholds, max_failures=MAX_CONSECUTIVE_FAIL
     return np.asarray(counts)
 
 
+def pixel_sample(n_pixels):
+    """The pixels (C order) the per-pixel arrays are kept at: all of them
+    up to ``SAMPLE_FROM_PIXELS``, else ``SAMPLE_PIXELS`` fixed ones."""
+    if n_pixels <= SAMPLE_FROM_PIXELS:
+        return np.arange(n_pixels)
+    return np.sort(np.random.default_rng(SAMPLE_SEED).choice(n_pixels, SAMPLE_PIXELS,
+                                                             replace=False))
+
+
 def probes(shape, seed=FINGERPRINT_SEED):
-    """(psi (d1 d2, PROBES), omega (T,)), float64 Gaussians."""
+    """dict of float64 Gaussians: ``psi`` (d1 d2, PROBES), ``omega`` (T,),
+    and ``phi`` (T, PHI_COLUMNS) for T > PHI_FROM_T."""
     t, d1, d2 = shape
     rng = np.random.default_rng(seed)
-    return rng.standard_normal((d1 * d2, PROBES)), rng.standard_normal(t)
+    out = dict(psi=rng.standard_normal((d1 * d2, PROBES)), omega=rng.standard_normal(t))
+    if t > PHI_FROM_T:
+        out["phi"] = rng.standard_normal((t, PHI_COLUMNS))
+    return out
 
 
-def fingerprint(frames_fn, shape, seed=FINGERPRINT_SEED, chunk=FINGERPRINT_CHUNK):
+def fingerprint(frames_fn, shape, seed=FINGERPRINT_SEED, chunk=FINGERPRINT_CHUNK, probe=None):
     """The reconstruction Y (d1 d2 pixels, C order, x T frames) seen through
-    fixed probes: ``psi_y`` = psi^T Y (PROBES, T) and ``y_omega`` = Y omega
-    (d1 d2,), in float64. ``frames_fn(lo, hi)`` returns frames [lo, hi) as
-    an array of shape (hi - lo, d1, d2); it is called on ``chunk`` frames
-    at a time, so the whole Y is never held."""
+    fixed probes, in float64: ``psi_y`` = psi^T Y (PROBES, T), or
+    ``psi_y_phi`` = psi^T Y Phi (PROBES, PHI_COLUMNS) for T > PHI_FROM_T,
+    and ``y_omega`` = Y omega at ``pixel_sample``. ``frames_fn(lo, hi)``
+    returns frames [lo, hi) as an array of shape (hi - lo, d1, d2); it is
+    called on ``chunk`` frames at a time, so the whole Y is never held."""
     t, d1, d2 = shape
-    psi, omega = probes(shape, seed)
-    psi_y = np.empty((PROBES, t))
+    probe = probes(shape, seed) if probe is None else probe
+    psi, omega, phi = probe["psi"], probe["omega"], probe.get("phi")
+    psi_y = np.zeros((PROBES, PHI_COLUMNS)) if phi is not None else np.empty((PROBES, t))
     y_omega = np.zeros(d1 * d2)
     for lo in range(0, t, chunk):
         hi = min(t, lo + chunk)
         frames = np.asarray(frames_fn(lo, hi))
         if frames.shape != (hi - lo, d1, d2):
             raise ValueError(f"frames_fn({lo}, {hi}) gave {frames.shape}")
-        for a in range(0, hi - lo, FINGERPRINT_SLICE):
-            b = min(hi - lo, a + FINGERPRINT_SLICE)
-            y = frames[a:b].reshape(b - a, d1 * d2).astype(np.float64)
-            psi_y[:, lo + a:lo + b] = (y @ psi).T
-            y_omega += omega[lo + a:lo + b] @ y
-    return dict(psi_y=psi_y, y_omega=y_omega)
+        for a in range(lo, hi, FINGERPRINT_SLICE):
+            b = min(hi, a + FINGERPRINT_SLICE)
+            y = frames[a - lo:b - lo].reshape(b - a, d1 * d2).astype(np.float64)
+            py = (y @ psi).T
+            if phi is not None:
+                psi_y += py @ phi[a:b]
+            else:
+                psi_y[:, a:b] = py
+            y_omega += omega[a:b] @ y
+    key = "psi_y_phi" if phi is not None else "psi_y"
+    return {key: psi_y, "y_omega": y_omega[pixel_sample(d1 * d2)]}
 
 
 def fingerprint_errors(got, want):
-    """Relative errors of ``got``'s fingerprint against ``want``'s:
-    ||psi^T (Y1 - Y2)||_F / ||psi^T Y2||_F estimates the relative Frobenius
-    error of the whole reconstruction; the second probe weighs every pixel."""
+    """Relative errors of ``got``'s fingerprint against ``want``'s, for each
+    key both hold: ||psi^T (Y1 - Y2)||_F / ||psi^T Y2||_F (``psi_y``, or
+    through Phi ``psi_y_phi``) estimates the relative Frobenius error of
+    the whole reconstruction; ``y_omega`` weighs every sampled pixel."""
     return {key: float(np.linalg.norm(np.asarray(got[key], np.float64) - want[key])
                        / np.linalg.norm(np.asarray(want[key], np.float64)))
-            for key in ("psi_y", "y_omega")}
+            for key in ("psi_y", "psi_y_phi", "y_omega") if key in got and key in want}

@@ -32,6 +32,7 @@ card and off on the CPU (``config.route_enabled``).
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
@@ -250,12 +251,15 @@ VPROJ_FRAME_TILE = 512
 
 
 def coset_vproj_chunk(m_cell: torch.Tensor, q: torch.Tensor, p: torch.Tensor, raw: torch.Tensor,
-                      n1: int, n2: int, h1: int, h2: int, s_slots: int) -> torch.Tensor:
+                      n1: int, n2: int, h1: int, h2: int, s_slots: int,
+                      layout_span=contextlib.nullcontext) -> torch.Tensor:
     """The V columns of one raw (t, d1, d2) chunk, P^T (U~^T X) - P^T q
     (blocksparse.py:316-355), ``VPROJ_FRAME_TILE`` frames at a time: the
     frames cast and laid out as (cell, pixel, t), one batched product
     against ``m_cell``, then the four corner bands added back into
-    per-block rows. No patch gather and no (d, r') canvas."""
+    per-block rows. No patch gather and no (d, r') canvas. Each tile's
+    layout copy runs inside ``layout_span()`` (the loader's
+    ``vreg.layout`` span)."""
     nc1, nc2 = n1 + 1, n2 + 1
     ck = m_cell.shape[-1]
     m_t = m_cell.reshape(nc1 * nc2, h1 * h2, ck).transpose(1, 2)
@@ -265,8 +269,9 @@ def coset_vproj_chunk(m_cell: torch.Tensor, q: torch.Tensor, p: torch.Tensor, ra
     for f0 in range(0, raw.shape[0], VPROJ_FRAME_TILE):
         x = raw[f0: f0 + VPROJ_FRAME_TILE]
         t = x.shape[0]
-        xc = (x.to(torch.float32).reshape(t, nc1, h1, nc2, h2).permute(1, 3, 2, 4, 0)
-              .reshape(nc1 * nc2, h1 * h2, t))
+        with layout_span():
+            xc = (x.to(torch.float32).reshape(t, nc1, h1, nc2, h2).permute(1, 3, 2, 4, 0)
+                  .reshape(nc1 * nc2, h1 * h2, t))
         y = (m_t @ xc).reshape(nc1, nc2, ck, t)
         w = (
             y[0:n1, 0:n2, 0 * s: 1 * s]

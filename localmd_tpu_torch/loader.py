@@ -32,6 +32,18 @@ streamed V regression, host->device streaming and the device movie cache
   frames for the V regression (``partition_ranges_for_host``), whose
   columns are all-gathered. The movie cache is off there: it holds a
   prefix of the movie, which a rank's stripe is not (loader.py:826-834).
+- Program spans (``utils.logging.span``), on the thread doing the work:
+  ``loader.host_read`` around each read from the dataset into host
+  memory, ``loader.slot_wait`` around a pinned slot's wait for its
+  previous copy, ``loader.chunk_wait`` around the consumer's wait for a
+  prefetched chunk. Their seconds (and the bytes read) count into
+  ``PMDLoader.transfers`` under the pass that opened the stream:
+  ``<pass>.host_read_s``, ``<pass>.host_read_bytes``, ``<pass>.slot_wait_s``
+  and ``<pass>.chunk_wait_s``, the pass one of ``stats``, ``crop``,
+  ``background`` and ``vreg``. Chunks the cache or a device-resident movie
+  serve read nothing and count nothing. While the profiler runs, the cell
+  route's layout copy is the device span ``vreg.layout``
+  (``PMDLoader.vreg_layout``, settled into ``vreg.layout_s``).
 """
 
 from __future__ import annotations
@@ -64,6 +76,7 @@ from localmd_tpu_torch.utils import (
     make_generator,
     transient_budget_bytes,
 )
+from localmd_tpu_torch.utils.logging import DeviceSpans, count, span
 
 MIN_NOISE_FRAMES = 256   # reference min_allowed_frames
 STATS_CHUNK_FRAMES = 1024
@@ -88,6 +101,12 @@ def _chunk_ranges(total: int, chunk: int, merge_tail: bool = True) -> List[Tuple
     ranges = [(i * chunk, (i + 1) * chunk) for i in range(n_chunks - 2)]
     ranges.append(((n_chunks - 2) * chunk, total))
     return ranges
+
+
+def _pass_key(label: Optional[str], name: str) -> Optional[str]:
+    """The counter of ``name`` for the pass ``label``; None (nothing is
+    counted) for a stream no pass labelled."""
+    return f"{label}.{name}" if label else None
 
 
 def partition_ranges_for_host(
@@ -255,10 +274,11 @@ class _PinnedStager:
     consumer's stream, whose queued work may still use its block: the
     stager is made on the consumer's thread and records an event on that
     stream, and the copy stream waits on it before the first copy into a
-    ``dest``."""
+    ``dest``. ``label`` is the pass the waits and reads count under."""
 
-    def __init__(self, loader: "PMDLoader", n_slots: int):
+    def __init__(self, loader: "PMDLoader", n_slots: int, label: Optional[str] = None):
         self._loader = loader
+        self._label = label
         self.device = loader.device
         self.stream = _copy_stream(self.device)
         self._consumer_ready = torch.cuda.Event()
@@ -273,7 +293,9 @@ class _PinnedStager:
         i = self._next
         self._next = (i + 1) % len(self._slots)
         if self._events[i] is not None:
-            self._events[i].synchronize()
+            with span(self._loader.transfers, _pass_key(self._label, "slot_wait_s"),
+                      "loader.slot_wait"):
+                self._events[i].synchronize()
         if self._slots[i] is None:
             self._slots[i] = torch.empty(
                 (self._piece,) + tuple(self._loader.shape[1:]),
@@ -302,7 +324,7 @@ class _PinnedStager:
             i, slot = self._slot()
             host = slot[: b - a]
             piece = slice(ids[0] + a, ids[0] + b) if contiguous else ids[a:b]
-            self._loader._read_into(piece, host)
+            self._loader._host_read(piece, host, self._label)
             with torch.cuda.stream(self.stream):
                 dest[a:b].copy_(host, non_blocking=True)
                 event = torch.cuda.Event()
@@ -322,15 +344,20 @@ class _StagedChunks(_PrefetchIter):
     marks the tensor as used by that stream, so the caching allocator does
     not give its block to the next copy while K1 or K2 still reads it.
     ``close`` also releases the pinned ring; queued chunks are dropped by
-    the base class's drain."""
+    the base class's drain. Each wait for a chunk is a ``loader.chunk_wait``
+    span, its seconds added to ``counters[wait_key]``."""
 
     def __init__(self, items, load_fn, stager: Optional[_PinnedStager], depth: int,
-                 eager: bool = False):
+                 eager: bool = False, counters: Optional[dict] = None,
+                 wait_key: Optional[str] = None):
         self._stager = stager
+        self._counters = counters
+        self._wait_key = wait_key
         super().__init__(items, load_fn, depth=depth, eager=eager)
 
     def __next__(self):
-        tensor, event = super().__next__()
+        with span(self._counters, self._wait_key, "loader.chunk_wait"):
+            tensor, event = super().__next__()
         if event is not None:
             stream = torch.cuda.current_stream(tensor.device)
             stream.wait_event(event)
@@ -479,10 +506,14 @@ class PMDLoader:
         self._cache_frames = 0
         self._cache_building = False
         self._v_prefetch: Optional[dict] = None
-        # host->device copies of movie frames (all from pinned memory); the
-        # prefetch workers add to these
+        # host->device copies of movie frames (all from pinned memory) and
+        # the streams' span counters (``utils.logging.count``); the prefetch
+        # workers add to these
         self.transfers = {"pinned_copies": 0, "pinned_bytes": 0}
-        self._transfers_lock = threading.Lock()
+        # the cell route's layout copy while the profiler runs; the caller
+        # settles it after its fence (``vreg.layout_s``)
+        self.vreg_layout = DeviceSpans(self.transfers, "vreg.layout_s", "vreg.layout",
+                                       self.device)
         # fired once, as hook(loader, cache_target_frames), when the
         # statistics pass has planned and allocated the movie cache and
         # before it reads its first chunk (loader.py:491-494), so a caller can
@@ -545,9 +576,17 @@ class PMDLoader:
         return _torch_dtype(raw if raw in _KERNEL_DTYPES else np.dtype(np.float32))
 
     def _count_copy(self, nbytes: int) -> None:
-        with self._transfers_lock:
-            self.transfers["pinned_copies"] += 1
-            self.transfers["pinned_bytes"] += int(nbytes)
+        count(self.transfers, "pinned_copies", 1)
+        count(self.transfers, "pinned_bytes", int(nbytes))
+
+    def _host_read(self, frames, out: torch.Tensor, label: Optional[str] = None) -> torch.Tensor:
+        """``_read_into`` inside a ``loader.host_read`` span; for the pass
+        ``label`` its seconds and bytes count into ``transfers``."""
+        with span(self.transfers, _pass_key(label, "host_read_s"), "loader.host_read"):
+            self._read_into(frames, out)
+        if label:
+            count(self.transfers, f"{label}.host_read_bytes", out.numel() * out.element_size())
+        return out
 
     def _read_into(self, frames, out: torch.Tensor) -> torch.Tensor:
         """Frames of the dataset into the host tensor ``out`` (n, d1, d2), in
@@ -562,16 +601,17 @@ class PMDLoader:
             np.copyto(out.numpy(), got.reshape(out.shape), casting="unsafe")
         return out
 
-    def _host_chunk(self, frames, dest: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def _host_chunk(self, frames, dest: Optional[torch.Tensor] = None,
+                    label: Optional[str] = None) -> torch.Tensor:
         """A host source's frames on the device, read synchronously: on the
         card through a pinned buffer, on the CPU into ``dest`` or a new
-        buffer."""
+        buffer; the read counts under the pass ``label``."""
         if self.device.type != "cuda":
             n = len(frame_list(frames, self.shape[0]))
             out = dest if dest is not None else torch.empty((n,) + self.shape[1:],
                                                             dtype=self.stream_dtype)
-            return self._read_into(frames, out)
-        out, event = _PinnedStager(self, 2).stage(frames, dest)
+            return self._host_read(frames, out, label)
+        out, event = _PinnedStager(self, 2, label).stage(frames, dest)
         if event is not None:
             stream = torch.cuda.current_stream(self.device)
             stream.wait_event(event)
@@ -579,12 +619,13 @@ class PMDLoader:
         return out
 
     def _fetch(self, frames, stager: Optional[_PinnedStager] = None,
-               dest: Optional[torch.Tensor] = None):
+               dest: Optional[torch.Tensor] = None, label: Optional[str] = None):
         """(chunk, event): the (t, d1, d2) frames in the stream dtype on the
         device, from the cache or a device-resident movie (a view for a
         contiguous range), else from the host (staged through ``stager`` on
         the card, event None otherwise). A device-resident movie in a dtype
-        K1 and K2 do not read is cast to float32 here, one chunk at a time."""
+        K1 and K2 do not read is cast to float32 here, one chunk at a time.
+        A host read without a stager counts under the pass ``label``."""
         if self._cache_serves(frames):
             if isinstance(frames, slice):
                 return self._cache[frames], None
@@ -597,16 +638,17 @@ class PMDLoader:
             return chunk.to(self.stream_dtype), None
         if stager is not None:
             return stager.stage(frames, dest)
-        return self._host_chunk(frames, dest), None
+        return self._host_chunk(frames, dest, label), None
 
-    def _load_raw(self, frames) -> torch.Tensor:
+    def _load_raw(self, frames, label: Optional[str] = None) -> torch.Tensor:
         """(t, d1, d2) frames on the device, read now: a slice for a
-        contiguous range, else a gather of the frame list."""
+        contiguous range, else a gather of the frame list; a host read
+        counts under the pass ``label``."""
         if not isinstance(frames, slice):
             frames = list(frames)
             if frames == list(range(frames[0], frames[0] + len(frames))):
                 frames = slice(frames[0], frames[0] + len(frames))
-        return self._fetch(frames)[0]
+        return self._fetch(frames, label=label)[0]
 
     def _stream_chunk_frames(self) -> int:
         """Frames a streamed chunk holds: max(1 GiB, the card's memory / 16)
@@ -615,12 +657,14 @@ class PMDLoader:
         budget = max(STREAM_CHUNK_BYTES, transient_budget_bytes(self.device))
         return max(64, min(self.batch_size, budget // per_frame))
 
-    def _stream(self, items: Sequence, eager: bool = False, cache_dest: bool = False):
+    def _stream(self, items: Sequence, eager: bool = False, cache_dest: bool = False,
+                label: Optional[str] = None):
         """Iterate the device chunks of ``items`` (slices or frame lists).
         Host sources stream on a prefetch worker, through a pinned ring on
         the card; chunks the cache or a device-resident movie serves are
         views. With ``cache_dest`` (the stats pass) a range inside the cache
-        being built is copied straight into it."""
+        being built is copied straight into it. The stream's reads and
+        waits count under the pass ``label`` (``transfers``)."""
         items = list(items)
 
         def dest_of(item):
@@ -633,20 +677,23 @@ class PMDLoader:
             return (self._fetch(it)[0] for it in items)
         on_card = self.device.type == "cuda"
         depth = min(self._prefetch_depth, 2) if on_card else self._prefetch_depth
-        stager = _PinnedStager(self, depth + 2) if on_card else None
+        stager = _PinnedStager(self, depth + 2, label) if on_card else None
 
         def load(item):
-            return self._fetch(item, stager, dest_of(item))
+            return self._fetch(item, stager, dest_of(item), label)
 
-        return _StagedChunks(items, load, stager, depth=depth, eager=eager)
+        return _StagedChunks(items, load, stager, depth=depth, eager=eager,
+                             counters=self.transfers,
+                             wait_key=_pass_key(label, "chunk_wait_s"))
 
     def _iter_raw_chunks(self, chunk_frames: Optional[int] = None, merge_tail: bool = True,
-                         eager: bool = False, cache_dest: bool = False, host_partition=None):
+                         eager: bool = False, cache_dest: bool = False, host_partition=None,
+                         label: Optional[str] = None):
         """Native-dtype frame chunks over the whole movie (loader.py:660-724),
         ranges split at the cache boundary so each chunk is served wholly
         from the card or wholly from the dataset. With more than one rank,
         ``host_partition`` "chunks" streams this rank's whole chunks and
-        "frames" its stripe of frames."""
+        "frames" its stripe of frames. ``label`` is the pass (``_stream``)."""
         chunk_frames = chunk_frames or self._stream_chunk_frames()
         ranges = _chunk_ranges(self.shape[0], chunk_frames, merge_tail=merge_tail)
         world, rank = world_and_rank(self._mesh)
@@ -657,7 +704,8 @@ class PMDLoader:
         if self._cache is not None and 0 < c < self.shape[0]:
             ranges = [piece for a, b in ranges
                       for piece in ([(a, c), (c, b)] if a < c < b else [(a, b)])]
-        return self._stream([slice(a, b) for a, b in ranges], eager=eager, cache_dest=cache_dest)
+        return self._stream([slice(a, b) for a, b in ranges], eager=eager, cache_dest=cache_dest,
+                            label=label)
 
     # -- the device movie cache -------------------------------------------------
 
@@ -724,7 +772,7 @@ class PMDLoader:
             return False
         if 0 < self.shape[0] <= self._cache_frames:
             return False
-        it = self._iter_raw_chunks(eager=True, host_partition="frames")
+        it = self._iter_raw_chunks(eager=True, host_partition="frames", label="vreg")
         if not isinstance(it, _PrefetchIter):
             return False
         self._v_prefetch = {"iter": it, "cache_frames": self._cache_frames}
@@ -788,7 +836,7 @@ class PMDLoader:
         # Unmerged ranges: a tail shorter than MIN_NOISE_FRAMES adds to the
         # mean only, as the reference stats loop does.
         chunks = self._iter_raw_chunks(self.frame_constant, merge_tail=False, cache_dest=True,
-                                       host_partition="chunks")
+                                       host_partition="chunks", label="stats")
         try:
             for raw in chunks:
                 t_c = raw.shape[0]
@@ -855,7 +903,7 @@ class PMDLoader:
         # frames-major, C-order pixels (the raw layout): the rSVD of the
         # (d, n) matrix is row-permutation equivariant, so only the (d, K)
         # basis is reordered to ``order`` -- no movie-sized transpose
-        x = self._load_raw(frames).reshape(len(frames), d1 * d2).to(torch.float32)
+        x = self._load_raw(frames, "background").reshape(len(frames), d1 * d2).to(torch.float32)
         x = (x - self.mean_img.reshape(-1)) / self.std_img.reshape(-1)
         u, _, _ = truncated_random_svd(x.T, self.background_rank, generator=self._generator)
         self.spatial_basis = _rows_from_c(u, d1, d2, self.order)
@@ -865,7 +913,7 @@ class PMDLoader:
     def temporal_crop(self, frames) -> torch.Tensor:
         """(d1, d2, T) frames (a slice or ids) in the loader's ``dtype`` on
         its device (loader.py:522-525)."""
-        return self._load_raw(frames).to(self._crop_dtype).permute(1, 2, 0)
+        return self._load_raw(frames, "crop").to(self._crop_dtype).permute(1, 2, 0)
 
     def temporal_crop_standardized(self, frames) -> torch.Tensor:
         """(d1, d2, T) frames standardized with the loader's statistics,
@@ -894,12 +942,11 @@ class PMDLoader:
             for s in spans
         ]
         if len(spans) == 1:
-            return _standardize_frames(
-                self._load_raw(items[0]), self.mean_img, self.std_img, self.spatial_basis, self.order
-            )
+            return _standardize_frames(self._load_raw(items[0], "crop"), self.mean_img,
+                                       self.std_img, self.spatial_basis, self.order)
         buf = torch.empty((d1, d2, t), dtype=torch.float32, device=self.device)
         tb_chunks = []
-        chunks = self._stream(items)
+        chunks = self._stream(items, label="crop")
         try:
             for start, raw in zip(spans, chunks):
                 filt, tb = _standardize_frames(
@@ -942,14 +989,16 @@ class PMDLoader:
         otherwise the folded projector A~ = (U P)/std is built once and each
         chunk is one K2 call. With a mesh each rank streams its stripe of
         frames and the stripes are gathered, so every rank returns the whole
-        V (loader.py:1070-1227)."""
+        V (loader.py:1070-1227). On the cell route each tile's layout copy is
+        a ``vreg_layout`` span; the caller settles it after its fence."""
         d1, d2 = self.shape[1], self.shape[2]
         if blocksparse.coset_vproj_eligible(u):
             m_cell, q = self.prepare_vproj_cells(u)
             n1, n2, h1, h2 = u.cell_geom
 
             def project(raw):
-                return blocksparse.coset_vproj_chunk(m_cell, q, p, raw, n1, n2, h1, h2, u.slots)
+                return blocksparse.coset_vproj_chunk(m_cell, q, p, raw, n1, n2, h1, h2, u.slots,
+                                                     self.vreg_layout.span)
 
         else:
             std_flat = flatten_image(self.std_img, self.order)
@@ -967,7 +1016,8 @@ class PMDLoader:
                 return kernels.v_projection(raw.reshape(raw.shape[0], d1 * d2), a_c, c, prepared)
 
         results = []
-        chunks = self._take_v_prefetch() or self._iter_raw_chunks(host_partition="frames")
+        chunks = self._take_v_prefetch() or self._iter_raw_chunks(host_partition="frames",
+                                                                  label="vreg")
         try:
             for raw in chunks:
                 results.append(project(raw))

@@ -93,6 +93,12 @@ from localmd_tpu_torch.utils import (
     stage_seeds,
 )
 from localmd_tpu_torch.utils.device import TRANSIENT_FLOOR_BYTES
+from localmd_tpu_torch.utils.logging import span
+
+# the stages of ``pipeline_timings``, in the order they run; each is also a
+# ``localmd.<stage>`` span from the previous stage's fence to its own
+STAGES = ("stats_and_background", "thresholds", "block_decomposition", "factorized_svd",
+          "v_regression", "final_reformat")
 
 
 def identify_window_chunks(
@@ -181,7 +187,9 @@ def _profile_scope(profile_dir: Optional[str], dev: torch.device):
     """With ``profile_dir``, profile the body with ``torch.profiler`` (CPU
     activity, and CUDA activity on the card) and write a Chrome trace into
     the directory, made if missing (pipeline.py:209-212 writes a jax
-    profiler trace)."""
+    profiler trace). Every thread is traced (``profile_all_threads``), so
+    the loader's prefetch workers' spans are in the trace beside the
+    caller's."""
     if profile_dir is None:
         yield
         return
@@ -189,7 +197,10 @@ def _profile_scope(profile_dir: Optional[str], dev: torch.device):
     activities = [torch.profiler.ProfilerActivity.CPU]
     if dev.type == "cuda":
         activities.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=activities) as prof:
+    from torch._C._profiler import _ExperimentalConfig
+
+    every_thread = _ExperimentalConfig(profile_all_threads=True)
+    with torch.profiler.profile(activities=activities, experimental_config=every_thread) as prof:
         yield
     prof.export_chrome_trace(os.path.join(
         profile_dir, f"localmd_decomposition.{os.getpid()}.{time.time_ns()}.pt.trace.json"
@@ -277,13 +288,21 @@ def localmd_decomposition(
     by as much.
 
     The result carries ``pipeline_timings`` (seconds per stage, each stage
-    fenced with ``torch.cuda.synchronize`` on the card),
+    fenced with ``torch.cuda.synchronize`` on the card; while the torch
+    profiler runs each stage is also a ``localmd.<stage>`` span),
     ``pipeline_ranks`` (the JAX package's: ``final`` is the width of ``s``,
     the kept count is ``rank``), ``pipeline_windows`` (init windows and,
     per block batch, the windows run before the early stop) and
     ``pipeline_cache`` (cached frames, total frames, the loader's pinned
     host->device copies and bytes, and the stream dtype: the dtype the
-    chunks reached K1 and K2 in), and the JAX package's
+    chunks reached K1 and K2 in; and the loader's span counters, for each
+    pass ``<pass>`` of ``stats``, ``crop``, ``background`` and ``vreg``
+    that read from a host source: ``<pass>.host_read_s`` and
+    ``<pass>.host_read_bytes``, the reads from the dataset into host
+    memory, ``<pass>.slot_wait_s``, the waits for a pinned slot's previous
+    copy, and ``<pass>.chunk_wait_s``, the caller's waits for a prefetched
+    chunk; while the profiler runs, ``vreg.layout_s``, the device seconds
+    of the cell route's layout copy), and the JAX package's
     ``pipeline_aot`` and ``pipeline_warm`` as it reports them with its
     warms off (pipeline.py:1404-1415).
     """
@@ -301,14 +320,15 @@ def localmd_decomposition(
                 "every rank would write the same stage files. Run with "
                 "checkpoint_path=None, or checkpoint a one-rank run."
             )
-    with config.matmul_precision_scope(precision), _profile_scope(profile_dir, dev):
+    with config.matmul_precision_scope(precision), _profile_scope(profile_dir, dev), \
+            contextlib.ExitStack() as stage_span:
         return _decompose(
             dataset_obj, block_sizes, frame_range, max_components, background_rank, sim_conf,
             frame_batch_size, dtype, num_workers, pixel_batch_size, max_consecutive_failures,
             rank_prune, rank_prune_factor, temporal_avg_factor, spatial_avg_factor, order,
             window_chunks, compute_normalizer, pixel_weighting, spatial_denoiser,
             temporal_denoiser, seed, block_batch_size, sim_iters, final_rank_tol,
-            checkpoint_path, welch_compat, cache_movie, mesh, dev,
+            checkpoint_path, welch_compat, cache_movie, mesh, dev, stage_span,
         )
 
 
@@ -318,10 +338,11 @@ def _decompose(
     rank_prune_factor, temporal_avg_factor, spatial_avg_factor, order, window_chunks,
     compute_normalizer, pixel_weighting, spatial_denoiser, temporal_denoiser, seed,
     block_batch_size, sim_iters, final_rank_tol, checkpoint_path, welch_compat, cache_movie,
-    mesh, dev: torch.device,
+    mesh, dev: torch.device, stage_span: contextlib.ExitStack,
 ) -> PMDArray:
     """The body of ``localmd_decomposition`` on the resolved device, inside
-    its precision and profiler scopes."""
+    its precision and profiler scopes; ``stage_span`` holds the open
+    ``localmd.<stage>`` span."""
     world, _ = world_and_rank(mesh)
     dataset = as_dataset(dataset_obj)
     t_total, d1, d2 = (int(s) for s in dataset.shape)
@@ -333,6 +354,7 @@ def _decompose(
 
     timings: dict = {}
     t0 = [time.perf_counter()]
+    stage_span.enter_context(span(None, None, f"localmd.{STAGES[0]}"))
 
     def _mark(stage):
         if dev.type == "cuda":
@@ -340,6 +362,10 @@ def _decompose(
         now = time.perf_counter()
         timings[stage] = now - t0[0]
         t0[0] = now
+        stage_span.close()
+        following = STAGES.index(stage) + 1
+        if following < len(STAGES):
+            stage_span.enter_context(span(None, None, f"localmd.{STAGES[following]}"))
 
     np_rng = np.random.RandomState(seed) if seed is not None else np.random
     seeds = stage_seeds(seed, ("thresholds", "blocks", "prune"))
@@ -686,6 +712,7 @@ def _decompose(
                 display("Running streaming V regression over the full movie")
                 v = load_obj.v_projection(u, p)
             _mark("v_regression")
+            load_obj.vreg_layout.settle()
             display("Final SVD reformat")
             r, s_vals, vt, s_keep = final_svd_reformat(p, v, rel_tol=final_rank_tol)
             break

@@ -1,0 +1,247 @@
+"""The port's program spans and counters (``utils.logging.span``,
+``DeviceSpans``): the loader's per-pass read and wait counters in
+``pipeline_cache``, the ``localmd.<stage>`` spans, the cell route's
+``vreg.layout`` span in the torch profiler's trace, and nothing of either
+with the profiler off.
+
+CPU tests, but for one case marked ``gpu`` that skips (in a fixture, not at
+import) unless ``torch.cuda.is_available()``. Run it on a machine with the
+card: ``python -m pytest -m gpu --noconftest tests/test_torch_spans.py``."""
+
+import glob
+import json
+import sys
+import threading
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from localmd_tpu_torch import blocksparse, localmd_decomposition
+from localmd_tpu_torch.dataset import NumpyArray
+from localmd_tpu_torch.pipeline import STAGES
+from localmd_tpu_torch.utils import logging as port_logging
+
+SETTINGS = dict(block_sizes=(16, 16), frame_range=300, max_components=4, background_rank=1,
+                sim_iters=10, seed=0)
+PASS_KEYS = ("host_read_s", "host_read_bytes", "slot_wait_s", "chunk_wait_s")
+
+
+def _movie(t=600, d1=32, d2=32):
+    rng = np.random.default_rng(3)
+    low = (rng.standard_normal((d1 * d2, 3)) @ rng.standard_normal((3, t))).T.reshape(t, d1, d2)
+    return np.clip(np.rint(low * 30 + 500 + 10 * rng.standard_normal((t, d1, d2))), 0,
+                   65535).astype(np.uint16)
+
+
+@pytest.fixture(scope="module")
+def movie():
+    return _movie()
+
+
+@pytest.fixture
+def cell_route(monkeypatch):
+    """The V regression's cell route (``vreg.layout``'s site), off on the
+    CPU by default."""
+    monkeypatch.setattr(blocksparse, "COSET_VPROJ", True)
+
+
+def _call(source, **kw):
+    return localmd_decomposition(source, device="cpu", **{**SETTINGS, **kw})
+
+
+def _factors(pmd) -> dict:
+    u = pmd.u
+    return dict(indptr=u.indptr, indices=u.indices, data=u.data, r=pmd.r, s=pmd.s, v=pmd.v,
+                mean=pmd.mean_img, std=pmd.var_img)
+
+
+def test_host_source_counts_the_statistics_pass_read(movie, cell_route):
+    pmd = _call(NumpyArray(movie))
+    cache = pmd.pipeline_cache
+    assert cache["stats.host_read_bytes"] == movie.nbytes
+    assert cache["stats.host_read_s"] > 0
+    assert cache["stats.chunk_wait_s"] > 0
+    assert cache["vreg.host_read_bytes"] == movie.nbytes
+    assert "stats.slot_wait_s" not in cache          # no pinned ring on the CPU
+    assert "vreg.layout_s" not in cache              # the profiler is off
+    assert tuple(pmd.pipeline_timings) == STAGES
+    assert set(pmd.pipeline_timings) == {
+        "stats_and_background", "thresholds", "block_decomposition",
+        "factorized_svd", "v_regression", "final_reformat",
+    }
+
+
+def test_device_resident_source_counts_nothing(movie, cell_route):
+    pmd = _call(torch.from_numpy(movie.astype(np.float32)))
+    cache = pmd.pipeline_cache
+    for stage in ("stats", "crop", "background", "vreg"):
+        for key in PASS_KEYS:
+            assert f"{stage}.{key}" not in cache
+    assert "vreg.layout_s" not in cache
+    assert len(pmd.pipeline_timings) == 6
+
+
+def _threads_by_span(events) -> dict:
+    """{span name: set of thread ids} of the program's spans."""
+    out: dict = {}
+    for name, tid in events:
+        if name.startswith(("localmd.", "loader.", "vreg.")):
+            out.setdefault(name, set()).add(tid)
+    return out
+
+
+@pytest.mark.parametrize("how", ["profile", "profile_dir"])
+def test_spans_land_in_the_profilers_trace(movie, cell_route, tmp_path, how):
+    """Under ``torch.profiler.profile`` the six stage spans, the consumer's
+    chunk waits and the layout copy are host events on the caller's thread;
+    ``profile_dir``'s Chrome trace, which traces every thread, also has the
+    prefetch worker's reads on a thread of their own."""
+    if how == "profile":
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            pmd = _call(NumpyArray(movie))
+        spans = _threads_by_span((e.name(), e.start_thread_id())
+                                 for e in prof.profiler.kineto_results.events())
+    else:
+        pmd = _call(NumpyArray(movie), profile_dir=str(tmp_path))
+        (path,) = glob.glob(str(tmp_path / "*.json"))
+        with open(path) as fh:
+            trace = json.load(fh)
+        spans = _threads_by_span((e.get("name", ""), e.get("tid"))
+                                 for e in trace["traceEvents"] if e.get("ph") == "X")
+    (caller,) = spans["localmd.stats_and_background"]
+    for stage in STAGES:
+        assert spans[f"localmd.{stage}"] == {caller}, stage
+    assert spans["vreg.layout"] == {caller}
+    assert caller in spans["loader.chunk_wait"]
+    if how == "profile_dir":
+        assert spans["loader.host_read"] - {caller}, spans["loader.host_read"]
+    assert pmd.pipeline_cache["vreg.layout_s"] > 0
+    assert pmd.pipeline_cache["stats.host_read_bytes"] == movie.nbytes
+
+
+def test_profiler_off_enters_no_profiler_range(movie, cell_route, monkeypatch):
+    """With the profiler off no span enters a range of the profiler's (the
+    port's own ``_RecordFunctionFast`` or ``record_function``); with it on,
+    the spans do, through the host-only range."""
+    entered = []
+
+    def counting(module, name):
+        real = getattr(module, name)
+
+        def wrapper(*args, **kwargs):
+            entered.append((name, args[0]))
+            return real(*args, **kwargs)
+
+        monkeypatch.setattr(module, name, wrapper)
+
+    counting(torch._C._profiler, "_RecordFunctionFast")
+    counting(torch.autograd.profiler, "record_function")
+    pmd = _call(NumpyArray(movie))
+    assert entered == []
+    assert "vreg.layout_s" not in pmd.pipeline_cache
+    with profile(activities=[ProfilerActivity.CPU]):
+        _call(NumpyArray(movie))
+    names = {span for kind, span in entered if kind == "_RecordFunctionFast"}
+    assert {"localmd.v_regression", "vreg.layout", "loader.chunk_wait"} <= names
+    assert not [span for kind, span in entered if kind == "record_function"]
+
+
+def test_factors_are_bit_identical_with_the_profiler_on(movie, cell_route):
+    off = _factors(_call(NumpyArray(movie)))
+    with profile(activities=[ProfilerActivity.CPU]):
+        on = _factors(_call(NumpyArray(movie)))
+    for name in off:
+        np.testing.assert_array_equal(np.asarray(on[name]), np.asarray(off[name]), err_msg=name)
+
+
+def test_count_loses_no_update_across_threads():
+    """More threads than cores adding to one record, with a short switch
+    interval: every add lands."""
+    counters: dict = {}
+    n_threads, n_adds = 16, 2000
+
+    def work():
+        for _ in range(n_adds):
+            port_logging.count(counters, "n", 1)
+            with port_logging.span(counters, "s", "test.span"):
+                pass
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work) for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert counters["n"] == n_threads * n_adds
+    assert counters["s"] >= 0
+
+
+@pytest.mark.parametrize("profiled", [False, True], ids=["off", "on"])
+def test_device_spans_settle_only_what_the_profiler_saw(profiled):
+    counters: dict = {}
+    spans = port_logging.DeviceSpans(counters, "k_s", "test.device_span", torch.device("cpu"))
+    if profiled:
+        with profile(activities=[ProfilerActivity.CPU]):
+            for _ in range(3):
+                with spans.span():
+                    torch.ones(64).sum()
+    else:
+        with spans.span():
+            torch.ones(64).sum()
+    spans.settle()
+    assert ("k_s" in counters) is profiled
+    if profiled:
+        assert counters["k_s"] > 0
+        before = counters["k_s"]
+        spans.settle()                               # settled spans are not counted again
+        assert counters["k_s"] == before
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+@pytest.mark.gpu
+def test_layout_span_on_the_card(cuda, monkeypatch):
+    """A profiled call of a 512²×2048 uint16 movie on the card: the layout
+    copy's device seconds lie inside the V regression's, the spans add no
+    ``torch.cuda.synchronize`` and no event on the device's timeline."""
+    g = torch.Generator(cuda).manual_seed(0)
+    t, d = 2048, 512 * 512
+    low = torch.randn(d, 3, generator=g, device=cuda) @ torch.randn(3, t, generator=g, device=cuda)
+    noisy = low.T * 30 + 500 + 10 * torch.randn(t, d, generator=g, device=cuda)
+    movie = noisy.round().clamp(0, 65535).to(torch.int32).to(torch.uint16).reshape(t, 512, 512)
+    settings = dict(SETTINGS, block_sizes=(32, 32), frame_range=2048, max_components=10)
+    syncs = []
+    real = torch.cuda.synchronize
+
+    def counting(*args, **kwargs):
+        syncs.append(1)
+        return real(*args, **kwargs)
+
+    localmd_decomposition(movie, device=cuda, **settings)       # builds and warms
+    monkeypatch.setattr(torch.cuda, "synchronize", counting)
+    plain = localmd_decomposition(movie, device=cuda, **settings)
+    unprofiled = len(syncs)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        del syncs[:]
+        pmd = localmd_decomposition(movie, device=cuda, **settings)
+        profiled = len(syncs)
+    # the spans are host events only: none is projected onto the device's
+    # timeline, where the device's busy time is read
+    device = {e.name() for e in prof.profiler.kineto_results.events()
+              if e.device_type() == torch.autograd.DeviceType.CUDA}
+    assert not {n for n in device if n.startswith(("localmd.", "loader.", "vreg."))}
+    assert "vreg.layout_s" not in plain.pipeline_cache
+    assert 0 < pmd.pipeline_cache["vreg.layout_s"] < pmd.pipeline_timings["v_regression"]
+    assert profiled <= unprofiled

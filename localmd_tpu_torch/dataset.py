@@ -7,7 +7,9 @@ placement happens in the loader. Each file source also has
 ``read_into(frames, out)``, which writes the frames in their stored dtype
 straight into a caller's buffer (the loader's pinned staging buffer):
 ``RawBinaryArray`` and ``NpyArray`` through the native scatter reader
-(``io.native``), ``TiffArray`` through its page index.
+(``io.native``), ``TiffArray`` through its page index, ``NumpyArray``
+split along the frames over ``set_io_threads`` copy threads (a shared pool
+per thread count) once each part holds ``READ_SPLIT_BYTES``.
 
 ``TensorMovie`` (also exported as ``DeviceMovie``) is the counterpart of the
 JAX package's ``DeviceMovie``: a tensor on the loader's device is
@@ -17,8 +19,11 @@ crosses the host link, so it is never prefetched or cached.
 
 from __future__ import annotations
 
+import os
+import threading
 import warnings
 from abc import ABC, abstractmethod
+from concurrent.futures import ThreadPoolExecutor, wait
 from typing import Sequence, Tuple, Union
 
 import numpy as np
@@ -27,6 +32,26 @@ import torch
 from localmd_tpu_torch.io.tiff import TiffReader
 
 FrameIndexer = Union[int, list, np.ndarray, slice, range]
+
+READ_SPLIT_BYTES = 1 << 24   # the least of the source a copy thread of NumpyArray.read_into takes
+
+# ``NumpyArray.read_into``'s copy threads, one pool per thread count, kept
+# for the process: a caller makes a new dataset per call
+_COPY_POOLS: dict = {}
+_COPY_POOLS_LOCK = threading.Lock()
+# a forked child has none of its parent's threads
+os.register_at_fork(after_in_child=_COPY_POOLS.clear)
+
+
+def _copy_pool(n_threads: int) -> ThreadPoolExecutor:
+    """The shared pool of ``n_threads - 1`` workers (the caller copies one
+    part itself)."""
+    with _COPY_POOLS_LOCK:
+        pool = _COPY_POOLS.get(n_threads)
+        if pool is None:
+            pool = _COPY_POOLS[n_threads] = ThreadPoolExecutor(
+                n_threads - 1, thread_name_prefix=f"localmd-copy{n_threads}")
+        return pool
 
 
 def frame_list(frames, n_frames: int) -> list:
@@ -116,7 +141,12 @@ lazy_data_loader = PMDDataset
 
 
 class NumpyArray(PMDDataset):
-    """Adapter wrapping an in-memory (T, d1, d2) ndarray."""
+    """Adapter wrapping an in-memory (T, d1, d2) ndarray. ``read_into``
+    copies a large read on up to ``set_io_threads`` threads (4 by default;
+    the loader passes its ``num_workers``), each a contiguous run of the
+    frames: ``np.copyto`` releases the GIL."""
+
+    _io_threads = 4
 
     def __init__(self, array: np.ndarray):
         array = np.asarray(array)
@@ -134,6 +164,52 @@ class NumpyArray(PMDDataset):
 
     def _compute_at_indices(self, indices) -> np.ndarray:
         return np.asarray(self._array[indices])
+
+    def set_io_threads(self, n: int) -> None:
+        self._io_threads = max(1, int(n))
+
+    def read_threads(self, n_frames: int) -> int:
+        """The threads ``read_into`` copies ``n_frames`` frames on: up to
+        the ``set_io_threads`` count and ``n_frames``, while each thread's
+        part keeps about ``READ_SPLIT_BYTES`` of the source; one below."""
+        frame_bytes = self._array.dtype.itemsize * self.shape[1] * self.shape[2]
+        return max(1, min(self._io_threads, int(n_frames),
+                          int(n_frames) * frame_bytes // READ_SPLIT_BYTES))
+
+    def _frame_keys(self, frames):
+        """(n, key): the n frames ``frames`` selects, and ``key(a, b)``,
+        the key of the frames ``a:b`` of them. A slice of positive step
+        gives slices; any other key runs of its frame ids, which numpy
+        reads from the key as it reads ``self._array[frames]``."""
+        if isinstance(frames, slice):
+            start, stop, step = frames.indices(self.shape[0])
+            if step > 0:
+                return len(range(start, stop, step)), \
+                    lambda a, b: slice(start + a * step, start + b * step, step)
+        ids = np.arange(self.shape[0])[frames].reshape(-1)
+        return ids.shape[0], lambda a, b: ids[a:b]
+
+    def read_into(self, frames, out: np.ndarray) -> np.ndarray:
+        n_threads = self.read_threads(out.shape[0] if out.ndim else 0)
+        n, key = self._frame_keys(frames) if n_threads > 1 else (None, None)
+        if n_threads < 2 or n != out.shape[0]:
+            return super().read_into(frames, out)
+
+        def copy(a, b):
+            dest = out[a:b]
+            np.copyto(dest, self._array[key(a, b)].reshape(dest.shape), casting="unsafe")
+
+        bounds = [n * i // n_threads for i in range(n_threads + 1)]
+        first, *rest = zip(bounds, bounds[1:])
+        pool = _copy_pool(n_threads)
+        futures = [pool.submit(copy, a, b) for a, b in rest]
+        try:
+            copy(*first)
+        finally:
+            wait(futures)
+        for future in futures:      # the first part's exception is raised
+            future.result()
+        return out
 
 
 class TiffArray(PMDDataset):
@@ -389,6 +465,12 @@ class PlaneView(PMDDataset):
     def set_io_threads(self, n: int) -> None:
         if hasattr(self._source, "set_io_threads"):
             self._source.set_io_threads(n)
+
+    def read_threads(self, n_frames: int) -> int:
+        """The source's threads for a read of ``n_frames`` (1 where it
+        does not say)."""
+        threads = getattr(self._source, "read_threads", None)
+        return threads(n_frames) if threads is not None else 1
 
     def _plane_index(self, i: int) -> int:
         """One plane-frame index against this view's length: negative ids

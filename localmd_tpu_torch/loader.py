@@ -15,7 +15,9 @@ streamed V regression, host->device streaming and the device movie cache
   (``blocksparse.coset_vproj_chunk``; loader.py:1097-1130).
 - Host sources stream on a background thread (``_PrefetchIter``): the
   worker reads each chunk from disk into a ring of ``depth + 2`` pinned
-  host buffers in the chunk's native dtype (256 MiB pieces), starts the
+  host buffers in the chunk's native dtype (256 MiB pieces; the native
+  readers and an in-memory ``NumpyArray`` copy each piece on
+  ``num_workers`` threads, ``set_io_threads``), starts the
   copies to the card on a dedicated copy stream and records an event; the
   consumer's stream waits on that event before any kernel reads the chunk
   (``_PinnedStager``). A device tensor is never made from pageable memory.
@@ -40,9 +42,11 @@ streamed V regression, host->device streaming and the device movie cache
   ``PMDLoader.transfers`` under the pass that opened the stream:
   ``<pass>.host_read_s``, ``<pass>.host_read_bytes``, ``<pass>.slot_wait_s``
   and ``<pass>.chunk_wait_s``, the pass one of ``stats``, ``crop``,
-  ``background`` and ``vreg``. Chunks the cache or a device-resident movie
-  serve read nothing and count nothing. While the profiler runs, the cell
-  route's layout copy is the device span ``vreg.layout``
+  ``background`` and ``vreg``; ``<pass>.host_reads`` counts the reads and
+  ``<pass>.host_read_split`` those the dataset copied on more than one
+  thread (its ``read_threads``). Chunks the cache or a device-resident
+  movie serve read nothing and count nothing. While the profiler runs, the
+  cell route's layout copy is the device span ``vreg.layout``
   (``PMDLoader.vreg_layout``, settled into ``vreg.layout_s``).
 """
 
@@ -523,7 +527,8 @@ class PMDLoader:
         self._stats_started_hook = stats_started_hook
         self.stats_hook_error: Optional[BaseException] = None
         # threads, not processes: num_workers maps onto the prefetch depth
-        # and the native reader's thread count (loader.py:478-487)
+        # and the dataset's read threads: the native reader's, or the copy
+        # threads of an in-memory NumpyArray (loader.py:478-487)
         self.num_workers = int(num_workers) if num_workers else 0
         self._prefetch_depth = max(2, min(self.num_workers, 4))
         if self.num_workers and hasattr(self.dataset, "set_io_threads"):
@@ -581,11 +586,16 @@ class PMDLoader:
 
     def _host_read(self, frames, out: torch.Tensor, label: Optional[str] = None) -> torch.Tensor:
         """``_read_into`` inside a ``loader.host_read`` span; for the pass
-        ``label`` its seconds and bytes count into ``transfers``."""
+        ``label`` its seconds, bytes, and whether the dataset split it over
+        threads count into ``transfers``."""
         with span(self.transfers, _pass_key(label, "host_read_s"), "loader.host_read"):
             self._read_into(frames, out)
         if label:
+            threads = getattr(self.dataset, "read_threads", None)
+            split = threads is not None and threads(out.shape[0]) > 1
             count(self.transfers, f"{label}.host_read_bytes", out.numel() * out.element_size())
+            count(self.transfers, f"{label}.host_reads", 1)
+            count(self.transfers, f"{label}.host_read_split", int(split))
         return out
 
     def _read_into(self, frames, out: torch.Tensor) -> torch.Tensor:

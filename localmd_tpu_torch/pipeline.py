@@ -247,7 +247,8 @@ def localmd_decomposition(
     The signature is the JAX package's (pipeline.py:139-172) plus
     ``device``. ``dataset_obj`` is an array, a tensor, a path (.tif/.tiff/
     .npy) or a dataset object. ``num_workers`` sets the prefetch depth and
-    the native reader's threads; ``cache_movie`` ("auto", True or False)
+    the dataset's read threads: the native reader's, or the copy threads of
+    an in-memory array's reads; ``cache_movie`` ("auto", True or False)
     the device movie cache; ``checkpoint_path`` stage checkpoints.
     ``dtype`` and ``pixel_batch_size`` go to ``PMDLoader`` as in the JAX
     package (pipeline.py:503-509): ``dtype`` is the dtype of the loader's
@@ -299,7 +300,9 @@ def localmd_decomposition(
     pass ``<pass>`` of ``stats``, ``crop``, ``background`` and ``vreg``
     that read from a host source: ``<pass>.host_read_s`` and
     ``<pass>.host_read_bytes``, the reads from the dataset into host
-    memory, ``<pass>.slot_wait_s``, the waits for a pinned slot's previous
+    memory, ``<pass>.host_reads`` and ``<pass>.host_read_split``, their
+    count and those split over the dataset's threads,
+    ``<pass>.slot_wait_s``, the waits for a pinned slot's previous
     copy, and ``<pass>.chunk_wait_s``, the caller's waits for a prefetched
     chunk; while the profiler runs, ``vreg.layout_s``, the device seconds
     of the cell route's layout copy), and the JAX package's

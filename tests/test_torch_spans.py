@@ -1,6 +1,6 @@
 """The port's program spans and counters (``utils.logging.span``,
 ``DeviceSpans``): the loader's per-pass read and wait counters in
-``pipeline_cache``, the ``localmd.<stage>`` spans, the cell route's
+``pipeline_cache`` (reads split over ``NumpyArray``'s copy threads too), the ``localmd.<stage>`` spans, the cell route's
 ``vreg.layout`` span in the torch profiler's trace, and nothing of either
 with the profiler off.
 
@@ -19,13 +19,15 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from localmd_tpu_torch import blocksparse, localmd_decomposition
+from localmd_tpu_torch import dataset as port_dataset
 from localmd_tpu_torch.dataset import NumpyArray
 from localmd_tpu_torch.pipeline import STAGES
 from localmd_tpu_torch.utils import logging as port_logging
 
 SETTINGS = dict(block_sizes=(16, 16), frame_range=300, max_components=4, background_rank=1,
                 sim_iters=10, seed=0)
-PASS_KEYS = ("host_read_s", "host_read_bytes", "slot_wait_s", "chunk_wait_s")
+PASS_KEYS = ("host_read_s", "host_read_bytes", "host_reads", "host_read_split", "slot_wait_s",
+             "chunk_wait_s")
 
 
 def _movie(t=600, d1=32, d2=32):
@@ -81,6 +83,68 @@ def test_device_resident_source_counts_nothing(movie, cell_route):
             assert f"{stage}.{key}" not in cache
     assert "vreg.layout_s" not in cache
     assert len(pmd.pipeline_timings) == 6
+
+
+class _CountingArray(NumpyArray):
+    """A ``NumpyArray`` whose ``read_into`` counts the bytes it hands out
+    through ``super()``, as the benchmark's dataset does."""
+
+    def __init__(self, array):
+        super().__init__(array)
+        self._lock = threading.Lock()
+        self.bytes_read = 0
+
+    def read_into(self, frames, out):
+        got = super().read_into(frames, out)
+        with self._lock:
+            self.bytes_read += out.nbytes
+        return got
+
+
+@pytest.fixture(scope="module")
+def split_reads(movie):
+    """Two calls with the copy threads' split size cut to 4 KiB: the
+    counting subclass at ``num_workers=4`` with the movie cached (the
+    statistics pass reads the movie once, as the benchmark's stream cell
+    does), and a plain ``NumpyArray`` at ``num_workers=1``."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(port_dataset, "READ_SPLIT_BYTES", 1 << 12)
+        counted = _CountingArray(movie)
+        four = _call(counted, num_workers=4, cache_movie=True).pipeline_cache
+        one = _call(NumpyArray(movie), num_workers=1).pipeline_cache
+    return dict(four=four, one=one, bytes_read=counted.bytes_read)
+
+
+def _split_four_workers(runs, movie):
+    cache = runs["four"]
+    assert cache["stats.host_reads"] >= 1
+    assert cache["stats.host_read_split"] == cache["stats.host_reads"]
+    assert cache["stats.host_read_bytes"] == movie.nbytes
+
+
+def _split_one_worker(runs, movie):
+    cache = runs["one"]
+    assert cache["stats.host_reads"] >= 1
+    assert cache["stats.host_read_split"] == 0 and cache["vreg.host_read_split"] == 0
+    assert cache["stats.host_read_bytes"] == cache["vreg.host_read_bytes"] == movie.nbytes
+
+
+def _split_counted_once(runs, movie):
+    assert runs["bytes_read"] == movie.nbytes
+    assert not [k for k in runs["four"] if k.startswith(("vreg.host", "crop.host"))]
+
+
+SPLIT_CASES = {"four_workers": _split_four_workers, "one_worker": _split_one_worker,
+               "counted_once": _split_counted_once}
+
+
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_split_host_reads_are_counted(split_reads, movie, case):
+    """``<pass>.host_read_split`` counts the reads ``NumpyArray`` copied on
+    more than one thread: every statistics read at ``num_workers=4``, none
+    at 1; the bytes stay the movie's, and a subclass that counts in
+    ``read_into`` through ``super()`` counts them once."""
+    SPLIT_CASES[case](split_reads, movie)
 
 
 def _threads_by_span(events) -> dict:

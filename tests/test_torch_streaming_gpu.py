@@ -1,6 +1,6 @@
 """Streaming on the card: the loader's pinned ring and copy stream, the
 device movie cache and device slicing, against the same movie resident on
-the card.
+the card; an in-memory movie's copy threads against one thread.
 
 Marked ``gpu``; each test skips (in a fixture, not at import) unless
 ``torch.cuda.is_available()``. Run on a machine with the card:
@@ -187,6 +187,39 @@ def test_pipeline_from_file_equals_resident_and_slices(cuda, files):
         got, want = on_disk[key], on_disk._getitem_host(key).squeeze()
         assert np.linalg.norm(got - want) <= 1e-5 * np.linalg.norm(want)
     assert on_disk.slice_device(slice(0, 3)).is_cuda
+
+
+def test_copy_threads_equal_one_thread_through_the_ring(cuda):
+    """A 512²×2048 uint16 movie in host memory, every pass streamed through
+    the pinned ring (no cache): ``num_workers=4`` splits each 256 MiB piece's
+    copy over four threads and gives the bits and byte counts of
+    ``num_workers=1``'s single copy."""
+    from localmd_tpu_torch import NumpyArray, localmd_decomposition
+
+    g = torch.Generator(cuda).manual_seed(1)
+    t, d = 2048, 512 * 512
+    low = torch.randn(d, 3, generator=g, device=cuda) @ torch.randn(3, t, generator=g, device=cuda)
+    noisy = low.T * 30 + 500 + 10 * torch.randn(t, d, generator=g, device=cuda)
+    movie = noisy.round().clamp(0, 65535).to(torch.int32).to(torch.uint16).reshape(t, 512, 512)
+    movie = movie.cpu().numpy()
+    del low, noisy
+    kw = dict(frame_range=2048, max_components=10, background_rank=1, sim_iters=10, seed=0,
+              cache_movie=False, device=cuda)
+    runs = {n: localmd_decomposition(NumpyArray(movie), (32, 32), num_workers=n, **kw)
+            for n in (1, 4)}
+    one, four = runs[1], runs[4]
+    np.testing.assert_array_equal(np.asarray(four.mean_img), np.asarray(one.mean_img))
+    np.testing.assert_array_equal(np.asarray(four.var_img), np.asarray(one.var_img))
+    counts = [k for k in one.pipeline_cache
+              if k.endswith(("_bytes", "_copies", ".host_reads")) or k == "cached_frames"]
+    assert {"stats.host_read_bytes", "vreg.host_read_bytes", "pinned_bytes"} <= set(counts)
+    assert {k: four.pipeline_cache[k] for k in counts} == {k: one.pipeline_cache[k] for k in counts}
+    assert one.pipeline_cache["stats.host_read_bytes"] == movie.nbytes
+    for name in ("stats", "vreg"):
+        reads = one.pipeline_cache[f"{name}.host_reads"]
+        assert reads >= 4
+        assert one.pipeline_cache[f"{name}.host_read_split"] == 0
+        assert four.pipeline_cache[f"{name}.host_read_split"] == reads
 
 
 def test_checkpoint_resume_and_planes_on_the_card(cuda, files, tmp_path):

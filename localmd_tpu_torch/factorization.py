@@ -72,6 +72,14 @@ def _gram_quadratic_mesh(u: BlockSparseMatrix, right: torch.Tensor, mesh,
                                   coset_info=u.coset_info, block_shape=u.block_shape)
 
 
+def gram_is_banded(u, v: torch.Tensor, mesh=None) -> bool:
+    """Whether ``compute_lowrank_factorized_svd(u, v, mesh=mesh)`` forms its
+    Gram quadratic form in the banded form (else Z^T Z, column-chunked or
+    split over the mesh)."""
+    m = min(u.shape[1], v.shape[1])  # the columns of its ``right``
+    return mesh is None and isinstance(u, BlockSparseMatrix) and u.banded_gram_ready(m)
+
+
 def eigh_plan(m: int, k: int) -> Tuple[str, int]:
     """("subspace", k_sketch) or ("full", k_sketch) for an (m, m) Gram of
     rank <= k (factorization.py:96-112)."""

@@ -47,7 +47,12 @@ streamed V regression, host->device streaming and the device movie cache
   thread (its ``read_threads``). Chunks the cache or a device-resident
   movie serve read nothing and count nothing. While the profiler runs, the
   cell route's layout copy is the device span ``vreg.layout``
-  (``PMDLoader.vreg_layout``, settled into ``vreg.layout_s``).
+  (``PMDLoader.vreg_layout``, settled into ``vreg.layout_s``) and each K2
+  call the device span ``vreg.k2`` (``PMDLoader.vreg_k2``, settled into
+  ``vreg.k2_s``). The V regression always counts its chunks per route,
+  ``vreg.k2_calls`` and ``vreg.cell_calls``, and on the K2 route the
+  projector's width r' (``vreg.k2_width``) and the frames K2 read
+  (``vreg.k2_frames``).
 """
 
 from __future__ import annotations
@@ -518,6 +523,8 @@ class PMDLoader:
         # settles it after its fence (``vreg.layout_s``)
         self.vreg_layout = DeviceSpans(self.transfers, "vreg.layout_s", "vreg.layout",
                                        self.device)
+        # each K2 call of the V regression, likewise (``vreg.k2_s``)
+        self.vreg_k2 = DeviceSpans(self.transfers, "vreg.k2_s", "vreg.k2", self.device)
         # fired once, as hook(loader, cache_target_frames), when the
         # statistics pass has planned and allocated the movie cache and
         # before it reads its first chunk (loader.py:491-494), so a caller can
@@ -1000,13 +1007,19 @@ class PMDLoader:
         chunk is one K2 call. With a mesh each rank streams its stripe of
         frames and the stripes are gathered, so every rank returns the whole
         V (loader.py:1070-1227). On the cell route each tile's layout copy is
-        a ``vreg_layout`` span; the caller settles it after its fence."""
+        a ``vreg_layout`` span, on the K2 route each K2 call a ``vreg_k2``
+        span; the caller settles both after its fence. Each chunk counts
+        into ``vreg.cell_calls`` or ``vreg.k2_calls``; the K2 route also
+        sets ``vreg.k2_width`` (r') and counts ``vreg.k2_frames``."""
         d1, d2 = self.shape[1], self.shape[2]
+        for key in ("vreg.k2_calls", "vreg.cell_calls"):
+            count(self.transfers, key, 0)
         if blocksparse.coset_vproj_eligible(u):
             m_cell, q = self.prepare_vproj_cells(u)
             n1, n2, h1, h2 = u.cell_geom
 
             def project(raw):
+                count(self.transfers, "vreg.cell_calls", 1)
                 return blocksparse.coset_vproj_chunk(m_cell, q, p, raw, n1, n2, h1, h2, u.slots,
                                                      self.vreg_layout.span)
 
@@ -1021,9 +1034,14 @@ class PMDLoader:
             del a, a_tilde
             # K2's layout of the projector, made once for every chunk
             prepared = kernels.prepare_projector(a_c) if a_c.is_cuda else None
+            self.transfers["vreg.k2_width"] = int(a_c.shape[1])
 
             def project(raw):
-                return kernels.v_projection(raw.reshape(raw.shape[0], d1 * d2), a_c, c, prepared)
+                count(self.transfers, "vreg.k2_calls", 1)
+                count(self.transfers, "vreg.k2_frames", int(raw.shape[0]))
+                with self.vreg_k2.span():
+                    return kernels.v_projection(raw.reshape(raw.shape[0], d1 * d2), a_c, c,
+                                                prepared)
 
         results = []
         chunks = self._take_v_prefetch() or self._iter_raw_chunks(host_partition="frames",

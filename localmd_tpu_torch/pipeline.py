@@ -71,6 +71,7 @@ from localmd_tpu_torch.engine import (
 from localmd_tpu_torch.factorization import (
     compute_lowrank_factorized_svd,
     final_svd_reformat,
+    gram_is_banded,
 )
 from localmd_tpu_torch.loader import PMDLoader
 from localmd_tpu_torch.ops.linalg import DEFAULT_OVERSAMPLES
@@ -304,8 +305,15 @@ def localmd_decomposition(
     count and those split over the dataset's threads,
     ``<pass>.slot_wait_s``, the waits for a pinned slot's previous
     copy, and ``<pass>.chunk_wait_s``, the caller's waits for a prefetched
-    chunk; while the profiler runs, ``vreg.layout_s``, the device seconds
-    of the cell route's layout copy), and the JAX package's
+    chunk; the V regression's chunks per route, ``vreg.k2_calls`` and
+    ``vreg.cell_calls``, and on the K2 route the projector's width
+    ``vreg.k2_width`` and the frames ``vreg.k2_frames``; while the profiler
+    runs, ``vreg.layout_s`` and ``vreg.k2_s``, the device seconds of the
+    cell route's layout copy and of the K2 calls; ``fsvd.banded``, 1 where
+    the factorized SVD's Gram took the banded form and 0 where it took the
+    canvas (or was resumed); ``blocks.remainder``, the blocks the coset
+    block stage left off its lattices to the gathered batches, 0 without
+    the coset stage), and the JAX package's
     ``pipeline_aot`` and ``pipeline_warm`` as it reports them with its
     warms off (pipeline.py:1404-1415).
     """
@@ -498,6 +506,8 @@ def _decompose(
         wl_eff = effective_window_length(window_len, crop_avg_constant, temporal_avg_factor)
         n_windows, sketch_frames = window_count(crop_avg_constant, wl_eff), wl_eff
     windows_run: list = []
+    # blocks the coset stage left to the gathered batches (``blocks.remainder``)
+    remainder_blocks = 0
     blocks_ckpt = ckpt.has("blocks")
     if blocks_ckpt:
         display("Resuming: blockwise decomposition loaded from checkpoint")
@@ -615,6 +625,7 @@ def _decompose(
             parts.append((ids, acc, cnt, v_fit))
             # the blocks off the lattices (a snapped tail): one gathered batch
             missing = remainder
+            remainder_blocks = int(remainder.size)
         # one upload: a copy from pageable memory waits for the stream, and
         # one per batch would stall the host between batches
         missing_dev = torch.as_tensor(missing, device=dev)
@@ -672,8 +683,11 @@ def _decompose(
 
     # -- factorized SVD / rank prune ----------------------------------------
     k_bg = u.dense_basis.shape[1]
+    # the Gram's form (``fsvd.banded``): 0 where the projector is resumed
+    fsvd_banded = 0
 
     def _compute_projector():
+        nonlocal fsvd_banded
         if ckpt.has("projector"):
             display("Resuming: mixing matrix loaded from checkpoint")
             return torch.as_tensor(ckpt.load("projector")["p"], device=dev)
@@ -688,9 +702,10 @@ def _decompose(
             target_v = v_cropped
         # with more than one rank every rank holds the gathered panels and
         # the Gram runs whole on each (pipeline.py:1294-1301)
+        fsvd_mesh = mesh if world == 1 else None
+        fsvd_banded = int(gram_is_banded(u, target_v, fsvd_mesh))
         p_ = compute_lowrank_factorized_svd(
-            u, target_v, only_left=True, mesh=mesh if world == 1 else None,
-            expected_rank=total_rank + k_bg,
+            u, target_v, only_left=True, mesh=fsvd_mesh, expected_rank=total_rank + k_bg,
         )
         ckpt.save("projector", p=p_)
         return p_
@@ -716,6 +731,7 @@ def _decompose(
                 v = load_obj.v_projection(u, p)
             _mark("v_regression")
             load_obj.vreg_layout.settle()
+            load_obj.vreg_k2.settle()
             display("Final SVD reformat")
             r, s_vals, vt, s_keep = final_svd_reformat(p, v, rel_tol=final_rank_tol)
             break
@@ -750,6 +766,8 @@ def _decompose(
         "total_frames": int(t_total),
         **load_obj.transfers,
         "stream_dtype": str(load_obj.stream_dtype).removeprefix("torch."),
+        "fsvd.banded": fsvd_banded,
+        "blocks.remainder": remainder_blocks,
     }
     out.pipeline_aot = {"enabled": False, "used": False}
     out.pipeline_warm = {"completed": [], "errors": {}}

@@ -407,6 +407,18 @@ def test_pipeline_routes_on_match_routes_off(golden_routes):
     np.testing.assert_allclose(rec_on / scale, rec_off / scale, atol=5e-4)
 
 
+@pytest.mark.parametrize("on", [True, False])
+def test_route_counters_follow_the_routes(golden_routes, on):
+    """``pipeline_cache``'s route counters on a regular grid: with every
+    route on (the card's reading of such a grid) the cell route, the banded
+    Gram and no block off the lattices; with them off K2 and the canvas."""
+    _, out = golden_routes
+    cache = out[on][0].pipeline_cache
+    assert (cache["vreg.cell_calls"] >= 1) == on and (cache["vreg.k2_calls"] >= 1) != on
+    assert cache["fsvd.banded"] == int(on)
+    assert cache["blocks.remainder"] == 0
+
+
 # -- (g) ineligible cases take the gather and canvas forms -------------------
 
 

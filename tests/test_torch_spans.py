@@ -1,8 +1,10 @@
 """The port's program spans and counters (``utils.logging.span``,
 ``DeviceSpans``): the loader's per-pass read and wait counters in
 ``pipeline_cache`` (reads split over ``NumpyArray``'s copy threads too), the ``localmd.<stage>`` spans, the cell route's
-``vreg.layout`` span in the torch profiler's trace, and nothing of either
-with the profiler off.
+``vreg.layout`` span and the K2 route's ``vreg.k2`` span in the torch
+profiler's trace, the route counters (``vreg.k2_calls``, ``vreg.cell_calls``,
+``vreg.k2_width``, ``vreg.k2_frames``, ``fsvd.banded``,
+``blocks.remainder``), and no span or device counter with the profiler off.
 
 CPU tests, but for one case marked ``gpu`` that skips (in a fixture, not at
 import) unless ``torch.cuda.is_available()``. Run it on a machine with the
@@ -129,13 +131,25 @@ def _split_one_worker(runs, movie):
     assert cache["stats.host_read_bytes"] == cache["vreg.host_read_bytes"] == movie.nbytes
 
 
+def _split_k2_route_counters(runs, movie):
+    # the K2 route with the profiler off: its chunks, width and frames are
+    # counted, its device seconds are not; the canvas Gram (the card's
+    # routes are off on the CPU) and no coset stage
+    cache = runs["one"]
+    assert "vreg.k2_s" not in cache
+    assert cache["vreg.k2_calls"] >= 1 and cache["vreg.cell_calls"] == 0
+    assert cache["vreg.k2_frames"] == movie.shape[0]
+    assert cache["vreg.k2_width"] >= 1
+    assert cache["fsvd.banded"] == 0 and cache["blocks.remainder"] == 0
+
+
 def _split_counted_once(runs, movie):
     assert runs["bytes_read"] == movie.nbytes
     assert not [k for k in runs["four"] if k.startswith(("vreg.host", "crop.host"))]
 
 
 SPLIT_CASES = {"four_workers": _split_four_workers, "one_worker": _split_one_worker,
-               "counted_once": _split_counted_once}
+               "counted_once": _split_counted_once, "k2_route_counters": _split_k2_route_counters}
 
 
 @pytest.mark.parametrize("case", list(SPLIT_CASES))
@@ -183,6 +197,43 @@ def test_spans_land_in_the_profilers_trace(movie, cell_route, tmp_path, how):
         assert spans["loader.host_read"] - {caller}, spans["loader.host_read"]
     assert pmd.pipeline_cache["vreg.layout_s"] > 0
     assert pmd.pipeline_cache["stats.host_read_bytes"] == movie.nbytes
+    # the cell route counts its chunks and records nothing of K2's
+    assert "vreg.k2" not in spans
+    cache = pmd.pipeline_cache
+    assert not {"vreg.k2_s", "vreg.k2_width", "vreg.k2_frames"} & set(cache)
+    assert cache["vreg.k2_calls"] == 0 and cache["vreg.cell_calls"] >= 1
+
+
+@pytest.fixture(scope="module")
+def k2_profiled(movie):
+    """One call on the K2 route (the CPU's default: the card's routes are
+    off there) under the profiler: (cache, spans)."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        cache = _call(NumpyArray(movie)).pipeline_cache
+    return cache, _threads_by_span((e.name(), e.start_thread_id())
+                                   for e in prof.profiler.kineto_results.events())
+
+
+def _k2_span(run, movie):
+    cache, spans = run
+    assert spans["vreg.k2"] == spans["localmd.v_regression"]      # the caller's thread
+    assert 0 < cache["vreg.k2_s"]
+
+
+def _k2_no_layout(run, movie):
+    cache, spans = run
+    assert "vreg.layout" not in spans and "vreg.layout_s" not in cache
+    assert cache["vreg.k2_calls"] >= 1 and cache["vreg.cell_calls"] == 0
+
+
+K2_CASES = {"span": _k2_span, "no_layout": _k2_no_layout}
+
+
+@pytest.mark.parametrize("case", list(K2_CASES))
+def test_k2_span_lands_in_the_profilers_trace(k2_profiled, movie, case):
+    """On the K2 route each K2 call is a ``vreg.k2`` span on the caller's
+    thread, settled into ``vreg.k2_s``; the cell route's span is absent."""
+    K2_CASES[case](k2_profiled, movie)
 
 
 def test_profiler_off_enters_no_profiler_range(movie, cell_route, monkeypatch):

@@ -508,6 +508,21 @@ def phase_kernels(results: dict) -> None:
     log_bound("K2 (256, 1048576) uint16", ms,
               bound(2.0 * 256 * (1 << 20) * 168, 256 * (1 << 20) * 2 + (1 << 20) * 168 * 4 + 168 * 256 * 4, True))
     del raw, a, prepared
+    # the widefield cell's chunk: 4000 frames of 640 x 540 uint16, r' = 1650
+    t_w, d_w, r_w = 4000, 640 * 540, 1650
+    raw = (torch.randn(t_w, d_w, generator=g, device=dev) * 40 + 1000).clamp(0, 65535).to(torch.uint16)
+    a = torch.randn(d_w, r_w, generator=g, device=dev) * 0.01
+    c = torch.randn(r_w, generator=g, device=dev)
+    check_k2(f"uint16 ({t_w}, {d_w}) r'={r_w} (widefield chunk)", raw, a, c)
+    prepared = kernels.prepare_projector(a)
+    ms = cuda_ms(lambda: kernels.v_projection(raw, a, c, prepared), reps=5)
+    prep_ms = cuda_ms(lambda: kernels.prepare_projector(a), reps=3)
+    log(f"  K2 ({t_w}, {d_w}) uint16 r'={r_w}, projector prepared once: kernel {ms:.3f} ms; "
+        f"the projector's preparation {prep_ms:.3f} ms")
+    log_bound(f"K2 ({t_w}, {d_w}) uint16", ms,
+              bound(2.0 * t_w * d_w * r_w, t_w * d_w * 2 + d_w * r_w * 4 + r_w * t_w * 4, True))
+    del raw, a, prepared
+    torch.cuda.empty_cache()
     # the main path's call: the whole 2048-frame movie as one chunk, r' = 336
     raw = torch.randn(2048, d, generator=g, device=dev)
     a = torch.randn(d, 336, generator=g, device=dev) * 0.01

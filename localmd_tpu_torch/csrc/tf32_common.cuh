@@ -1,8 +1,7 @@
 // Shared pieces of the three 3xTF32 tensor-core kernels (K1 movie_stats.cu,
 // K2 v_projection.cu, K3 block_reconstruct.cu): the fp32 -> (hi, lo) tf32
 // split, the movie dtypes K1 and K2 read with their exact conversions to
-// float (Elem), cp.async with zero fill, and the swizzle of K2's float32
-// raw tile.
+// float (Elem) and cp.async with zero fill.
 // The warpgroup multiply itself is in wgmma_tf32.cuh.
 //
 // 3xTF32. Hopper's tensor cores have no IEEE-fp32 mode; TF32 keeps 10
@@ -20,12 +19,14 @@
 // float32 kernel's on the same values.
 //
 // Fragment order. A k8 step sums over k = 0..7; a thread (group g =
-// lane / 4, t = lane % 4) supplies A at k = t and t + 4. Both kernels feed
-// it the pair of adjacent samples 2t, 2t + 1 of the step instead, and
-// store their shared-memory B operand's k in the same order (0, 2, 4, 6,
-// 1, 3, 5, 7: a permutation of k applied to both operands, so the sum is
-// the same), which lets a thread read its A pair with one 64-bit (float32)
-// or 32-bit (uint16) shared load.
+// lane / 4, t = lane % 4) supplies A at k = t and t + 4. K1 feeds it the
+// pair of adjacent samples 2t, 2t + 1 of the step instead, and stores its
+// shared-memory B operand's k in the same order (0, 2, 4, 6, 1, 3, 5, 7: a
+// permutation of k applied to both operands, so the sum is the same),
+// which lets a thread read its A pair with one 64-bit (float32) or 32-bit
+// (uint16) shared load. K2 takes samples t and t + 4 as they are: its
+// tile is laid out by the TMA's swizzle, under which that order is free
+// of bank conflicts (v_projection.cuh).
 
 #pragma once
 
@@ -41,6 +42,12 @@ namespace lmd {
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
   hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
   lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// x with its low 13 mantissa bits cleared: the tf32 value a tensor core
+// reads from x's register or shared-memory word
+__device__ __forceinline__ float tf32_truncate(float x) {
+  return __uint_as_float(__float_as_uint(x) & 0xffffe000u);
 }
 
 // exact uint16 (or uint8) -> float with one OR and one FADD (2^23 + u - 2^23)
@@ -155,20 +162,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// K2's float32 raw tile (rows of 32 samples) is stored without padding,
-// its eight 16-byte chunks permuted per row so that the 64-bit fragment
-// loads of one k8 step hit 32 distinct banks: chunk c of row m lands at
-// chunk swz_chunk(m, c). Rows m and m + 1..3 then hold the same k8 step in
-// different 8-word bank groups.
-__device__ __forceinline__ int swz_chunk(int m, int c) {
-  return ((((c >> 1) ^ m) & 3) << 1) | (c & 1);
-}
-
-// the pair (k8 step s, samples 2t, 2t + 1) of row m, as a float offset
-__device__ __forceinline__ int swz_pair(int m, int s, int t) {
-  return m * 32 + (((s ^ m) & 3) << 3) + 2 * t;
 }
 
 }  // namespace lmd

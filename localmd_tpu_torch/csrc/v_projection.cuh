@@ -1,307 +1,479 @@
-// K2's templates (v_projection.cu has the design): the raw tile layouts, the
-// 3xTF32 wgmma kernel over one (128, 16 NT) output tile, and the dispatch
-// over NT = 1..11 for one movie dtype. Each dtype instantiates them in a
-// translation unit of its own (v_projection_<dtype>.cu), so the eleven
-// tile widths of the seven dtypes compile in seven nvcc processes at once;
-// v_projection.cu holds the entry points, which call the dtypes' dispatch
-// functions declared at the end of this header.
+// K2's templates (v_projection.cu has the design): the raw tile as the
+// Tensor Memory Accelerator stores it, the warp-specialised 3xTF32 wgmma
+// kernel over (128, BN) output tiles, and its launch over the eleven tile
+// widths BN of VP_WIDTHS for one movie dtype. Each dtype instantiates them
+// in a translation unit of its own (v_projection_<dtype>.cu), so the
+// eleven tile widths of the seven
+// dtypes compile in seven nvcc processes at once; v_projection.cu holds the
+// entry points, which call the dtypes' dispatch functions declared at the
+// end of this header.
 
 #pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums only: the encoder is fetched at run time
 
 #include "tf32_common.cuh"
 #include "wgmma_tf32.cuh"
 
 namespace {
 
-constexpr int BM = 128;     // t rows per CTA
-constexpr int BK = 32;      // pixels per slab
-constexpr int STAGES = 3;
-constexpr int THREADS = 256;
+constexpr int BM = 128;                 // t rows per CTA
+constexpr int BK = 32;                  // pixels per slab
+constexpr int THREADS = 384;            // producer warpgroup + two consumer warpgroups
+constexpr int SMEM_LIMIT = 232448;      // a block's dynamic shared memory on sm_90
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;      // 128 x 40 + 256 x 232 <= 65536
+constexpr int SPLITTERS = 3;            // producer warps that make the slabs' lo
+
+// ---------------------------------------------------------------------------
+// mbarriers and bulk copies, as PTX
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+// this thread's arrival, and `bytes` more that the phase waits for
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+// a (32, 128) box of the raw chunk at (pixel k, row m) into shared memory,
+// swizzled as the map says; rows and pixels past the chunk read as zero
+__device__ __forceinline__ void tma_load_tile(void* dst, const CUtensorMap* map, int k, int m,
+                                              uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(k), "r"(m)
+      : "memory");
+}
+// `bytes` contiguous bytes into shared memory
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// the raw tile
+// ---------------------------------------------------------------------------
 
 // A (128, 32) raw tile in shared memory, in the dtype's own bits
-// (tf32_common.cuh's Elem), by its width: Raw float, uint16_t or uint8_t.
-template <typename Raw>
-struct RawLayout;
-
-// float32 rows: 32 floats = 8 chunks of 4, swizzled like the B tiles
-template <>
-struct RawLayout<float> {
-  static constexpr int kChunks = 8;
-  __device__ static int chunk_offset(int m, int c) {  // in elements
-    return m * BK + lmd::swz_chunk(m, c) * 4;
-  }
-  // the pair (samples 2t, 2t + 1 of k8 step s) of row m, as stored
-  __device__ static float2 pair_bits(const float* tile, int m, int s, int t) {
-    return *reinterpret_cast<const float2*>(tile + lmd::swz_pair(m, s, t));
-  }
-};
-
-// 2-byte rows: 32 values = 4 chunks of 8 (one k8 step each), group s of
-// row m at chunk s ^ ((m >> 1) & 3); a pair is one 32-bit load
-template <>
-struct RawLayout<uint16_t> {
-  static constexpr int kChunks = 4;
-  __device__ static int chunk_offset(int m, int c) { return m * BK + ((c ^ (m >> 1)) & 3) * 8; }
-  __device__ static uint32_t pair_bits(const uint16_t* tile, int m, int s, int t) {
-    return *reinterpret_cast<const uint32_t*>(tile + m * BK + ((s ^ (m >> 1)) & 3) * 8 + 2 * t);
-  }
-};
-
-// 1-byte rows: 32 values = 2 chunks of 16 (two k8 steps each), chunk c of
-// row m at c ^ ((m >> 2) & 1): rows g and g + 4 of a warp's load, 32 bytes
-// apart per row otherwise, then read distinct banks; a pair is one 16-bit
-// load
-template <>
-struct RawLayout<uint8_t> {
-  static constexpr int kChunks = 2;
-  __device__ static int chunk_offset(int m, int c) { return m * BK + ((c ^ (m >> 2)) & 1) * 16; }
-  __device__ static uint32_t pair_bits(const uint8_t* tile, int m, int s, int t) {
-    return *reinterpret_cast<const uint16_t*>(
-        tile + m * BK + (((s >> 1) ^ (m >> 2)) & 1) * 16 + (s & 1) * 8 + 2 * t);
-  }
-};
-
+// (tf32_common.cuh's Elem), as the TMA writes it: row m at m * RB bytes, RB
+// = 32 values, with the 16-byte chunks of each 128-byte span of the tile
+// permuted by the span's index (CU_TENSOR_MAP_SWIZZLE_{32,64,128}B for RB
+// = 32, 64, 128: address bits [4, 4 + log2(RB / 16)) ^= bits [7, 7 + ...)).
+// A warp's fragment reads (rows g and g + 8 of its 16, samples tq and tq + 4
+// of a k8 step) then hit distinct banks, or share a word.
 template <typename T>
 struct RawTile {
   using E = lmd::Elem<T>;
   using Raw = typename E::Raw;
-  using L = RawLayout<Raw>;
-  static constexpr int kChunkElems = 16 / static_cast<int>(sizeof(Raw));
-  static constexpr int kChunks = L::kChunks;
-  static constexpr int kBytes = BM * BK * static_cast<int>(sizeof(Raw));
-  static_assert(kChunks * kChunkElems == BK, "a row is whole 16-byte chunks");
-  __device__ static int chunk_offset(int m, int c) { return L::chunk_offset(m, c); }
-  // the pair (samples 2t, 2t + 1 of k8 step s) of row m, as exact floats
-  __device__ static void pair(const Raw* tile, int m, int s, int t, float& x0, float& x1) {
-    const auto v = L::pair_bits(tile, m, s, t);
-    if constexpr (sizeof(Raw) == 4) {
-      x0 = v.x;
-      x1 = v.y;
+  static constexpr int kSize = static_cast<int>(sizeof(Raw));
+  static constexpr int kRowBytes = BK * kSize;
+  static constexpr int kBytes = BM * kRowBytes;
+  static constexpr CUtensorMapSwizzle kSwizzle =
+      kSize == 4 ? CU_TENSOR_MAP_SWIZZLE_128B
+                 : (kSize == 2 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B);
+  static constexpr CUtensorMapDataType kType =
+      kSize == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                 : (kSize == 2 ? CU_TENSOR_MAP_DATA_TYPE_UINT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8);
+  // byte offset of sample k of row m
+  __device__ static int offset(int m, int k) {
+    const int o = m * kRowBytes + k * kSize;
+    return o ^ (((o >> 7) & (kRowBytes / 16 - 1)) << 4);
+  }
+  // sample k of row m, as an exact float
+  __device__ static float sample(const unsigned char* tile, int m, int k) {
+    const Raw v = *reinterpret_cast<const Raw*>(tile + offset(m, k));
+    if constexpr (kSize == 4) {
+      return v;
     } else {
-      constexpr int kBits = 8 * static_cast<int>(sizeof(Raw));
-      x0 = E::to_f32(v & ((1u << kBits) - 1u));
-      x1 = E::to_f32(v >> kBits);
+      return E::to_f32(static_cast<uint32_t>(v));
     }
   }
 };
 
+// ---------------------------------------------------------------------------
+// the kernel
+// ---------------------------------------------------------------------------
+
+// Shared memory of one instantiation: a ring of STAGES slabs, each the raw
+// tile, the projector slab as loaded (BN x 32 floats as core matrices: the
+// wgmmas' hi, which they read truncated to tf32) and its lo, and the ring's
+// full, ready and empty barriers. STAGES is what fits.
+template <typename T, int BN>
+struct Ring {
+  static constexpr int kRawBytes = RawTile<T>::kBytes;
+  static constexpr int kSlabFloats = BN * BK;
+  static constexpr int kSlabBytes = kSlabFloats * 4;
+  static constexpr int kStageBytes = kRawBytes + 2 * kSlabBytes;   // a multiple of 1024
+  static constexpr int kStagesFit = (SMEM_LIMIT - 1024 - 256) / kStageBytes;
+  static constexpr int kStages = kStagesFit < 8 ? kStagesFit : 8;
+  static constexpr int kSmem = 1024 + kStages * kStageBytes + 3 * kStages * 8;
+  static_assert(kStages >= 3, "three slabs in flight");
+  static_assert(kStageBytes % 1024 == 0, "each stage on the 128-byte swizzle's period");
+};
+
+// One work unit: a t tile, an r' tile and a pixel split, in that order of
+// speed, so the CTAs working at once share the split's projector slabs and
+// raw rows in L2.
+struct Unit {
+  int m0, n_tile, split, k0, n_slabs;
+};
+
+__device__ __forceinline__ Unit unit_of(int u, int t_tiles, int n_tiles, int d, int k_chunk) {
+  Unit w;
+  const int rest = u / t_tiles;
+  w.m0 = (u % t_tiles) * BM;
+  w.n_tile = rest % n_tiles;
+  w.split = rest / n_tiles;
+  w.k0 = w.split * k_chunk;
+  const int k_end = w.k0 + k_chunk < d ? w.k0 + k_chunk : d;
+  w.n_slabs = (k_end - w.k0 + BK - 1) / BK;
+  return w;
+}
+
+// Partial products of one chunk: ws[split, t, r'] = raw[t, split's pixels]
+// @ A[split's pixels, r'], over units = splits * n_tiles * t_tiles work
+// units, CTA b taking units b, b + gridDim.x, ... bt holds the float32
+// projector per r' tile and slab as core matrices (lmd_projector_t).
+// use_tma: the raw rows and base allow the tensor map; otherwise the
+// splitters load the tile through registers.
 template <typename T, int BN>
 __global__ void __launch_bounds__(THREADS, 1)
-vproj_wgmma_kernel(const typename RawTile<T>::Raw* __restrict__ raw, int t_len, int d,
-                   bool vec_ok, const float* __restrict__ bt, int d_pad, int r, int k_chunk,
-                   float* __restrict__ ws) {
-  using Raw = typename RawTile<T>::Raw;
-  constexpr int ND = BN / 2;          // accumulator registers a thread
-  constexpr int A_BYTES = RawTile<T>::kBytes;
-  constexpr int B_FLOATS = BN * BK;   // one slab of the projector
-  constexpr int STAGE_BYTES = A_BYTES + B_FLOATS * 4;
-  extern __shared__ __align__(128) unsigned char smem[];
-  // after the ring: hi and lo of two slabs, [slab parity][hi, lo]
-  float* split_buf = reinterpret_cast<float*>(smem + STAGES * STAGE_BYTES);
+vproj_wgmma_kernel(const __grid_constant__ CUtensorMap raw_map,
+                   const typename RawTile<T>::Raw* __restrict__ raw, int t_len, int d, int use_tma,
+                   const float* __restrict__ bt, int slabs_total, int r, int n_tiles,
+                   int splits, int k_chunk, float* __restrict__ ws) {
+  using R = Ring<T, BN>;
+  using Tile = RawTile<T>;
+  using Raw = typename Tile::Raw;
+  constexpr int ND = BN / 2;  // accumulator registers a thread, per sum
+  constexpr int S = R::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S * R::kStageBytes);  // the TMA's bytes
+  uint64_t* ready = full + S;                                               // lo made
+  uint64_t* empty = ready + S;                                              // stage read
+  auto stage_ptr = [&](int st) { return smem + st * R::kStageBytes; };
+  auto hi_ptr = [&](int st) { return reinterpret_cast<float*>(stage_ptr(st) + R::kRawBytes); };
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int g = lane >> 2;
-  const int tq = lane & 3;
-  const int wg = warp >> 2;  // warpgroup: rows wg*64 .. +63 of the CTA tile
-  const int wl = warp & 3;   // its warp: rows wg*64 + wl*16 + {g, g + 8}
-  const int n0 = blockIdx.x * BN;
-  const int m0 = blockIdx.y * BM;
-  const long long k_begin = static_cast<long long>(blockIdx.z) * k_chunk;
-  const long long k_end = k_begin + k_chunk < d ? k_begin + k_chunk : d;
-  const int n_slabs = k_begin < k_end ? static_cast<int>((k_end - k_begin + BK - 1) / BK) : 0;
+  const int lane = tid & 31;
+  const int t_tiles = (t_len + BM - 1) / BM;
+  const int units = splits * n_tiles * t_tiles;
 
-  auto stage_a = [&](int st) { return reinterpret_cast<Raw*>(smem + st * STAGE_BYTES); };
-  auto stage_b = [&](int st) {
-    return reinterpret_cast<float*>(smem + st * STAGE_BYTES + A_BYTES);
-  };
-  auto hi_buf = [&](int slab) { return split_buf + (slab & 1) * 2 * B_FLOATS; };
-  auto lo_buf = [&](int slab) { return hi_buf(slab) + B_FLOATS; };
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);            // the loader's arrival (+ the bytes)
+      mbar_init(&ready[s], SPLITTERS);   // each splitter warp
+      mbar_init(&empty[s], 8);           // each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  // one slab: raw rows m0.. (native dtype) and BN rows of the projector;
-  // the projector as core matrices: chunk c (4 k) of row n at
-  // ((n / 8) * 8 + c) * 128 B + (n % 8) * 16 B
-  auto load_slab = [&](int st, int slab) {
-    const long long k0 = k_begin + static_cast<long long>(slab) * BK;
-    Raw* as = stage_a(st);
-    constexpr int CE = RawTile<T>::kChunkElems;
-    constexpr int A_CHUNKS = BM * RawTile<T>::kChunks;
-    for (int i = tid; i < A_CHUNKS; i += THREADS) {
-      const int m = i / RawTile<T>::kChunks;
-      const int c = i % RawTile<T>::kChunks;
-      const long long k = k0 + c * CE;
-      Raw* dst = as + RawTile<T>::chunk_offset(m, c);
-      const bool row_in = m0 + m < t_len;
-      const Raw* src = raw + static_cast<long long>(m0 + m) * d + k;
-      if (vec_ok) {
-        const bool in = row_in && k < k_end;
-        lmd::cp_async16(dst, in ? src : raw, in);
-      } else {
+  if (warp < 4) {
+    // ---------------- producer warpgroup ----------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    int st = 0;
+    uint32_t phase = 0;
+    if (warp == 0) {
+      // the loader: the raw tile (TMA) and the projector slab (one bulk
+      // copy) of each slab, STAGES - 1 ahead of the consumers
+      if (lane != 0) return;
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const Unit w = unit_of(u, t_tiles, n_tiles, d, k_chunk);
+        const float* proj =
+            bt + (static_cast<long long>(w.n_tile) * slabs_total + w.k0 / BK) * R::kSlabFloats;
+        for (int i = 0; i < w.n_slabs; ++i) {
+          mbar_wait(&empty[st], phase ^ 1u);
+          unsigned char* dst = stage_ptr(st);
+          mbar_arrive_expect_tx(&full[st], R::kSlabBytes + (use_tma ? R::kRawBytes : 0));
+          if (use_tma) tma_load_tile(dst, &raw_map, w.k0 + i * BK, w.m0, &full[st]);
+          bulk_load(dst + R::kRawBytes, proj + i * R::kSlabFloats, R::kSlabBytes, &full[st]);
+          if (++st == S) {
+            st = 0;
+            phase ^= 1u;
+          }
+        }
+      }
+      return;
+    }
+    // the splitters: each landed slab's lo = x - (x truncated to tf32),
+    // exact, beside x, whose tf32 truncation the tensor cores read as hi
+    const int sid = tid - 32;  // 0 .. 32 * SPLITTERS - 1
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const Unit w = unit_of(u, t_tiles, n_tiles, d, k_chunk);
+      for (int i = 0; i < w.n_slabs; ++i) {
+        mbar_wait(&full[st], phase);
+        if (!use_tma) {
+          // through registers: rows off the 16-byte chunk or a base off
+          // 16-byte alignment; zeros past the chunk, as the TMA gives
+          unsigned char* dst = stage_ptr(st);
+          const int k = w.k0 + i * BK;
+          for (int e = sid; e < BM * BK; e += 32 * SPLITTERS) {
+            const int m = e / BK, kk = e % BK;
+            const bool in = w.m0 + m < t_len && k + kk < d;
+            *reinterpret_cast<Raw*>(dst + Tile::offset(m, kk)) =
+                in ? raw[static_cast<long long>(w.m0 + m) * d + k + kk] : Raw(0);
+          }
+        }
+        // four loads in flight a thread: the loop waits on shared memory's
+        // latency, which the wgmmas' reads lengthen
+        const float4* hi = reinterpret_cast<const float4*>(hi_ptr(st));
+        float4* lo = reinterpret_cast<float4*>(hi_ptr(st) + R::kSlabFloats);
+        constexpr int N4 = R::kSlabFloats / 4;
+        for (int e0 = sid; e0 < N4; e0 += 4 * 32 * SPLITTERS) {
+          float4 v[4];
 #pragma unroll
-        for (int e = 0; e < CE; ++e) {
-          dst[e] = (row_in && k + e < k_end) ? src[e] : Raw(0);
+          for (int j = 0; j < 4; ++j) {
+            const int e = e0 + j * 32 * SPLITTERS;
+            if (e < N4) v[j] = hi[e];
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int e = e0 + j * 32 * SPLITTERS;
+            if (e < N4) {
+              lo[e] = make_float4(v[j].x - lmd::tf32_truncate(v[j].x),
+                                  v[j].y - lmd::tf32_truncate(v[j].y),
+                                  v[j].z - lmd::tf32_truncate(v[j].z),
+                                  v[j].w - lmd::tf32_truncate(v[j].w));
+            }
+          }
+        }
+        // lo (and a raw tile written here) visible to the wgmmas' proxy
+        lmd::fence_proxy_async_shared();
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&ready[st]);
+        if (++st == S) {
+          st = 0;
+          phase ^= 1u;
         }
       }
     }
-    float* bs = stage_b(st);
-    for (int i = tid; i < BN * 8; i += THREADS) {
-      const int n = i >> 3;
-      const int c = i & 7;
-      lmd::cp_async16(bs + ((n >> 3) * 8 + c) * 32 + (n & 7) * 4,
-                      bt + static_cast<long long>(n0 + n) * d_pad + k0 + c * 4, true);
-    }
-  };
-  // the projector slab in stage st into hi and lo (same layout), for wgmma
-  auto split_slab = [&](int st, int slab) {
-    const float4* src = reinterpret_cast<const float4*>(stage_b(st));
-    float4* hi = reinterpret_cast<float4*>(hi_buf(slab));
-    float4* lo = reinterpret_cast<float4*>(lo_buf(slab));
-    for (int i = tid; i < B_FLOATS / 4; i += THREADS) {
-      const float4 v = src[i];
-      uint32_t h[4], l[4];
-      lmd::split_tf32(v.x, h[0], l[0]);
-      lmd::split_tf32(v.y, h[1], l[1]);
-      lmd::split_tf32(v.z, h[2], l[2]);
-      lmd::split_tf32(v.w, h[3], l[3]);
-      hi[i] = make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]), __uint_as_float(h[2]),
-                          __uint_as_float(h[3]));
-      lo[i] = make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]), __uint_as_float(l[2]),
-                          __uint_as_float(l[3]));
-    }
-  };
+    return;
+  }
 
-  // part: this slab's sums, a wgmma chain of 12 started from zero; acc: the
-  // split's sum, fp32 adds rounded to nearest (the tensor cores truncate
+  // ---------------- consumer warpgroups ----------------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const int cw = warp - 4;                 // 0..7
+  const int wg = cw >> 2;                  // consumer warpgroup 0 or 1
+  const int row = wg * 64 + (cw & 3) * 16 + g;  // and row + 8
+
+  // part: one slab's sums, a wgmma chain of 12 started from zero; acc: the
+  // unit's sum, fp32 adds rounded to nearest (the tensor cores truncate
   // each product's fp32 result, so one chain over 4096 pixels would drift
   // by 2-3e-5)
   float acc[ND], part[ND];
 #pragma unroll
   for (int i = 0; i < ND; ++i) acc[i] = part[i] = 0.0f;
 
-  // the A fragments of slab i's four k8 steps: rows g and g + 8 of this
-  // warp's 16, samples 2t and 2t + 1 of the step (logical k = t and t + 4;
-  // the wrapper stores the projector's k in the same order)
+  // the A fragments of a slab's four k8 steps: rows row and row + 8,
+  // samples tq and tq + 4 of the step
   uint32_t ahi[BK / 8][4], alo[BK / 8][4];
-  auto prepare = [&](int i) {
-    const Raw* as = stage_a(i % STAGES);
-    const int m = wg * 64 + wl * 16 + g;
+  auto prepare = [&](int st, int s) {
+    const unsigned char* tile = stage_ptr(st);
+    const int k = 8 * s + tq;
+    lmd::split_tf32(Tile::sample(tile, row, k), ahi[s][0], alo[s][0]);
+    lmd::split_tf32(Tile::sample(tile, row + 8, k), ahi[s][1], alo[s][1]);
+    lmd::split_tf32(Tile::sample(tile, row, k + 4), ahi[s][2], alo[s][2]);
+    lmd::split_tf32(Tile::sample(tile, row + 8, k + 4), ahi[s][3], alo[s][3]);
+  };
+  auto fence_a = [&](int s) {
 #pragma unroll
-    for (int s = 0; s < BK / 8; ++s) {
-      float x0, x1, y0, y1;
-      RawTile<T>::pair(as, m, s, tq, x0, x1);
-      RawTile<T>::pair(as, m + 8, s, tq, y0, y1);
-      lmd::split_tf32(x0, ahi[s][0], alo[s][0]);
-      lmd::split_tf32(y0, ahi[s][1], alo[s][1]);
-      lmd::split_tf32(x1, ahi[s][2], alo[s][2]);
-      lmd::split_tf32(y1, ahi[s][3], alo[s][3]);
+    for (int q = 0; q < 4; ++q) {
+      lmd::fence_operand(ahi[s][q]);
+      lmd::fence_operand(alo[s][q]);
     }
   };
-
+  // lo*hi, hi*lo, hi*hi of k8 steps s0 and s0 + 1: core matrices 2s and
+  // 2s + 1 along K
+  auto products = [&](const float* bh, const float* bl, int s0) {
 #pragma unroll
-  for (int st = 0; st < STAGES - 1; ++st) {
-    if (st < n_slabs) load_slab(st, st);
-    lmd::cp_async_commit();
-  }
-  lmd::cp_async_wait<STAGES - 2>();
-  __syncthreads();
-  if (n_slabs > 0) {
-    split_slab(0, 0);
-    prepare(0);
-  }
-
-  for (int it = 0; it < n_slabs; ++it) {
-    // slab it + 1 has landed; slab it's hi/lo and A fragments are made;
-    // iteration it - 1 is done with its stage and with the hi/lo buffers
-    // of parity it + 1
-    lmd::cp_async_wait<STAGES - 3>();
-    lmd::fence_proxy_async_shared();
-    __syncthreads();
-    if (it + STAGES - 1 < n_slabs) load_slab((it + STAGES - 1) % STAGES, it + STAGES - 1);
-    lmd::cp_async_commit();
-
-#pragma unroll
-    for (int i = 0; i < ND; ++i) lmd::fence_operand(part[i]);
-    lmd::wgmma_fence();
-    const float* bh = hi_buf(it);
-    const float* bl = lo_buf(it);
-#pragma unroll
-    for (int s = 0; s < BK / 8; ++s) {
-      // k8 step s: core matrices 2s and 2s + 1 along K
+    for (int s = s0; s < s0 + 2; ++s) {
       const uint64_t dh = lmd::smem_desc(bh + 2 * s * 32, 128, 1024);
       const uint64_t dl = lmd::smem_desc(bl + 2 * s * 32, 128, 1024);
       lmd::Wgmma<BN>::run(part, alo[s], dh, s > 0 ? 1 : 0);
       lmd::Wgmma<BN>::run(part, ahi[s], dl, 1);
       lmd::Wgmma<BN>::run(part, ahi[s], dh, 1);
     }
-    lmd::wgmma_commit();
-    lmd::wgmma_wait_all();
+  };
+  int st = 0;
+  uint32_t phase = 0;
+  // a raw tile is there once the TMA's bytes are, or, loaded through
+  // registers, once the splitters are done with its stage
+  auto wait_raw = [&](int st, uint32_t phase) {
+    mbar_wait(&full[st], phase);
+    if (!use_tma) mbar_wait(&ready[st], phase);
+  };
+  wait_raw(0, 0);
 #pragma unroll
-    for (int s = 0; s < BK / 8; ++s)
+  for (int s = 0; s < BK / 8; ++s) prepare(0, s);
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const Unit w = unit_of(u, t_tiles, n_tiles, d, k_chunk);
+    for (int i = 0; i < w.n_slabs; ++i) {
+      const float* bh = hi_ptr(st);
+      const float* bl = bh + R::kSlabFloats;
+      const bool more = i + 1 < w.n_slabs || u + static_cast<int>(gridDim.x) < units;
+      mbar_wait(&ready[st], phase);  // its lo made: its hi landed before (full)
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        lmd::fence_operand(ahi[s][q]);
-        lmd::fence_operand(alo[s][q]);
+      for (int q = 0; q < ND; ++q) lmd::fence_operand(part[q]);
+      lmd::wgmma_fence();
+      products(bh, bl, 0);
+      lmd::wgmma_commit();
+      products(bh, bl, 2);
+      lmd::wgmma_commit();
+      const int nst = st + 1 == S ? 0 : st + 1;
+      const uint32_t nphase = nst == 0 ? phase ^ 1u : phase;
+      if (more) wait_raw(nst, nphase);
+      // steps 0 and 1 retired: their A registers take the next slab's
+      // while steps 2 and 3 run
+      lmd::wgmma_wait<1>();
+      fence_a(0);
+      fence_a(1);
+      if (more) {
+        prepare(nst, 0);
+        prepare(nst, 1);
+      }
+      lmd::wgmma_wait<0>();
+      fence_a(2);
+      fence_a(3);
+#pragma unroll
+      for (int q = 0; q < ND; ++q) lmd::fence_operand(part[q]);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);  // this warp is done with stage st
+      if (more) {
+        prepare(nst, 2);
+        prepare(nst, 3);
       }
 #pragma unroll
-    for (int i = 0; i < ND; ++i) {
-      lmd::fence_operand(part[i]);
-      acc[i] += part[i];
+      for (int q = 0; q < ND; ++q) acc[q] += part[q];
+      st = nst;
+      phase = nphase;
     }
-    // the next slab's projector into hi/lo and its A fragments
-    if (it + 1 < n_slabs) {
-      split_slab((it + 1) % STAGES, it + 1);
-      prepare(it + 1);
-    }
-  }
-  lmd::cp_async_wait<0>();
-
-  // accumulator layout: register 4j + q holds row g (q < 2) or g + 8, column
-  // 8j + 2t + (q & 1)
-  float* dst = ws + static_cast<long long>(blockIdx.z) * t_len * r;
+    // accumulator layout: register 4j + q holds row (q < 2) or row + 8,
+    // column 8j + 2tq + (q & 1)
+    float* dst = ws + static_cast<long long>(w.split) * t_len * r;
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = m0 + wg * 64 + wl * 16 + g + half * 8;
-    if (row >= t_len) continue;
+    for (int half = 0; half < 2; ++half) {
+      const int m = w.m0 + row + half * 8;
+      if (m < t_len) {
 #pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      const int col = n0 + j * 8 + 2 * tq;
-      float* p = dst + static_cast<long long>(row) * r + col;
-      if (col < r) p[0] = acc[4 * j + 2 * half];
-      if (col + 1 < r) p[1] = acc[4 * j + 2 * half + 1];
+        for (int j = 0; j < BN / 8; ++j) {
+          const int col = w.n_tile * BN + j * 8 + 2 * tq;
+          float* p = dst + static_cast<long long>(m) * r + col;
+          if (col < r) p[0] = acc[4 * j + 2 * half];
+          if (col + 1 < r) p[1] = acc[4 * j + 2 * half + 1];
+        }
+      }
     }
+#pragma unroll
+    for (int q = 0; q < ND; ++q) acc[q] = 0.0f;
   }
 }
 
-template <typename T, int NT>
-cudaError_t launch_partial(const typename RawTile<T>::Raw* raw, int t_len, int d, bool vec_ok,
-                           const float* bt, int d_pad, int r, int n_tiles, int splits,
-                           int k_chunk, float* ws, cudaStream_t st) {
-  constexpr int BN = 16 * NT;
-  constexpr int SMEM = STAGES * (RawTile<T>::kBytes + BN * BK * 4) + 4 * BN * BK * 4;
+// ---------------------------------------------------------------------------
+// the launch
+// ---------------------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, fetched through the runtime (no -lcuda)
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                     &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+template <typename T, int BN>
+cudaError_t launch_partial(const void* raw, int t_len, int d, const float* bt, int d_pad, int r,
+                           int n_tiles, int splits, int k_chunk, int ctas, float* ws,
+                           cudaStream_t st) {
+  using R = Ring<T, BN>;
+  using Tile = RawTile<T>;
   auto kern = vproj_wgmma_kernel<T, BN>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  // the tensor map needs 16-byte rows and a 16-byte aligned base
+  CUtensorMap map{};
+  const bool use_tma = (static_cast<long long>(d) * Tile::kSize) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(raw) % 16 == 0;
+  if (use_tma) {
+    const EncodeTiled encode = encode_tiled();
+    if (encode == nullptr) return cudaErrorNotSupported;
+    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(t_len)};
+    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d) * Tile::kSize};
+    const cuuint32_t box[2] = {BK, BM};
+    const cuuint32_t unit[2] = {1, 1};
+    if (encode(&map, Tile::kType, 2, const_cast<void*>(raw), dims, strides, box, unit,
+               CU_TENSOR_MAP_INTERLEAVE_NONE, Tile::kSwizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS) {
+      return cudaErrorInvalidValue;
+    }
+  }
+  const cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, R::kSmem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(n_tiles, (t_len + BM - 1) / BM, splits);
-  kern<<<grid, THREADS, SMEM, st>>>(raw, t_len, d, vec_ok, bt, d_pad, r, k_chunk, ws);
+  // persistent: one CTA an SM, each with a unit at least
+  const long long units = static_cast<long long>(splits) * n_tiles * ((t_len + BM - 1) / BM);
+  if (ctas < 1 || ctas > units) return cudaErrorInvalidValue;
+  kern<<<ctas, THREADS, R::kSmem, st>>>(map, static_cast<const typename Tile::Raw*>(raw), t_len,
+                                        d, use_tma ? 1 : 0, bt, d_pad / BK, r, n_tiles, splits,
+                                        k_chunk, ws);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch(int nt, const void* raw_v, int t_len, int d, const float* bt, int d_pad,
-                     int r, int n_tiles, int splits, int k_chunk, float* ws, cudaStream_t st) {
-  const auto* raw = static_cast<const typename RawTile<T>::Raw*>(raw_v);
-  // 16-byte cp.async needs whole 16-byte chunks of every row
-  const bool vec_ok = (d % RawTile<T>::kChunkElems) == 0 &&
-                      (reinterpret_cast<uintptr_t>(raw_v) % 16) == 0;
+cudaError_t dispatch(int bn, const void* raw, int t_len, int d, const float* bt, int d_pad, int r,
+                     int n_tiles, int splits, int k_chunk, int ctas, float* ws, cudaStream_t st) {
 #define LMD_VP_CASE(N)                                                                   \
   case N:                                                                                \
-    return launch_partial<T, N>(raw, t_len, d, vec_ok, bt, d_pad, r, n_tiles, splits,    \
-                                k_chunk, ws, st);
-  switch (nt) {
-    LMD_VP_CASE(1) LMD_VP_CASE(2) LMD_VP_CASE(3) LMD_VP_CASE(4)
-    LMD_VP_CASE(5) LMD_VP_CASE(6) LMD_VP_CASE(7) LMD_VP_CASE(8)
-    LMD_VP_CASE(9) LMD_VP_CASE(10) LMD_VP_CASE(11)
+    return launch_partial<T, N>(raw, t_len, d, bt, d_pad, r, n_tiles, splits, k_chunk,   \
+                                ctas, ws, st);
+  // VP_WIDTHS (ops/kernels.py): steps of 16 to 160, then 168 and 176, so
+  // the widest r' tiles pad by under 8 columns
+  switch (bn) {
+    LMD_VP_CASE(32) LMD_VP_CASE(48) LMD_VP_CASE(64) LMD_VP_CASE(80)
+    LMD_VP_CASE(96) LMD_VP_CASE(112) LMD_VP_CASE(128) LMD_VP_CASE(144)
+    LMD_VP_CASE(160) LMD_VP_CASE(168) LMD_VP_CASE(176)
     default:
       return cudaErrorInvalidValue;
   }
@@ -312,13 +484,13 @@ cudaError_t dispatch(int nt, const void* raw_v, int t_len, int d, const float* b
 
 // The arguments of a dtype's dispatch function (dispatch<T> above).
 #define LMD_VP_DISPATCH_PARAMS                                                       \
-  int nt, const void* raw, int t_len, int d, const float* bt, int d_pad, int r,     \
-      int n_tiles, int splits, int k_chunk, float* ws, cudaStream_t st
+  int bn, const void* raw, int t_len, int d, const float* bt, int d_pad, int r,     \
+      int n_tiles, int splits, int k_chunk, int ctas, float* ws, cudaStream_t st
 
 namespace lmd_vp {
 
-// The partial products of one chunk (grid n_tiles x ceil(t / 128) x splits)
-// for raw of the named dtype, at tile width 16 nt; v_projection_<dtype>.cu.
+// The partial products of one chunk for raw of the named dtype, at tile
+// width bn, on ctas persistent CTAs; v_projection_<dtype>.cu.
 cudaError_t dispatch_float32(LMD_VP_DISPATCH_PARAMS);
 cudaError_t dispatch_uint16(LMD_VP_DISPATCH_PARAMS);
 cudaError_t dispatch_int16(LMD_VP_DISPATCH_PARAMS);
@@ -330,8 +502,8 @@ cudaError_t dispatch_bfloat16(LMD_VP_DISPATCH_PARAMS);
 }  // namespace lmd_vp
 
 // The body of dispatch_<NAME> for raw of type T, in NAME's translation unit.
-#define LMD_VP_DEFINE_DISPATCH(NAME, T)                                              \
-  cudaError_t lmd_vp::dispatch_##NAME(LMD_VP_DISPATCH_PARAMS) {                      \
-    return dispatch<T>(nt, raw, t_len, d, bt, d_pad, r, n_tiles, splits, k_chunk, ws, \
-                       st);                                                           \
+#define LMD_VP_DEFINE_DISPATCH(NAME, T)                                                    \
+  cudaError_t lmd_vp::dispatch_##NAME(LMD_VP_DISPATCH_PARAMS) {                            \
+    return dispatch<T>(bn, raw, t_len, d, bt, d_pad, r, n_tiles, splits, k_chunk, ctas, ws, \
+                       st);                                                                 \
   }

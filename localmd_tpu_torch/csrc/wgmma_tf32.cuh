@@ -1,9 +1,9 @@
 // Hopper's warpgroup matrix multiply for K2 (v_projection.cu): TF32
 // wgmma.mma_async m64nNk8 with A from registers and B from shared memory
 // through a matrix descriptor, fp32 accumulators, plus the fences around
-// it. One specialization of Wgmma<N> per tile width N = 16 .. 176 (the
-// instruction takes N as part of its name and lists all N / 2 accumulator
-// registers of a thread).
+// it. One specialization of Wgmma<N> per tile width the kernels take, N =
+// 32 .. 160 in steps of 16, 168 and 176 (the instruction takes N as part
+// of its name and lists all N / 2 accumulator registers of a thread).
 //
 // B's shared-memory layout (K-major, no swizzle): 8 x 16-byte "core
 // matrices" (8 rows of N, 4 tf32 along K), each 128 contiguous bytes; for a
@@ -36,6 +36,11 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// until at most N committed groups of this warpgroup are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
 // make this thread's generic-proxy shared-memory writes (cp.async, plain
 // stores) visible to the async proxy that wgmma reads through
 __device__ __forceinline__ void fence_proxy_async_shared() {
@@ -48,22 +53,6 @@ __device__ __forceinline__ void fence_operand(uint32_t& x) { asm volatile("" : "
 
 template <int N>
 struct Wgmma;
-
-template <>
-struct Wgmma<16> {
-  // d (+)= a * B: d the warpgroup's 64 x 16 fp32 tile, 8 registers a thread
-  __device__ static void run(float (&d)[8], const uint32_t (&a)[4], uint64_t desc_b,
-                             int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7"
-        "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
-  }
-};
 
 template <>
 struct Wgmma<32> {
@@ -282,6 +271,39 @@ struct Wgmma<160> {
           "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
           "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
           "+f"(d[78]), "+f"(d[79])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<168> {
+  // d (+)= a * B: d the warpgroup's 64 x 168 fp32 tile, 84 registers a thread
+  __device__ static void run(float (&d)[84], const uint32_t (&a)[4], uint64_t desc_b,
+                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %89, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n168k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+        "%80, %81, %82, %83"
+        "}, {%84, %85, %86, %87}, %88, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+          "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+          "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
   }
 };

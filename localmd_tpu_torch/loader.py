@@ -51,8 +51,9 @@ streamed V regression, host->device streaming and the device movie cache
   call the device span ``vreg.k2`` (``PMDLoader.vreg_k2``, settled into
   ``vreg.k2_s``). The V regression always counts its chunks per route,
   ``vreg.k2_calls`` and ``vreg.cell_calls``, and on the K2 route the
-  projector's width r' (``vreg.k2_width``) and the frames K2 read
-  (``vreg.k2_frames``).
+  projector's width r' (``vreg.k2_width``), the pixel splits K2's
+  schedule took on the last chunk (``vreg.k2_splits``, 1 for none) and
+  the frames K2 read (``vreg.k2_frames``).
 """
 
 from __future__ import annotations
@@ -1010,7 +1011,9 @@ class PMDLoader:
         a ``vreg_layout`` span, on the K2 route each K2 call a ``vreg_k2``
         span; the caller settles both after its fence. Each chunk counts
         into ``vreg.cell_calls`` or ``vreg.k2_calls``; the K2 route also
-        sets ``vreg.k2_width`` (r') and counts ``vreg.k2_frames``."""
+        sets ``vreg.k2_width`` (r') and ``vreg.k2_splits`` (the pixel
+        splits of the last chunk's K2 schedule, 1 for none) and counts
+        ``vreg.k2_frames``."""
         d1, d2 = self.shape[1], self.shape[2]
         for key in ("vreg.k2_calls", "vreg.cell_calls"):
             count(self.transfers, key, 0)
@@ -1039,9 +1042,10 @@ class PMDLoader:
             def project(raw):
                 count(self.transfers, "vreg.k2_calls", 1)
                 count(self.transfers, "vreg.k2_frames", int(raw.shape[0]))
+                raw2d = raw.reshape(raw.shape[0], d1 * d2)
+                self.transfers["vreg.k2_splits"] = kernels.v_projection_splits(raw2d, a_c.shape[1])
                 with self.vreg_k2.span():
-                    return kernels.v_projection(raw.reshape(raw.shape[0], d1 * d2), a_c, c,
-                                                prepared)
+                    return kernels.v_projection(raw2d, a_c, c, prepared)
 
         results = []
         chunks = self._take_v_prefetch() or self._iter_raw_chunks(host_partition="frames",

@@ -49,11 +49,11 @@ SIGNATURES = {
     # x, dtype, t, P, w_hi, w_lo, cos1, sin1, nperseg, nper_pad, n_segs,
     # divisor, scale, mean, sigma, stream
     "lmd_movie_stats": (_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P, _P, _P),
-    # a, d, r, bt, d_pad, r_pad, stream
-    "lmd_projector_t": (_P, _I, _I, _P, _I, _I, _P),
-    # raw, dtype, t, d, bt, d_pad, r, nt, n_tiles, c, splits, k_chunk, ws,
-    # out, stream
-    "lmd_v_projection": (_P, _I, _I, _I, _P, _I, _I, _I, _I, _P, _I, _I, _P, _P, _P),
+    # a, d, r, bt, d_pad, bn, n_tiles, stream
+    "lmd_projector_t": (_P, _I, _I, _P, _I, _I, _I, _P),
+    # raw, dtype, t, d, bt, d_pad, r, bn, n_tiles, c, splits, k_chunk, ctas,
+    # ws, out, stream
+    "lmd_v_projection": (_P, _I, _I, _I, _P, _I, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P),
     # panels, temporal, starts, tile_offsets, tile_blocks, d1, d2, b1, b2,
     # S, f, out, stream
     "lmd_block_reconstruct": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P),

@@ -23,6 +23,7 @@ kernel, so a run can show that the main path went through it.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -194,22 +195,39 @@ movie_stats.launches = 0
 # ---------------------------------------------------------------------------
 
 _VP_BM, _VP_BK = 128, 32
-_VP_MAX_NT = 11          # r' tile = 16 * nt columns, at most 176
+# K2's r' tile widths (csrc/v_projection.cuh instantiates each): steps of
+# 16 to 160, then 8, so the widest tiles pad by under 8 columns
+VP_WIDTHS = (32, 48, 64, 80, 96, 112, 128, 144, 160, 168, 176)
 _VP_MIN_K_CHUNK = 256
-# each CTA's fp32 sum runs over at most this many pixels (accuracy bound)
+# each unit's fp32 sum runs over at most this many pixels (accuracy bound)
 _VP_MAX_K_CHUNK = 4096
 
 
 class Projector(NamedTuple):
-    """The (d, r') projector as K2 reads it: transposed to K-major
-    ``(n_tiles * 16 * nt, d_pad)``, zero padded, each 8 pixels in the order
-    the kernel's A fragments take them (``lmd_projector_t``)."""
+    """The (d, r') projector as K2 reads it, ``(n_tiles, d_pad / 32, bn *
+    32)``: per r' tile of ``bn`` columns and 32-pixel slab one block of the
+    kernel's core matrices, zero padded (``lmd_projector_t``)."""
 
     bt: torch.Tensor
     d: int
     r: int
-    nt: int
+    bn: int
     n_tiles: int
+
+
+class VpSchedule(NamedTuple):
+    """How K2 covers one chunk: ``n_tiles`` r' tiles of ``bn`` columns,
+    ``t_tiles`` t tiles of 128 rows, the pixel axis in ``splits`` splits of
+    ``k_chunk``; ``units`` work units (t tile x r' tile x split) walked by
+    ``ctas`` persistent CTAs, one an SM."""
+
+    bn: int
+    n_tiles: int
+    t_tiles: int
+    splits: int
+    k_chunk: int
+    units: int
+    ctas: int
 
 
 def v_projection_plain(raw2d: torch.Tensor, a_cols: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -218,23 +236,41 @@ def v_projection_plain(raw2d: torch.Tensor, a_cols: torch.Tensor, c: torch.Tenso
 
 
 def _vp_tiles(r: int) -> Tuple[int, int]:
-    """(nt, n_tiles): r' in n_tiles near-equal tiles of 16 * nt <= 176
-    columns, so the padding past r' is under 16 columns a tile."""
-    n_tiles = -(-r // (16 * _VP_MAX_NT))
+    """(bn, n_tiles): r' in n_tiles near-equal tiles, each padded to the
+    narrowest of ``VP_WIDTHS`` that holds it."""
+    n_tiles = -(-r // VP_WIDTHS[-1])
     per_tile = -(-r // n_tiles)
-    return -(-per_tile // 16), n_tiles
+    return next(w for w in VP_WIDTHS if w >= per_tile), n_tiles
 
 
-def _vp_split(t: int, d: int, r_tiles: int, n_sm: int) -> Tuple[int, int]:
-    """(splits, k_chunk): split the d axis until the grid holds at least two
-    waves of CTAs (one CTA fits on an SM) and no split sums more than 4096
-    pixels, keeping each split at least 256 deep and a multiple of 32."""
-    tiles = -(-t // _VP_BM) * r_tiles
-    want = max(-(-2 * n_sm // tiles), -(-d // _VP_MAX_K_CHUNK))
-    splits = max(1, min(want, -(-d // _VP_MIN_K_CHUNK)))
-    per_split = -(-d // splits)
-    k_chunk = -(-per_split // _VP_BK) * _VP_BK
-    return -(-d // k_chunk), k_chunk
+def _vp_split(d: int, tiles: int, n_sm: int) -> Tuple[int, int]:
+    """(splits, k_chunk): the pixel axis in splits of k_chunk (a multiple of
+    32, at least 256 and at most 4096 pixels deep) for ``tiles`` output
+    tiles walked by one CTA on each of ``n_sm`` SMs: the split whose rounds
+    of units, each as long as its slabs plus two for its sums' store, take
+    the least time; ties go to fewer splits (less workspace)."""
+    fewest = -(-d // _VP_MAX_K_CHUNK)
+    most = max(fewest, -(-d // _VP_MIN_K_CHUNK))
+    best = None
+    for want in range(fewest, most + 1):
+        per_split = -(-d // want)
+        k_chunk = -(-per_split // _VP_BK) * _VP_BK
+        splits = -(-d // k_chunk)
+        cost = -(-(tiles * splits) // n_sm) * (k_chunk // _VP_BK + 2)
+        if best is None or cost < best[0]:
+            best = (cost, splits, k_chunk)
+    return best[1], best[2]
+
+
+@functools.lru_cache(maxsize=64)
+def vp_schedule(t: int, d: int, r: int, n_sm: int) -> VpSchedule:
+    """K2's schedule for a (t, d) chunk and an r'-column projector on a card
+    with ``n_sm`` SMs, from the shapes alone."""
+    bn, n_tiles = _vp_tiles(r)
+    t_tiles = -(-t // _VP_BM)
+    splits, k_chunk = _vp_split(d, n_tiles * t_tiles, n_sm)
+    units = splits * n_tiles * t_tiles
+    return VpSchedule(bn, n_tiles, t_tiles, splits, k_chunk, units, min(units, n_sm))
 
 
 def prepare_projector(a_cols: torch.Tensor) -> Projector:
@@ -244,14 +280,15 @@ def prepare_projector(a_cols: torch.Tensor) -> Projector:
     if a_cols.dim() != 2 or a_cols.dtype != torch.float32:
         raise ValueError(f"prepare_projector: expected (d, r') float32, got {tuple(a_cols.shape)}")
     d, r = a_cols.shape
-    nt, n_tiles = _vp_tiles(r)
+    bn, n_tiles = _vp_tiles(r)
     d_pad = -(-d // _VP_BK) * _VP_BK
-    bt = torch.empty((n_tiles * 16 * nt, d_pad), dtype=torch.float32, device=a_cols.device)
+    bt = torch.empty((n_tiles, d_pad // _VP_BK, bn * _VP_BK), dtype=torch.float32,
+                     device=a_cols.device)
     code = _library().lmd_projector_t(
-        _ptr(a_cols), d, r, _ptr(bt), d_pad, bt.shape[0], _stream(a_cols)
+        _ptr(a_cols), d, r, _ptr(bt), d_pad, bn, n_tiles, _stream(a_cols)
     )
     _check_status("prepare_projector", code)
-    return Projector(bt, d, r, nt, n_tiles)
+    return Projector(bt, d, r, bn, n_tiles)
 
 
 def v_projection(
@@ -262,7 +299,8 @@ def v_projection(
     projector -> (r', t), in one pass over the raw chunk with no f32 copy.
     ``a_cols`` rows must follow raw2d's C-order pixel flattening.
     ``prepared`` is ``prepare_projector(a_cols)`` when the caller reuses it
-    across chunks; otherwise it is made here."""
+    across chunks; otherwise it is made here. The schedule is
+    ``vp_schedule`` of the shapes and the card's SM count."""
     if raw2d.device.type == "cpu":
         return v_projection_plain(raw2d, a_cols, c)
     _require_cuda("v_projection", raw2d, a_cols, c)
@@ -282,14 +320,13 @@ def v_projection(
     elif (prepared.d, prepared.r) != (d, r) or prepared.bt.device != raw2d.device:
         raise ValueError("v_projection: the prepared projector belongs to another projector")
     dev = raw2d.device
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits, k_chunk = _vp_split(t, d, prepared.n_tiles, n_sm)
-    ws = torch.empty((splits, t, r), dtype=torch.float32, device=dev)
     out = torch.empty((r, t), dtype=torch.float32, device=dev)
+    sched = vp_schedule(t, d, r, torch.cuda.get_device_properties(dev).multi_processor_count)
+    ws = torch.empty((sched.splits, t, r), dtype=torch.float32, device=dev)
     code = _library().lmd_v_projection(
         _ptr(raw2d), _DTYPE_CODES[raw2d.dtype], t, d, _ptr(prepared.bt),
-        prepared.bt.shape[1], r, prepared.nt, prepared.n_tiles, _ptr(c),
-        splits, k_chunk, _ptr(ws), _ptr(out), _stream(raw2d),
+        prepared.bt.shape[1] * _VP_BK, r, prepared.bn, prepared.n_tiles, _ptr(c),
+        sched.splits, sched.k_chunk, sched.ctas, _ptr(ws), _ptr(out), _stream(raw2d),
     )
     _check_status("v_projection", code)
     v_projection.launches += 1
@@ -297,6 +334,16 @@ def v_projection(
 
 
 v_projection.launches = 0
+
+
+def v_projection_splits(raw2d: torch.Tensor, r: int) -> int:
+    """The pixel splits K2 takes for ``raw2d`` and an r'-column projector:
+    ``vp_schedule``'s on a card, 1 for the plain twin on the CPU."""
+    if raw2d.device.type == "cpu":
+        return 1
+    t, d = raw2d.shape
+    return vp_schedule(t, d, r, torch.cuda.get_device_properties(raw2d.device)
+                       .multi_processor_count).splits
 
 
 # ---------------------------------------------------------------------------

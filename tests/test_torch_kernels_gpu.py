@@ -69,6 +69,9 @@ def test_movie_stats_offset_small_noise_matches_plain(cuda, dtype, t, nperseg):
     ("uint16", 300, 20000, 77), ("float32", 64, 1024, 2560),
     ("uint16", 256, 1 << 20, 168),      # the 1024^2 uint16 cell's chunk
     ("float32", 500, 65536, 465),       # the voltage cell's r'
+    ("uint16", 4000, 640 * 540, 1650),  # the widefield cell's chunk: clusters of 4, 94 splits
+    ("uint16", 512, 256, 200),          # one split: no split-K
+    ("uint16", 129, 20000, 1), ("uint16", 129, 20000, 176), ("uint16", 129, 20000, 177),
 ])
 def test_v_projection_matches_plain(cuda, dtype, t, d, r):
     from localmd_tpu_torch.ops import kernels
@@ -81,9 +84,14 @@ def test_v_projection_matches_plain(cuda, dtype, t, d, r):
     out = kernels.v_projection(raw, a, c)
     assert kernels.v_projection.launches == before + 1
     assert _rel_fro(out, kernels.v_projection_plain(raw, a, c)) <= 1e-5
+    # the same inputs give the same bits: no atomics, a fixed order of sums
+    assert torch.equal(kernels.v_projection(raw, a, c), out)
     # a projector prepared once serves every chunk
     prepared = kernels.prepare_projector(a)
     assert torch.equal(kernels.v_projection(raw, a, c, prepared), out)
+    if (t, d) == (512, 256):
+        n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+        assert kernels.vp_schedule(t, d, r, n_sm).splits == 1
 
 
 @pytest.mark.parametrize("d1,d2,b,s,f", [
@@ -278,6 +286,8 @@ def test_movie_stats_new_dtypes_match_plain(cuda, dtype, kind, t, p, nperseg):
 @pytest.mark.parametrize("kind,t,d,r", [
     ("movie", 300, 20000, 77), ("movie", 256, 1 << 20, 168), ("baseline", 100, 701, 37),
     ("extremes", 64, 4096, 176),
+    ("movie", 4000, 640 * 540, 1650), ("movie", 512, 256, 200), ("baseline", 129, 20000, 1),
+    ("movie", 129, 20000, 176), ("extremes", 129, 20000, 177),
 ])
 def test_v_projection_new_dtypes_match_plain(cuda, dtype, kind, t, d, r):
     from localmd_tpu_torch.ops import kernels

@@ -5,7 +5,9 @@ Each operand splits as x = hi + lo, hi = x rounded to tf32 (10 mantissa
 bits, to nearest with ties away from zero, by integer arithmetic:
 ``kernels.split_tf32``, the same rounding the kernels and the wrappers
 use), lo = x - hi, of which the tensor core reads the top 10 mantissa bits
-(``tf32_truncate``); a product is lo*hi + hi*lo + hi*hi, in that
+(``tf32_truncate``); K2's projector is read as it is, its hi the tensor
+core's truncation of x and its lo = x - hi made beside it. A product is
+lo*hi + hi*lo + hi*hi, in that
 order, each k8 step's product added into an
 fp32 accumulator (an m16n8k8 mma), a fresh accumulator per 32-deep slab
 added into the running fp32 sum, as the kernels do. The emulation rounds an
@@ -33,6 +35,7 @@ from localmd_tpu_torch.ops import kernels
 
 K2_TOL = 1e-5
 SIGMA_TOL = 1e-4
+H100_SMS = 132
 
 
 def tf32_truncate(x: torch.Tensor) -> torch.Tensor:
@@ -41,22 +44,28 @@ def tf32_truncate(x: torch.Tensor) -> torch.Tensor:
     return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
 
 
-def _terms(a: torch.Tensor, b: torch.Tensor, passes: int):
+def _terms(a: torch.Tensor, b: torch.Tensor, passes: int, b_truncated: bool = False):
     """The products of one tensor-core step in the kernels' order, as
-    (left, right) operand pairs; ``passes=1`` is a single TF32 pass."""
+    (left, right) operand pairs; ``passes=1`` is a single TF32 pass.
+    ``b_truncated``: b's hi is b truncated to tf32 (K2's projector)."""
     a_hi, a_lo = kernels.split_tf32(a)
-    b_hi, b_lo = kernels.split_tf32(b)
+    if b_truncated:
+        b_hi = tf32_truncate(b)
+        b_lo = b - b_hi
+    else:
+        b_hi, b_lo = kernels.split_tf32(b)
     a_lo, b_lo = tf32_truncate(a_lo), tf32_truncate(b_lo)
     if passes == 1:
         return [(a_hi, b_hi)]
     return [(a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)]
 
 
-def emulated_product(a: torch.Tensor, b: torch.Tensor, passes: int = 3, slab: int = 32) -> torch.Tensor:
+def emulated_product(a: torch.Tensor, b: torch.Tensor, passes: int = 3, slab: int = 32,
+                     b_truncated: bool = False) -> torch.Tensor:
     """(m, k) @ (k, n) as the kernels take it: per k8 step the products of
     ``_terms``, each summed exactly (float64) and added into an fp32 slab
     accumulator; each slab's sum added into the fp32 total."""
-    terms = _terms(a, b, passes)
+    terms = _terms(a, b, passes, b_truncated)
     total = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32)
     for s0 in range(0, a.shape[1], slab):
         part = torch.zeros_like(total)
@@ -68,15 +77,18 @@ def emulated_product(a: torch.Tensor, b: torch.Tensor, passes: int = 3, slab: in
     return total
 
 
-def k2_emulated(raw: np.ndarray, a: np.ndarray, c: np.ndarray, passes: int = 3,
-                k_chunk: int = 4096) -> np.ndarray:
-    """K2: (raw @ A - c)^T with the pixel axis in splits of ``k_chunk``
-    added in order (the kernel's split-K and its fixed-order reduce)."""
+def k2_emulated(raw: np.ndarray, a: np.ndarray, c: np.ndarray, passes: int = 3) -> np.ndarray:
+    """K2: (raw @ A - c)^T with the pixel axis in the splits of K2's
+    schedule on a 132-SM H100 (``vp_schedule``), each a work unit's slab
+    sums from zero, added in order (the kernel's split-K and its
+    fixed-order reduce)."""
     x = torch.from_numpy(raw.astype(np.float32))
     aa = torch.from_numpy(a)
+    k_chunk = kernels.vp_schedule(x.shape[0], x.shape[1], aa.shape[1], H100_SMS).k_chunk
     out = torch.zeros(x.shape[0], aa.shape[1], dtype=torch.float32)
     for k0 in range(0, x.shape[1], k_chunk):
-        out = out + emulated_product(x[:, k0:k0 + k_chunk], aa[k0:k0 + k_chunk], passes)
+        out = out + emulated_product(x[:, k0:k0 + k_chunk], aa[k0:k0 + k_chunk], passes,
+                                     b_truncated=True)
     return to_np((out - torch.from_numpy(c)[None, :]).T)
 
 
@@ -185,15 +197,39 @@ def test_k1_single_tf32_pass_fails_the_bar_on_offset_uint16(t, nperseg, rng):
     assert np.abs(ours / ref - 1).max() > 10 * SIGMA_TOL
 
 
-@pytest.mark.parametrize("r", [37, 64, 168, 300, 336, 465, 2560])
+@pytest.mark.parametrize("r", [37, 64, 168, 300, 336, 465, 1650, 2560])
 def test_k2_r_tiles_fit_r(r):
-    """K2's r' tile: 16 * nt <= 176 columns, near-equal tiles, under 16
-    padded columns a tile and no empty tile."""
-    nt, n_tiles = kernels._vp_tiles(r)
-    width = 16 * nt
-    assert 1 <= nt <= 11
+    """K2's r' tile: one of ``VP_WIDTHS`` (at most 176 columns), near-equal
+    tiles, under 16 padded columns a tile (under 8 past 160 columns) and no
+    empty tile."""
+    width, n_tiles = kernels._vp_tiles(r)
+    assert width in kernels.VP_WIDTHS and width <= 176
     assert (n_tiles - 1) * width < r <= n_tiles * width
-    assert n_tiles * width - r < 16 * n_tiles
+    assert n_tiles * width - r < (8 if width > 160 else 16) * n_tiles
+
+
+@pytest.mark.parametrize("t,d,r", [
+    (4000, 640 * 540, 1650),    # the widefield chunk
+    (256, 1 << 20, 168),        # chip_smoke's 1024^2 uint16 blocks-40 call
+    (2048, 512 * 512, 336),     # the main path's f32 call
+    (64, 640 * 540, 1650),      # a small t: one t tile
+    (129, 20000, 177),
+])
+def test_k2_schedule_covers_every_pixel_once_and_fills_the_card(t, d, r):
+    """K2's schedule as a pure function of the shapes and the SM count:
+    the splits partition the pixels, no unit's fp32 sum spans more than
+    ``_VP_MAX_K_CHUNK`` pixels, and there are work units for a persistent
+    CTA on every SM."""
+    sched = kernels.vp_schedule(t, d, r, H100_SMS)
+    assert (sched.bn, sched.n_tiles) == kernels._vp_tiles(r)
+    assert sched.t_tiles == -(-t // 128)
+    assert sched.k_chunk % 32 == 0 and 256 <= sched.k_chunk <= kernels._VP_MAX_K_CHUNK
+    owner = np.zeros(d, np.int64)
+    for split in range(sched.splits):
+        owner[split * sched.k_chunk:(split + 1) * sched.k_chunk] += 1
+    assert (owner == 1).all() and (sched.splits - 1) * sched.k_chunk < d
+    assert sched.units == sched.splits * sched.n_tiles * sched.t_tiles
+    assert sched.units >= H100_SMS and sched.ctas == H100_SMS
 
 
 def test_k8_order_is_the_fragment_order():

@@ -38,26 +38,16 @@ streamed V regression, host->device streaming and the device movie cache
   ``loader.host_read`` around each read from the dataset into host
   memory, ``loader.slot_wait`` around a pinned slot's wait for its
   previous copy, ``loader.chunk_wait`` around the consumer's wait for a
-  prefetched chunk. Their seconds (and the bytes read) count into
-  ``PMDLoader.transfers`` under the pass that opened the stream:
-  ``<pass>.host_read_s``, ``<pass>.host_read_bytes``, ``<pass>.slot_wait_s``
-  and ``<pass>.chunk_wait_s``, the pass one of ``stats``, ``crop``,
-  ``background`` and ``vreg``; ``<pass>.host_reads`` counts the reads and
-  ``<pass>.host_read_split`` those the dataset copied on more than one
-  thread (its ``read_threads``). Chunks the cache or a device-resident
-  movie serve read nothing and count nothing. While the profiler runs, the
-  cell route's layout copy is the device span ``vreg.layout``
-  (``PMDLoader.vreg_layout``, settled into ``vreg.layout_s``) and each K2
-  call the device span ``vreg.k2`` (``PMDLoader.vreg_k2``, settled into
-  ``vreg.k2_s``). The V regression always counts its chunks per route,
-  ``vreg.k2_calls`` and ``vreg.cell_calls``, and on the K2 route the
-  projector's width r' (``vreg.k2_width``), the pixel splits K2's
-  schedule took on the last chunk (``vreg.k2_splits``, 1 for none) and
-  the frames K2 read (``vreg.k2_frames``).
+  prefetched chunk; while the profiler runs, the device spans
+  ``vreg.layout`` (the cell route's layout copy) and ``vreg.k2`` (each K2
+  call). What they and the passes count is listed once, in
+  ``PMDLoader.pipeline_record``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import math
 import queue
 import threading
@@ -166,10 +156,10 @@ def partition_chunks_for_host(
 
 class _PrefetchIter:
     """Background-thread prefetching iterator over ``load_fn(item)``
-    (loader.py:156-248).
+    (loader.py:156-248), and a context manager that closes it on exit.
 
     Abandoning the iterator mid-stream (an exception in the consumer loop,
-    e.g. the pipeline's OOM retries) must not leak the worker: ``close()``
+    e.g. the movie cache's OOM retry) must not leak the worker: ``close()``
     (also run by GC) sets the stop event and drains the queue, so the worker
     unblocks, drops its references and exits. With ``eager=True`` the
     worker starts at construction instead of the first ``__next__``."""
@@ -215,6 +205,12 @@ class _PrefetchIter:
 
     def __iter__(self):
         return self
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
     def __next__(self):
         if self._done or self._stop.is_set():
@@ -440,6 +436,61 @@ def _fold_projector(a: torch.Tensor, std_flat: torch.Tensor, mean_flat: torch.Te
     return a_tilde, c
 
 
+class _CellRoute:
+    """The V regression's cell route for one U (a regular grid with
+    ``blocksparse.COSET_VPROJ`` on): ``m_cell`` and ``q`` from
+    ``blocksparse.build_vproj_cells``, made before the mixing matrix
+    exists. A chunk is one ``blocksparse.coset_vproj_chunk``, its layout
+    copies the device span ``vreg.layout``."""
+
+    def __init__(self, loader: "PMDLoader", u):
+        self.panels = u.panels
+        std, mean = (flatten_image(x, loader.order) for x in (loader.std_img, loader.mean_img))
+        self.m_cell, self.q = blocksparse.build_vproj_cells(
+            u.panels, u.rows, loader.shape[1:], loader.order, u.cell_geom, u.dense_basis, std, mean)
+        self._geom = (*u.cell_geom, u.slots)
+        self._counters = loader.transfers
+        self.spans = DeviceSpans(loader.transfers, "vreg.layout_s", "vreg.layout", loader.device)
+
+    def bind(self, p: torch.Tensor) -> None:
+        self._p = p
+
+    def __call__(self, raw: torch.Tensor) -> torch.Tensor:
+        count(self._counters, "vreg.cell_calls", 1)
+        # looked up at each call: tests patch the module's function
+        return blocksparse.coset_vproj_chunk(self.m_cell, self.q, self._p, raw, *self._geom,
+                                             self.spans.span)
+
+
+class _K2Route:
+    """The V regression's K2 route for one U (any the cell route does not
+    take): ``bind`` folds the mixing matrix into A~ = (U P)/std with its
+    rows in C order, c = A~^T mean and K2's layout of A~, once for every
+    chunk. A chunk is one K2 call inside the device span ``vreg.k2``."""
+
+    def __init__(self, loader: "PMDLoader", u):
+        self._loader = loader
+        self._u = u
+        self.spans = DeviceSpans(loader.transfers, "vreg.k2_s", "vreg.k2", loader.device)
+
+    def bind(self, p: torch.Tensor) -> None:
+        ld = self._loader
+        a_tilde, self._c = _fold_projector(self._u.matmul(p), flatten_image(ld.std_img, ld.order),
+                                           flatten_image(ld.mean_img, ld.order))
+        # projector rows follow the pipeline's pixel order; the raw chunk
+        # flattens in C order, so reorder the rows once (loader.py:1142)
+        self._a = _rows_to_c(a_tilde, *ld.shape[1:], ld.order).contiguous()
+        self._prepared = kernels.prepare_projector(self._a) if self._a.is_cuda else None
+        ld.transfers["vreg.k2_width"] = int(self._a.shape[1])
+
+    def __call__(self, raw: torch.Tensor) -> torch.Tensor:
+        count(self._loader.transfers, "vreg.k2_calls", 1)
+        count(self._loader.transfers, "vreg.k2_frames", int(raw.shape[0]))
+        raw2d = raw.reshape(raw.shape[0], self._a.shape[0])
+        with self.spans.span():
+            return kernels.v_projection(raw2d, self._a, self._c, self._prepared)
+
+
 def _torch_dtype(np_dtype: np.dtype) -> torch.dtype:
     return torch.from_numpy(np.zeros(0, np_dtype)).dtype
 
@@ -520,12 +571,10 @@ class PMDLoader:
         # the streams' span counters (``utils.logging.count``); the prefetch
         # workers add to these
         self.transfers = {"pinned_copies": 0, "pinned_bytes": 0}
-        # the cell route's layout copy while the profiler runs; the caller
-        # settles it after its fence (``vreg.layout_s``)
-        self.vreg_layout = DeviceSpans(self.transfers, "vreg.layout_s", "vreg.layout",
-                                       self.device)
-        # each K2 call of the V regression, likewise (``vreg.k2_s``)
-        self.vreg_k2 = DeviceSpans(self.transfers, "vreg.k2_s", "vreg.k2", self.device)
+        # the V regression's device spans until ``pipeline_record`` settles
+        # them, and the cell route ``prepare_vproj_cells`` made ahead of it
+        self._spans: List[DeviceSpans] = []
+        self._cell_route: Optional[_CellRoute] = None
         # fired once, as hook(loader, cache_target_frames), when the
         # statistics pass has planned and allocated the movie cache and
         # before it reads its first chunk (loader.py:491-494), so a caller can
@@ -677,12 +726,14 @@ class PMDLoader:
 
     def _stream(self, items: Sequence, eager: bool = False, cache_dest: bool = False,
                 label: Optional[str] = None):
-        """Iterate the device chunks of ``items`` (slices or frame lists).
-        Host sources stream on a prefetch worker, through a pinned ring on
-        the card; chunks the cache or a device-resident movie serves are
-        views. With ``cache_dest`` (the stats pass) a range inside the cache
-        being built is copied straight into it. The stream's reads and
-        waits count under the pass ``label`` (``transfers``)."""
+        """The device chunks of ``items`` (slices or frame lists), as a
+        context manager whose ``with`` block iterates them and whose exit
+        closes the stream. Host sources stream on a prefetch worker
+        (``_StagedChunks``), through a pinned ring on the card; chunks the
+        cache or a device-resident movie serves are views, fetched as they
+        are iterated. With ``cache_dest`` (the stats pass) a range inside
+        the cache being built is copied straight into it. The stream's
+        reads and waits count under the pass ``label`` (``transfers``)."""
         items = list(items)
 
         def dest_of(item):
@@ -692,7 +743,7 @@ class PMDLoader:
             return self._cache[a:b] if b <= self._cache.shape[0] else None
 
         if self._device_resident or all(self._cache_serves(it) for it in items):
-            return (self._fetch(it)[0] for it in items)
+            return contextlib.closing(self._fetch(it)[0] for it in items)
         on_card = self.device.type == "cuda"
         depth = min(self._prefetch_depth, 2) if on_card else self._prefetch_depth
         stager = _PinnedStager(self, depth + 2, label) if on_card else None
@@ -810,21 +861,29 @@ class PMDLoader:
 
     # -- statistics -----------------------------------------------------------
 
+    def without_cache_on_oom(self, fn, *args):
+        """``fn(*args)``, once more after a device OOM while the movie cache
+        is up or being built: the cache goes (and a pending V prefetch with
+        it), its policy turns off (loader.py:782-813, pipeline.py:598-607,
+        1314-1376). Any other error propagates untouched. With more than one
+        rank the cache is never up (``_initialize_normalizers`` turns it
+        off), so no rank retries alone while the others wait."""
+        try:
+            return fn(*args)
+        except Exception as e:  # noqa: BLE001
+            if not is_device_oom(e) or (self._cache is None and not self._cache_building):
+                raise
+        display(f"WARNING: {getattr(fn, '__name__', fn)} hit device OOM; "
+                "dropping the movie cache and running it again")
+        self._cache_building = False
+        self.release_cache()
+        self._cache_policy = False
+        gc.collect()
+        return fn(*args)
+
     def _run_stats_with_oom_retry(self) -> None:
-        """The statistics pass; on a device OOM while the cache was up, drop
-        the cache and run the pass again without it (loader.py:782-813)."""
-        for attempt in (0, 1):
-            try:
-                self._initialize_normalizers()
-                return
-            except Exception as e:  # noqa: BLE001
-                cache_was_up = self._cache is not None or self._cache_building
-                if not is_device_oom(e) or attempt or not cache_was_up:
-                    raise
-                display("WARNING: statistics pass hit device OOM; retrying without the movie cache")
-                self._cache_building = False
-                self.release_cache()
-                self._cache_policy = False
+        """The statistics pass under ``without_cache_on_oom``."""
+        self.without_cache_on_oom(self._initialize_normalizers)
 
     def _initialize_normalizers(self) -> None:
         display("Computing video statistics (mean + noise sigma)")
@@ -853,9 +912,8 @@ class PMDLoader:
         pos = 0
         # Unmerged ranges: a tail shorter than MIN_NOISE_FRAMES adds to the
         # mean only, as the reference stats loop does.
-        chunks = self._iter_raw_chunks(self.frame_constant, merge_tail=False, cache_dest=True,
-                                       host_partition="chunks", label="stats")
-        try:
+        with self._iter_raw_chunks(self.frame_constant, merge_tail=False, cache_dest=True,
+                                   host_partition="chunks", label="stats") as chunks:
             for raw in chunks:
                 t_c = raw.shape[0]
                 pos += t_c
@@ -870,10 +928,6 @@ class PMDLoader:
                     noise_acc = noise_acc + sig.reshape(d1, d2)
                     noise_chunks += 1
                 mean_acc = mean_acc + m.reshape(d1, d2)
-        finally:
-            close = getattr(chunks, "close", None)
-            if close is not None:
-                close()
         if world > 1:
             # the only statistics traffic between ranks: each rank's two
             # images and chunk count, summed in rank order (loader.py:902-922)
@@ -964,99 +1018,53 @@ class PMDLoader:
                                        self.std_img, self.spatial_basis, self.order)
         buf = torch.empty((d1, d2, t), dtype=torch.float32, device=self.device)
         tb_chunks = []
-        chunks = self._stream(items, label="crop")
-        try:
+        with self._stream(items, label="crop") as chunks:
             for start, raw in zip(spans, chunks):
                 filt, tb = _standardize_frames(
                     raw, self.mean_img, self.std_img, self.spatial_basis, self.order
                 )
                 buf[:, :, start : start + filt.shape[2]] = filt
                 tb_chunks.append(tb)
-        finally:
-            close = getattr(chunks, "close", None)
-            if close is not None:
-                close()
         return buf, torch.cat(tb_chunks, dim=1)
 
     # -- streamed temporal regression -----------------------------------------
 
     def prepare_vproj_cells(self, u):
-        """Build and keep the cell route's operands for ``u``
-        (``blocksparse.build_vproj_cells``; loader.py:1046-1068). They need
-        only U and the statistics images, not the mixing matrix, so the
-        pipeline calls this right after U is assembled and the build runs
-        while the factorized SVD is queued. Made once per ``u`` (keyed on
-        its panels); returns (m_cell, q)."""
-        stash = getattr(self, "_vproj_cells", None)
-        if stash is not None and stash[0] is u.panels:
-            return stash[1], stash[2]
-        m_cell, q = blocksparse.build_vproj_cells(
-            u.panels, u.rows, (self.shape[1], self.shape[2]), self.order, u.cell_geom,
-            u.dense_basis, flatten_image(self.std_img, self.order),
-            flatten_image(self.mean_img, self.order),
-        )
-        self._vproj_cells = (u.panels, m_cell, q)
-        return m_cell, q
+        """Build the cell route for ``u`` ahead of ``v_projection``, which
+        takes it (loader.py:1046-1068): its operands need only U and the
+        statistics images, so the pipeline calls this right after U is
+        assembled and the build runs while the factorized SVD is queued.
+        Made once per ``u`` (keyed on its panels); returns (m_cell, q)."""
+        route = self._cell_route
+        if route is None or route.panels is not u.panels:
+            route = self._cell_route = _CellRoute(self, u)
+        return route.m_cell, route.q
 
     def v_projection(self, u, p: torch.Tensor) -> torch.Tensor:
         """V = P^T U^T standardize(movie), the second full pass: (r', T).
 
-        On a regular grid with ``blocksparse.COSET_VPROJ`` on, each raw chunk
-        goes through the cell route (``blocksparse.coset_vproj_chunk``, one
-        batched product against the packed per-cell panels; loader.py:1097-1130);
-        otherwise the folded projector A~ = (U P)/std is built once and each
-        chunk is one K2 call. With a mesh each rank streams its stripe of
-        frames and the stripes are gathered, so every rank returns the whole
-        V (loader.py:1070-1227). On the cell route each tile's layout copy is
-        a ``vreg_layout`` span, on the K2 route each K2 call a ``vreg_k2``
-        span; the caller settles both after its fence. Each chunk counts
-        into ``vreg.cell_calls`` or ``vreg.k2_calls``; the K2 route also
-        sets ``vreg.k2_width`` (r') and ``vreg.k2_splits`` (the pixel
-        splits of the last chunk's K2 schedule, 1 for none) and counts
-        ``vreg.k2_frames``."""
-        d1, d2 = self.shape[1], self.shape[2]
+        The route is chosen from ``u``: on a regular grid with
+        ``blocksparse.COSET_VPROJ`` on, each raw chunk goes through the cell
+        route (``_CellRoute``: one batched product against the packed
+        per-cell panels; loader.py:1097-1130); otherwise the folded
+        projector A~ = (U P)/std is built once and each chunk is one K2
+        call (``_K2Route``). With a mesh each rank streams its stripe of
+        frames and the stripes are gathered, so every rank returns the
+        whole V (loader.py:1070-1227). The loader keeps no route after it,
+        and no cell operands; its counters are ``pipeline_record``'s."""
         for key in ("vreg.k2_calls", "vreg.cell_calls"):
             count(self.transfers, key, 0)
         if blocksparse.coset_vproj_eligible(u):
-            m_cell, q = self.prepare_vproj_cells(u)
-            n1, n2, h1, h2 = u.cell_geom
-
-            def project(raw):
-                count(self.transfers, "vreg.cell_calls", 1)
-                return blocksparse.coset_vproj_chunk(m_cell, q, p, raw, n1, n2, h1, h2, u.slots,
-                                                     self.vreg_layout.span)
-
+            self.prepare_vproj_cells(u)
+            route, self._cell_route = self._cell_route, None
         else:
-            std_flat = flatten_image(self.std_img, self.order)
-            mean_flat = flatten_image(self.mean_img, self.order)
-            a = u.matmul(p)                                            # (d, r')
-            a_tilde, c = _fold_projector(a, std_flat, mean_flat)
-            # projector rows follow the pipeline's pixel order; the raw chunk
-            # flattens in C order, so reorder the rows once (loader.py:1142)
-            a_c = _rows_to_c(a_tilde, d1, d2, self.order).contiguous()
-            del a, a_tilde
-            # K2's layout of the projector, made once for every chunk
-            prepared = kernels.prepare_projector(a_c) if a_c.is_cuda else None
-            self.transfers["vreg.k2_width"] = int(a_c.shape[1])
-
-            def project(raw):
-                count(self.transfers, "vreg.k2_calls", 1)
-                count(self.transfers, "vreg.k2_frames", int(raw.shape[0]))
-                raw2d = raw.reshape(raw.shape[0], d1 * d2)
-                self.transfers["vreg.k2_splits"] = kernels.v_projection_splits(raw2d, a_c.shape[1])
-                with self.vreg_k2.span():
-                    return kernels.v_projection(raw2d, a_c, c, prepared)
-
-        results = []
-        chunks = self._take_v_prefetch() or self._iter_raw_chunks(host_partition="frames",
-                                                                  label="vreg")
-        try:
-            for raw in chunks:
-                results.append(project(raw))
-        finally:
-            close = getattr(chunks, "close", None)
-            if close is not None:
-                close()
+            route, self._cell_route = _K2Route(self, u), None
+        self._spans.append(route.spans)
+        route.bind(p)
+        with self._take_v_prefetch() or self._iter_raw_chunks(host_partition="frames",
+                                                              label="vreg") as chunks:
+            results = [route(raw) for raw in chunks]
+        del route  # the cell operands go before V is gathered
         if len(results) == 1:
             v = results[0]
         elif results:
@@ -1066,3 +1074,33 @@ class PMDLoader:
         if self._mesh is None:
             return v
         return replicate_frame_sharded(self._mesh, v, self.shape[0])
+
+    # -- the call's record --------------------------------------------------------
+
+    def pipeline_record(self) -> dict:
+        """The loader's part of ``PMDArray.pipeline_cache``, read after the
+        caller's last fence, which the V regression's device spans need to
+        settle (no synchronize of their own). Its keys:
+
+        - ``cached_frames``, ``total_frames``, ``stream_dtype`` (the dtype
+          chunks reached K1 and K2 in), ``pinned_copies`` and
+          ``pinned_bytes`` (host->device copies of movie frames);
+        - per pass ``<pass>`` (``stats``, ``crop``, ``background``,
+          ``vreg``) that read a host source: ``.host_read_s`` and
+          ``.host_read_bytes`` (``loader.host_read``), ``.host_reads`` and
+          ``.host_read_split`` (those the dataset's ``read_threads`` split),
+          ``.slot_wait_s`` (``loader.slot_wait``) and ``.chunk_wait_s``
+          (``loader.chunk_wait``); chunks the card serves count nothing;
+        - ``vreg.k2_calls`` and ``vreg.cell_calls`` (chunks per route); on
+          the K2 route ``vreg.k2_width`` (r') and ``vreg.k2_frames``; while
+          the profiler runs, ``vreg.layout_s`` and ``vreg.k2_s``, the device
+          seconds of the ``vreg.layout`` and ``vreg.k2`` spans."""
+        for spans in self._spans:
+            spans.settle()
+        self._spans.clear()
+        return {
+            "cached_frames": int(self._cache_frames),
+            "total_frames": int(self.shape[0]),
+            **self.transfers,
+            "stream_dtype": str(self.stream_dtype).removeprefix("torch."),
+        }

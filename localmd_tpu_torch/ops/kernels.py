@@ -336,16 +336,6 @@ def v_projection(
 v_projection.launches = 0
 
 
-def v_projection_splits(raw2d: torch.Tensor, r: int) -> int:
-    """The pixel splits K2 takes for ``raw2d`` and an r'-column projector:
-    ``vp_schedule``'s on a card, 1 for the plain twin on the CPU."""
-    if raw2d.device.type == "cpu":
-        return 1
-    t, d = raw2d.shape
-    return vp_schedule(t, d, r, torch.cuda.get_device_properties(raw2d.device)
-                       .multi_processor_count).splits
-
-
 # ---------------------------------------------------------------------------
 # K3: blocked reconstruction
 # ---------------------------------------------------------------------------

@@ -40,7 +40,6 @@ sets out the stages).
 from __future__ import annotations
 
 import contextlib
-import gc
 import hashlib
 import math
 import os
@@ -88,7 +87,6 @@ from localmd_tpu_torch.utils import (
     block_batch_budget,
     device_free_bytes,
     display,
-    is_device_oom,
     make_generator,
     normal,
     stage_seeds,
@@ -295,21 +293,9 @@ def localmd_decomposition(
     ``pipeline_ranks`` (the JAX package's: ``final`` is the width of ``s``,
     the kept count is ``rank``), ``pipeline_windows`` (init windows and,
     per block batch, the windows run before the early stop) and
-    ``pipeline_cache`` (cached frames, total frames, the loader's pinned
-    host->device copies and bytes, and the stream dtype: the dtype the
-    chunks reached K1 and K2 in; and the loader's span counters, for each
-    pass ``<pass>`` of ``stats``, ``crop``, ``background`` and ``vreg``
-    that read from a host source: ``<pass>.host_read_s`` and
-    ``<pass>.host_read_bytes``, the reads from the dataset into host
-    memory, ``<pass>.host_reads`` and ``<pass>.host_read_split``, their
-    count and those split over the dataset's threads,
-    ``<pass>.slot_wait_s``, the waits for a pinned slot's previous
-    copy, and ``<pass>.chunk_wait_s``, the caller's waits for a prefetched
-    chunk; the V regression's chunks per route, ``vreg.k2_calls`` and
-    ``vreg.cell_calls``, and on the K2 route the projector's width
-    ``vreg.k2_width`` and the frames ``vreg.k2_frames``; while the profiler
-    runs, ``vreg.layout_s`` and ``vreg.k2_s``, the device seconds of the
-    cell route's layout copy and of the K2 calls; ``fsvd.banded``, 1 where
+    ``pipeline_cache`` (the loader's keys, ``PMDLoader.pipeline_record``:
+    the movie cache, the copies, the stream dtype, the passes' reads and
+    waits and the V regression's counters; and ``fsvd.banded``, 1 where
     the factorized SVD's Gram took the banded form and 0 where it took the
     canvas (or was resumed); ``blocks.remainder``, the blocks the coset
     block stage left off its lattices to the gathered batches, 0 without
@@ -525,17 +511,9 @@ def _decompose(
         # frame's result is independent of the others, so this equals the
         # JAX package's load-then-crop).
         display("Loading and filtering initialization frames")
-        try:
-            data, temporal_basis_crop = load_obj.temporal_crop_with_filter(frames[:crop_avg_constant])
-        except Exception as e:  # noqa: BLE001
-            # the movie cache left too little memory for the init buffer:
-            # drop it and retry (pipeline.py:598-607); never on one rank
-            # alone (the cache is off there anyway)
-            if not is_device_oom(e) or load_obj._cache is None or world > 1:
-                raise
-            display("WARNING: init-frame load hit device OOM; retrying without the movie cache")
-            load_obj.release_cache()
-            data, temporal_basis_crop = load_obj.temporal_crop_with_filter(frames[:crop_avg_constant])
+        # the movie cache may leave too little memory (pipeline.py:598-607)
+        data, temporal_basis_crop = load_obj.without_cache_on_oom(
+            load_obj.temporal_crop_with_filter, frames[:crop_avg_constant])
         if pixel_weighting is not None:
             data = data * torch.as_tensor(
                 np.asarray(pixel_weighting, dtype=np.float32), device=dev
@@ -710,38 +688,31 @@ def _decompose(
         ckpt.save("projector", p=p_)
         return p_
 
+    v_resumed = ckpt.has("v")
+
+    def _project_and_reformat():
+        p = _compute_projector()
+        display(f"Rank after reduction: <= {p.shape[1]}")
+        _mark("factorized_svd")
+        if v_resumed:
+            display("Resuming: V regression loaded from checkpoint")
+            v = torch.as_tensor(ckpt.load("v")["v"], device=dev)
+        else:
+            display("Running streaming V regression over the full movie")
+            v = load_obj.v_projection(u, p)
+        _mark("v_regression")
+        display("Final SVD reformat")
+        r, s_vals, vt, s_keep = final_svd_reformat(p, v, rel_tol=final_rank_tol)
+        return p, v, r, s_vals, vt, s_keep
+
+    if not v_resumed:
+        # the V regression's disk reads and copies overlap the factorized SVD
+        load_obj.start_v_prefetch()
     # The projector, the V regression and the reformat share one OOM-retry
     # scope: on a device OOM the movie cache goes, the projector is made
     # again from the same seed and the frames stream again
     # (pipeline.py:1314-1376).
-    v_resumed = ckpt.has("v")
-    if not v_resumed:
-        # the V regression's disk reads and copies overlap the factorized SVD
-        load_obj.start_v_prefetch()
-    for attempt in (0, 1):
-        try:
-            p = _compute_projector()
-            display(f"Rank after reduction: <= {p.shape[1]}")
-            _mark("factorized_svd")
-            if v_resumed:
-                display("Resuming: V regression loaded from checkpoint")
-                v = torch.as_tensor(ckpt.load("v")["v"], device=dev)
-            else:
-                display("Running streaming V regression over the full movie")
-                v = load_obj.v_projection(u, p)
-            _mark("v_regression")
-            load_obj.vreg_layout.settle()
-            load_obj.vreg_k2.settle()
-            display("Final SVD reformat")
-            r, s_vals, vt, s_keep = final_svd_reformat(p, v, rel_tol=final_rank_tol)
-            break
-        except Exception as e:  # noqa: BLE001
-            if not is_device_oom(e) or load_obj._cache is None or attempt or world > 1:
-                raise
-            display("WARNING: factorized SVD / V regression hit device OOM; "
-                    "dropping the movie cache and streaming again")
-            load_obj.release_cache()  # also closes a pending V prefetch
-            gc.collect()
+    p, v, r, s_vals, vt, s_keep = load_obj.without_cache_on_oom(_project_and_reformat)
     del v_cropped
     if not v_resumed:
         ckpt.save("v", v=v)
@@ -762,10 +733,7 @@ def _decompose(
     }
     out.pipeline_windows = {"n_windows": n_windows, "run_per_batch": windows_run}
     out.pipeline_cache = {
-        "cached_frames": int(load_obj._cache_frames),
-        "total_frames": int(t_total),
-        **load_obj.transfers,
-        "stream_dtype": str(load_obj.stream_dtype).removeprefix("torch."),
+        **load_obj.pipeline_record(),
         "fsvd.banded": fsvd_banded,
         "blocks.remainder": remainder_blocks,
     }

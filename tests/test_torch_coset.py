@@ -256,6 +256,31 @@ def test_v_projection_cell_route_matches_k2_route(order, batch, dtype, source, r
     np.testing.assert_allclose(v_cell / scale, v_ref / scale, atol=3e-5)
 
 
+def test_v_projection_drops_the_cell_operands(rng, monkeypatch):
+    """After ``v_projection`` on the cell route the loader holds no cell
+    operands (the (nc1, nc2, h1*h2, 4S + K) ``m_cell`` is gone once the
+    caller drops its own reference), and a second ``prepare_vproj_cells``
+    builds them again; the second V is the first, bit for bit."""
+    import gc
+    import weakref
+
+    t, d = 130, 24
+    movie = (rng.standard_normal((t, d, d)) + 4).astype(np.float32)
+    _, tu, _ = _matrices(rng, d, d, (12, 12), "F", slots=3, k_bg=2)
+    p = t32(rng.standard_normal((tu.shape[1], 5)))
+    monkeypatch.setattr(tb, "COSET_VPROJ", True)
+    builds = []
+    real = tb.build_vproj_cells
+    monkeypatch.setattr(tb, "build_vproj_cells", lambda *a: builds.append(1) or real(*a))
+    ld = TLoader(movie, device="cpu", background_rank=0, seed=0)
+    m_cell = weakref.ref(ld.prepare_vproj_cells(tu)[0])
+    v_first = ld.v_projection(tu, p)
+    gc.collect()
+    assert m_cell() is None and len(builds) == 1
+    assert ld.prepare_vproj_cells(tu)[0] is not None and len(builds) == 2
+    assert torch.equal(ld.v_projection(tu, p), v_first) and len(builds) == 2
+
+
 # -- (e) the coset block stage ---------------------------------------------
 
 

@@ -141,6 +141,19 @@ def test_module_imports_no_matplotlib_at_its_top(path):
     assert "matplotlib" not in set(_top_level_imports(path))
 
 
+def test_pipeline_reads_only_the_loaders_public_names():
+    """The pipeline reaches the loader only through its public methods and
+    attributes: no ``load_obj._<name>`` anywhere in ``pipeline.py`` (the
+    movie cache, its OOM retry, the V regression's route and the call's
+    record are the loader's own)."""
+    path = os.path.join(PKG, "pipeline.py")
+    tree = ast.parse(open(path).read(), filename=path)
+    private = sorted({node.attr for node in ast.walk(tree)
+                      if isinstance(node, ast.Attribute) and isinstance(node.value, ast.Name)
+                      and node.value.id == "load_obj" and node.attr.startswith("_")})
+    assert private == []
+
+
 def test_no_mesh_leaves_dtensor_unimported():
     """``import localmd_tpu_torch`` and a decomposition without a mesh, at
     golden size on the CPU, never import ``torch.distributed.tensor``

@@ -3,7 +3,7 @@
 ``pipeline_cache`` (reads split over ``NumpyArray``'s copy threads too), the ``localmd.<stage>`` spans, the cell route's
 ``vreg.layout`` span and the K2 route's ``vreg.k2`` span in the torch
 profiler's trace, the route counters (``vreg.k2_calls``, ``vreg.cell_calls``,
-``vreg.k2_width``, ``vreg.k2_splits``, ``vreg.k2_frames``, ``fsvd.banded``,
+``vreg.k2_width``, ``vreg.k2_frames``, ``fsvd.banded``,
 ``blocks.remainder``), and no span or device counter with the profiler off.
 
 CPU tests, but for one case marked ``gpu`` that skips (in a fixture, not at
@@ -140,7 +140,6 @@ def _split_k2_route_counters(runs, movie):
     assert cache["vreg.k2_calls"] >= 1 and cache["vreg.cell_calls"] == 0
     assert cache["vreg.k2_frames"] == movie.shape[0]
     assert cache["vreg.k2_width"] >= 1
-    assert cache["vreg.k2_splits"] == 1        # the plain twin: no split
     assert cache["fsvd.banded"] == 0 and cache["blocks.remainder"] == 0
 
 
@@ -201,7 +200,7 @@ def test_spans_land_in_the_profilers_trace(movie, cell_route, tmp_path, how):
     # the cell route counts its chunks and records nothing of K2's
     assert "vreg.k2" not in spans
     cache = pmd.pipeline_cache
-    assert not {"vreg.k2_s", "vreg.k2_width", "vreg.k2_frames", "vreg.k2_splits"} & set(cache)
+    assert not {"vreg.k2_s", "vreg.k2_width", "vreg.k2_frames"} & set(cache)
     assert cache["vreg.k2_calls"] == 0 and cache["vreg.cell_calls"] >= 1
 
 

@@ -11,6 +11,14 @@ device's transient budget. Arrays built from host factors (.npz, scipy)
 or closed ones slice through the host CSR path (pmd_array.py:532-589).
 ``reconstruct_frames`` runs K3 chunk by chunk and never builds the full-T
 (R s) V product; ``export_tiff`` streams it into a TIFF.
+
+Where a result lives: a device slice of factors on the card, if its bytes
+fit the device's transient budget, is copied straight into page-locked
+host memory (one DMA at the link's rate) and returned as a numpy view of
+that memory, which the array keeps alive; once the array dies, torch's
+caching host allocator keeps the block for the next result of its
+power-of-two size. Every other result lives in pageable host memory. Neither is copied
+again on the host: ``__getitem__`` returns float32 as it comes.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ from localmd_tpu_torch.config import resolve_device
 from localmd_tpu_torch.ops import kernels
 from localmd_tpu_torch.ops.tiling import BlockGrid, unflatten_fov
 from localmd_tpu_torch.utils.device import transient_budget_bytes
+from localmd_tpu_torch.utils.logging import count, span
 
 RECON_CHUNK_FRAMES = 512
 _CLOSED = (
@@ -74,6 +83,27 @@ def _host(x) -> np.ndarray:
 
 
 class PMDArray:
+    """The compressed movie ``[U R] s Vt`` as a lazy (T, d1, d2) array.
+
+    ``slice_counters`` counts the device slicing of ``__getitem__``:
+
+    - ``slice.pinned``: requests whose result was copied into page-locked
+      host memory (factors on the card, result within the device's
+      transient budget);
+    - ``slice.pageable``: requests served in pageable host memory (factors
+      on the CPU, a larger result, or a page-locked allocation that raised);
+    - ``slice.host_bytes``: the bytes of the results delivered;
+    - ``slice.to_host_s``: host seconds of the ``pmd.to_host`` span, from
+      the output's allocation to the end of the wait for its copies (the
+      chunks' launches and the device work still queued included).
+
+    A page-locked result keeps its block while the caller holds the array;
+    afterwards torch's caching host allocator keeps the block (the request
+    rounded up to a power of two) for reuse and does not return it to the
+    system. One request holds at most the device's transient budget
+    (``utils.device.transient_budget_bytes``) before that rounding.
+    """
+
     def __init__(
         self,
         u: Union[scipy.sparse.spmatrix, BlockSparseMatrix],
@@ -148,6 +178,7 @@ class PMDArray:
         self.row_indices = np.arange(self.fov_dim1 * self.fov_dim2).reshape(
             (self.fov_dim1, self.fov_dim2), order=self.order
         )
+        self.slice_counters: dict = {}
 
     @classmethod
     def from_reference_state(cls, state: dict, device="cuda") -> "PMDArray":
@@ -470,20 +501,41 @@ class PMDArray:
         """Reference slicing semantics run on the factors' device
         (pmd_array.py:464-499): only the blocks that meet the ROI are
         touched, never the CSR export; the frame axis goes in chunks whose
-        buffers fit ``_slice_canvas_budget``."""
+        buffers fit ``_slice_canvas_budget``. Each chunk is copied into its
+        frames of one host tensor of the result's shape: page-locked, with
+        non-blocking copies and one wait on the stream, when the factors
+        are on the card and the result fits ``transient_budget_bytes``;
+        pageable otherwise (``PMDArray``'s docstring)."""
         used_rows, mean_used, var_used, frame_idx = self._selection(key)
         n_f = int(frame_idx.size)
+        shape = (n_f,) + used_rows.shape
         if used_rows.size == 0 or n_f == 0:
-            return np.zeros((n_f,) + used_rows.shape, dtype=np.float32)
+            return np.zeros(shape, dtype=np.float32)
         dev = self._blocksparse.panels.device
         per_chunk = max(1, _slice_canvas_budget(dev) // self._slice_frame_bytes(used_rows))
         var_dev = torch.as_tensor(np.asarray(var_used, dtype=np.float32), device=dev)[..., None]
         mean_dev = torch.as_tensor(np.asarray(mean_used, dtype=np.float32), device=dev)[..., None]
-        parts = []
-        for s in range(0, n_f, per_chunk):
-            std = self._slice_device_chunk(used_rows, frame_idx[s : s + per_chunk])
-            parts.append(_host(torch.movedim(std * var_dev + mean_dev, -1, 0).contiguous()))
-        return parts[0] if len(parts) == 1 else np.concatenate(parts, axis=0)
+        counters = self.slice_counters
+        with span(counters, "slice.to_host_s", "pmd.to_host"):
+            out = None
+            if dev.type == "cuda" and 4 * n_f * used_rows.size <= transient_budget_bytes(dev):
+                try:
+                    out = torch.empty(shape, dtype=torch.float32, pin_memory=True)
+                except RuntimeError:  # page-locked memory exhausted or refused
+                    pass
+            pinned = out is not None
+            if not pinned:
+                out = torch.empty(shape, dtype=torch.float32)
+            for s in range(0, n_f, per_chunk):
+                std = self._slice_device_chunk(used_rows, frame_idx[s : s + per_chunk])
+                out[s : s + per_chunk].copy_(
+                    torch.movedim(std * var_dev + mean_dev, -1, 0).contiguous(), non_blocking=pinned
+                )
+            if pinned:
+                torch.cuda.current_stream(dev).synchronize()
+        count(counters, "slice.pinned" if pinned else "slice.pageable", 1)
+        count(counters, "slice.host_bytes", out.nbytes)
+        return out.numpy()
 
     def slice_device(self, *key) -> torch.Tensor:
         """Like ``pmd[frames, rows, cols]``, but the result stays a tensor
@@ -540,14 +592,21 @@ class PMDArray:
         return np.transpose(output, axes=(output.ndim - 1, *range(output.ndim - 1)))
 
     def __getitem__(self, key) -> np.ndarray:
+        """``pmd[frames, rows, cols]``: float32 frames first, squeezed, as
+        the reference returns them. With factors on the card and a result
+        within the device's transient budget, the array is a view of
+        page-locked host memory that it keeps alive; once it dies, torch's
+        caching host allocator keeps that block for a later result.
+        Otherwise it lives in pageable memory. Either way it is the
+        result's only host copy and is the caller's to write."""
         if key is None:
             raise ValueError("Cannot use None for indexing")
         if not isinstance(key, tuple):
             key = (key,)
         if self._blocksparse is not None:
             # device factors live: slice on their device, no CSR export
-            return self._getitem_device(key).squeeze().astype(self.dtype)
-        return self._getitem_host(key).squeeze().astype(self.dtype)
+            return self._getitem_device(key).squeeze().astype(self.dtype, copy=False)
+        return self._getitem_host(key).squeeze().astype(self.dtype, copy=False)
 
     # -- resource management ----------------------------------------------------
 

@@ -75,6 +75,59 @@ def test_device_slicing_matches_jax(name, pair):
     assert port._blocksparse is not None and port._u_csr is None
 
 
+@pytest.mark.parametrize("name", ["int_frame", "frame_slice_roi", "strided", "fancy_pairs",
+                                  "pixel_trace", "negative_rows"])
+def test_results_are_the_callers_to_write(name, pair):
+    """A served array is the result's only host copy: writing into it
+    changes neither the next request's result nor the factors."""
+    jpmd, port = pair
+    key = KEYS[name]
+    u = port._blocksparse
+    factors = [t.clone() for t in (u.panels, u.dense_basis, port._r_padded, port._v_src,
+                                   port._mean_src, port._var_src)]
+    first = port[key]
+    want = first.copy()
+    assert first.flags.writeable and first.dtype == np.float32
+    first[...] = 1e9
+    again = port[key]
+    # a repeat on the CPU may differ in its last bits (the GEMMs' blocking
+    # follows the buffers' alignment)
+    assert rel_fro(again, want) <= 1e-6 and rel_fro(again, jpmd[key]) <= 1e-5
+    for before, now in zip(factors, (u.panels, u.dense_basis, port._r_padded, port._v_src,
+                                     port._mean_src, port._var_src)):
+        assert torch.equal(before, now)
+
+
+@pytest.mark.parametrize("name", ["int_frame", "unaligned_roi", "pixel_trace", "fancy_pairs"])
+def test_slice_counters_count_the_pageable_requests(name, pair):
+    """CPU factors take the pageable route: each request adds one to
+    ``slice.pageable`` and its result's bytes to ``slice.host_bytes``,
+    whatever the chunking; empty selections count nothing."""
+    _, port = pair
+    key = KEYS[name]
+    c = port.slice_counters
+    before = {k: c.get(k, 0) for k in ("slice.pageable", "slice.host_bytes", "slice.to_host_s")}
+    got = [port[key] for _ in range(2)]
+    port[EMPTY_KEYS["no_frames"]]
+    assert c["slice.pageable"] - before["slice.pageable"] == 2
+    assert c["slice.host_bytes"] - before["slice.host_bytes"] == 2 * got[0].nbytes
+    assert c["slice.to_host_s"] > before["slice.to_host_s"]
+    assert "slice.pinned" not in c
+
+
+def test_to_host_span_lands_in_the_trace(pair):
+    """``pmd.to_host`` is a host range of the profiler's trace, once per
+    request; with the profiler off it is only counted."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _, port = pair
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        port[KEYS["int_frame"]]
+        port[KEYS["unaligned_roi"]]
+    names = [e.name() for e in prof.profiler.kineto_results.events()]
+    assert names.count("pmd.to_host") == 2
+
+
 @pytest.mark.parametrize("name", ["unaligned_roi", "strided", "pixel_trace"])
 def test_small_budgets_chunk_both_packages_alike(name, pair, monkeypatch):
     jpmd, port = pair

@@ -17,7 +17,9 @@
   as a Python loop over windows, with the host reading two scalars per
   window (early stop, fallback tier) where JAX keeps them on the device;
   with ``mesh`` the blocks are split over the ranks
-  (``parallel.sharded_windowed_pmd``).
+  (``parallel.sharded_windowed_pmd``). Each window is an ``engine.window``
+  span and each read an ``engine.window_wait`` span (host ranges of the
+  profiler's trace while it runs).
 - ``threshold_heuristic``: the noise-null Monte-Carlo for the roughness
   cutoffs (engine.py:911-1060), memoized on a caller's ``cache_token``;
   ``jnp.percentile`` becomes ``torch.quantile`` with linear interpolation.
@@ -33,6 +35,7 @@ for such a denoiser; nothing catches that and falls back to a loop.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import Callable, NamedTuple, Optional, Tuple
 
@@ -57,6 +60,7 @@ from localmd_tpu_torch.ops.roughness import (
 from localmd_tpu_torch.ops.tiling import block_grid, extract_patches, flatten_fov, unflatten_fov
 from localmd_tpu_torch.parallel.multihost import validate_multihost_mesh
 from localmd_tpu_torch.parallel.sharded import sharded_windowed_pmd
+from localmd_tpu_torch.utils.logging import span
 from localmd_tpu_torch.utils.random import normal, random_draws_are_live
 
 
@@ -496,6 +500,7 @@ class WindowedPMDResult(NamedTuple):
     counts: torch.Tensor     # (n,) kept components per block
     temporal: torch.Tensor   # (n, max_rank, t) projection of the whole block
     windows_run: int         # windows decomposed before the early stop
+    fallback: int            # zero-component blocks re-run by the full kernel, summed over windows
 
 
 def effective_window_length(window_length: int, t: int, temporal_avg_factor: int) -> int:
@@ -522,6 +527,7 @@ def windowed_pmd_batched(
     spatial_denoiser: Callable = identity,
     temporal_denoiser: Callable = identity,
     mesh=None,
+    residual_span: Callable = contextlib.nullcontext,
 ) -> WindowedPMDResult:
     """Windowed blockwise PMD over a batch of blocks (engine.py:843-903).
 
@@ -535,7 +541,10 @@ def windowed_pmd_batched(
     denoisers reach every run of the two-stage kernel; the residual kernel
     takes none, as in the JAX package. With ``mesh`` (``parallel.make_mesh``)
     the blocks are split over its ranks (``parallel.sharded_windowed_pmd``);
-    n must be divisible by the mesh size."""
+    n must be divisible by the mesh size. ``residual_span`` (a callable
+    giving a context manager, such as ``utils.logging.DeviceSpans.span``)
+    encloses each residual window's work: the residual kernel, the
+    fallback and the packing."""
     n, b1, b2, t = blocks.shape
     wl = effective_window_length(window_length, t, temporal_avg_factor)
     n_windows = window_count(t, wl)
@@ -549,11 +558,12 @@ def windowed_pmd_batched(
             temporal_avg_factor=temporal_avg_factor, spatial_avg_factor=spatial_avg_factor,
             max_consecutive_failures=max_consecutive_failures,
             spatial_denoiser=spatial_denoiser, temporal_denoiser=temporal_denoiser,
+            residual_span=residual_span,
         )
     return _windowed_loop(
         blocks, sketches, wl, n_windows, max_rank, spatial_threshold, temporal_threshold,
         max_consecutive_failures, temporal_avg_factor, spatial_avg_factor, spatial_denoiser,
-        temporal_denoiser,
+        temporal_denoiser, residual_span=residual_span,
     )
 
 
@@ -562,13 +572,18 @@ def _windowed_loop(
     max_consecutive_failures, temporal_avg_factor, spatial_avg_factor,
     spatial_denoiser: Callable = identity, temporal_denoiser: Callable = identity,
     agree: Optional[Callable] = None,
+    residual_span: Callable = contextlib.nullcontext,
 ) -> WindowedPMDResult:
     """The window loop of ``windowed_pmd_batched`` (engine.py:693-790), the
     host reading two scalars a window: ``[-min(counts), zero-count
     blocks]``. ``agree`` (the mesh path's all-reduce, max) makes them the
     ranks' common values, so every rank stops and picks the fallback tier
     together; ``fallback_cap`` stays this rank's n // 8, as inside JAX's
-    ``shard_map``."""
+    ``shard_map``. Each window run is an ``engine.window`` span, each read
+    an ``engine.window_wait`` span between them; ``residual_span`` encloses
+    every residual window's work. ``fallback`` sums the read zero-block
+    counts of the residual windows run (the ranks' common value on a
+    mesh)."""
     n, b1, b2, t = blocks.shape
     kw = dict(
         max_rank=max_rank, temporal_avg_factor=temporal_avg_factor,
@@ -578,32 +593,38 @@ def _windowed_loop(
     )
     acc = torch.zeros((n, b1 * b2, max_rank), dtype=blocks.dtype, device=blocks.device)
     counts = torch.zeros((n,), dtype=torch.int32, device=blocks.device)
-    acc, counts = _md_pack_step(
-        blocks[..., :wl], sketches[0], acc, counts, max_rank, temporal_avg_factor,
-        spatial_avg_factor, spatial_threshold, temporal_threshold, max_consecutive_failures,
-        spatial_denoiser, temporal_denoiser,
-    )
+    with span(None, None, "engine.window"):
+        acc, counts = _md_pack_step(
+            blocks[..., :wl], sketches[0], acc, counts, max_rank, temporal_avg_factor,
+            spatial_avg_factor, spatial_threshold, temporal_threshold, max_consecutive_failures,
+            spatial_denoiser, temporal_denoiser,
+        )
     fallback_cap = max(1, n // 8)
+    fallback = 0
     w = 1
     while w < n_windows:
         is_zero = counts == 0
         stat = torch.stack([-counts.min(), is_zero.sum().to(counts.dtype)])
         if agree is not None:
             stat = agree(stat)
-        neg_least, n_zero = stat.tolist()
+        with span(None, None, "engine.window_wait"):
+            neg_least, n_zero = stat.tolist()
         if -neg_least >= max_rank:
             break
-        start = min(w * wl, t - wl)
-        window = blocks[..., start : start + wl]
-        u, dec, _ = single_residual_block_md_batched(
-            window, acc, sketches[w], max_rank, temporal_avg_factor,
-            spatial_threshold, temporal_threshold,
-        )
-        u, dec = _fallback_rerun(window, sketches[w], u, dec, is_zero, n_zero, fallback_cap, **kw)
-        acc, counts = pack_components(u, dec, acc, counts, max_consecutive_failures)
+        with span(None, None, "engine.window"), residual_span():
+            start = min(w * wl, t - wl)
+            window = blocks[..., start : start + wl]
+            u, dec, _ = single_residual_block_md_batched(
+                window, acc, sketches[w], max_rank, temporal_avg_factor,
+                spatial_threshold, temporal_threshold,
+            )
+            u, dec = _fallback_rerun(window, sketches[w], u, dec, is_zero, n_zero, fallback_cap,
+                                     **kw)
+            acc, counts = pack_components(u, dec, acc, counts, max_consecutive_failures)
+        fallback += n_zero
         w += 1
     temporal = temporal_projector_batched(acc, flatten_fov(blocks))
-    return WindowedPMDResult(acc, counts, temporal, w)
+    return WindowedPMDResult(acc, counts, temporal, w, fallback)
 
 
 # ---------------------------------------------------------------------------

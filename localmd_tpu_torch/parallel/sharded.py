@@ -26,6 +26,7 @@ block's result does not depend on the rank that computes it.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Tuple
 
 import torch
@@ -92,6 +93,7 @@ def sharded_windowed_pmd(
     max_consecutive_failures: int,
     spatial_denoiser=None,
     temporal_denoiser=None,
+    residual_span=contextlib.nullcontext,
 ):
     """The multi-window loop with the blocks split (sharded.py:89-137).
 
@@ -110,9 +112,10 @@ def sharded_windowed_pmd(
         spatial_denoiser if spatial_denoiser is not None else identity,
         temporal_denoiser if temporal_denoiser is not None else identity,
         agree=lambda stat: all_reduce_(mesh, stat, "max"),
+        residual_span=residual_span,
     )
     acc, counts, temporal = replicate_block_outputs(mesh, res.spatial, res.counts, res.temporal)
-    return WindowedPMDResult(acc, counts, temporal, res.windows_run)
+    return WindowedPMDResult(acc, counts, temporal, res.windows_run, res.fallback)
 
 
 def sharded_block_decomposition(

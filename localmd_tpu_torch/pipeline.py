@@ -92,7 +92,7 @@ from localmd_tpu_torch.utils import (
     stage_seeds,
 )
 from localmd_tpu_torch.utils.device import TRANSIENT_FLOOR_BYTES
-from localmd_tpu_torch.utils.logging import span
+from localmd_tpu_torch.utils.logging import DeviceSpans, span
 
 # the stages of ``pipeline_timings``, in the order they run; each is also a
 # ``localmd.<stage>`` span from the previous stage's fence to its own
@@ -299,7 +299,13 @@ def localmd_decomposition(
     the factorized SVD's Gram took the banded form and 0 where it took the
     canvas (or was resumed); ``blocks.remainder``, the blocks the coset
     block stage left off its lattices to the gathered batches, 0 without
-    the coset stage), and the JAX package's
+    the coset stage; ``blocks.batches``, the gathered batches of blocks;
+    ``blocks.windows_run``, the windows run summed over the batches and
+    the coset stage (one each for a single window); ``blocks.fallback``,
+    the zero-component blocks the window loop re-ran through the full
+    kernel, summed over its windows; while the profiler runs,
+    ``blocks.residual_s``, the device seconds of the residual windows'
+    ``blocks.residual`` spans), and the JAX package's
     ``pipeline_aot`` and ``pipeline_warm`` as it reports them with its
     warms off (pipeline.py:1404-1415).
     """
@@ -492,6 +498,13 @@ def _decompose(
         wl_eff = effective_window_length(window_len, crop_avg_constant, temporal_avg_factor)
         n_windows, sketch_frames = window_count(crop_avg_constant, wl_eff), wl_eff
     windows_run: list = []
+    # per gathered batch, the blocks the window loop re-ran through the full
+    # kernel (``blocks.fallback``; one entry a batch: ``blocks.batches``)
+    fallbacks: list = []
+    # the residual windows' device seconds (``blocks.residual_s``), settled
+    # after the stage's fence
+    block_record: dict = {}
+    residual = DeviceSpans(block_record, "blocks.residual_s", "blocks.residual", dev)
     # blocks the coset stage left to the gathered batches (``blocks.remainder``)
     remainder_blocks = 0
     blocks_ckpt = ckpt.has("blocks")
@@ -567,14 +580,16 @@ def _decompose(
                     spatial_threshold, temporal_threshold, max_consecutive_failures, sden, tden,
                 )
                 windows_run.append(1)
+                fallbacks.append(0)
             else:
-                acc, cnt, v_fit, ran = windowed_pmd_batched(
+                acc, cnt, v_fit, ran, fallback = windowed_pmd_batched(
                     extract_patches(data, grid.starts[idx], b1, b2), sketches.index_select(1, ids),
                     window_len, max_components, spatial_threshold, temporal_threshold,
                     max_consecutive_failures, temporal_avg_factor, spatial_avg_factor, sden, tden,
-                    mesh=mesh,
+                    mesh=mesh, residual_span=residual.span,
                 )
                 windows_run.append(ran)
+                fallbacks.append(fallback)
             return acc[:n_real], cnt[:n_real], v_fit[:n_real]
 
         parts = []  # (ids, panels, counts, v_blocks), in any order
@@ -657,6 +672,7 @@ def _decompose(
     del v_blocks
     total_rank = int(counts.sum())
     _mark("block_decomposition")
+    residual.settle()
     display(f"Total blockwise rank (pre-background): {total_rank}")
 
     # -- factorized SVD / rank prune ----------------------------------------
@@ -736,6 +752,10 @@ def _decompose(
         **load_obj.pipeline_record(),
         "fsvd.banded": fsvd_banded,
         "blocks.remainder": remainder_blocks,
+        "blocks.batches": len(fallbacks),
+        "blocks.windows_run": int(sum(windows_run)),
+        "blocks.fallback": int(sum(fallbacks)),
+        **block_record,
     }
     out.pipeline_aot = {"enabled": False, "used": False}
     out.pipeline_warm = {"completed": [], "errors": {}}

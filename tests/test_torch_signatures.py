@@ -73,9 +73,11 @@ SUBSTITUTIONS = {
                                                           "the movie's length in place of a "
                                                           "sharded global array"),
     ("parallel.multihost.agree_int_min", None): (("mesh",), MESH),
-    ("engine.WindowedPMDResult.__init__", None): (("windows_run",),
+    ("engine.WindowedPMDResult.__init__", None): (("windows_run", "fallback"),
                                                   "the engine's result also counts the windows run "
-                                                  "before the early stop (pmd.pipeline_windows)"),
+                                                  "before the early stop (pmd.pipeline_windows) "
+                                                  "and the blocks the fallback re-ran "
+                                                  "(blocks.fallback)"),
     ("ops.linalg.jacobi_eigh", "sweeps"): ((), NOT_PORTED + "jacobi_eigh as XLA code; ops.jacobi_eigh "
                                           "is K4, which runs the JAX package's sweep count for k"),
     ("utils.device.ambient_device", None): (None, NOT_PORTED + "JAX's thread-local default device; "

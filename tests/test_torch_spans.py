@@ -4,7 +4,10 @@
 ``vreg.layout`` span and the K2 route's ``vreg.k2`` span in the torch
 profiler's trace, the route counters (``vreg.k2_calls``, ``vreg.cell_calls``,
 ``vreg.k2_width``, ``vreg.k2_frames``, ``fsvd.banded``,
-``blocks.remainder``), and no span or device counter with the profiler off.
+``blocks.remainder``), the multi-window block stage's ``engine.window``,
+``engine.window_wait`` and ``blocks.residual`` spans and its counters
+(``blocks.batches``, ``blocks.windows_run``, ``blocks.fallback``,
+``blocks.residual_s``), and no span or device counter with the profiler off.
 
 CPU tests, but for one case marked ``gpu`` that skips (in a fixture, not at
 import) unless ``torch.cuda.is_available()``. Run it on a machine with the
@@ -28,6 +31,8 @@ from localmd_tpu_torch.utils import logging as port_logging
 
 SETTINGS = dict(block_sizes=(16, 16), frame_range=300, max_components=4, background_rank=1,
                 sim_iters=10, seed=0)
+SPAN_PREFIXES = ("localmd.", "loader.", "vreg.", "engine.", "blocks.")
+BLOCK_KEYS = ("blocks.batches", "blocks.windows_run", "blocks.fallback")
 PASS_KEYS = ("host_read_s", "host_read_bytes", "host_reads", "host_read_split", "slot_wait_s",
              "chunk_wait_s")
 
@@ -165,7 +170,7 @@ def _threads_by_span(events) -> dict:
     """{span name: set of thread ids} of the program's spans."""
     out: dict = {}
     for name, tid in events:
-        if name.startswith(("localmd.", "loader.", "vreg.")):
+        if name.startswith(SPAN_PREFIXES):
             out.setdefault(name, set()).add(tid)
     return out
 
@@ -234,6 +239,65 @@ def test_k2_span_lands_in_the_profilers_trace(k2_profiled, movie, case):
     """On the K2 route each K2 call is a ``vreg.k2`` span on the caller's
     thread, settled into ``vreg.k2_s``; the cell route's span is absent."""
     K2_CASES[case](k2_profiled, movie)
+
+
+@pytest.fixture(scope="module")
+def windowed(movie):
+    """One call in three 100-frame init windows with the profiler off and
+    one under it: {"off": cache, "on": cache, "spans": ..., "events": ...}."""
+    settings = dict(window_chunks=100)
+    off = _call(NumpyArray(movie), **settings)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        on = _call(NumpyArray(movie), **settings)
+    events = [(e.name(), e.start_thread_id(), e.device_type())
+              for e in prof.profiler.kineto_results.events()]
+    return dict(off=dict(off.pipeline_cache), on=dict(on.pipeline_cache),
+                timings=dict(on.pipeline_timings),
+                spans=_threads_by_span((n, tid) for n, tid, _ in events), events=events)
+
+
+def _window_spans_host_only(run):
+    # one engine.window span per window run, one engine.window_wait per
+    # blocking read (before each residual window), one blocks.residual per
+    # residual window, all host ranges on the caller's thread
+    cache, spans = run["on"], run["spans"]
+    assert cache["blocks.windows_run"] == 3 * cache["blocks.batches"]
+    caller = spans["localmd.block_decomposition"]
+    named = {}
+    for name, tid, device in run["events"]:
+        if name in ("engine.window", "engine.window_wait", "blocks.residual"):
+            named[name] = named.get(name, 0) + 1
+            assert device == torch.autograd.DeviceType.CPU, name
+    for name in named:
+        assert spans[name] == caller, name
+    residual = cache["blocks.windows_run"] - cache["blocks.batches"]
+    assert named == {"engine.window": cache["blocks.windows_run"],
+                     "engine.window_wait": residual, "blocks.residual": residual}
+
+
+def _residual_seconds_only_profiled(run):
+    assert "blocks.residual_s" not in run["off"]
+    assert 0 < run["on"]["blocks.residual_s"] <= run["timings"]["block_decomposition"]
+
+
+def _block_counters_either_way(run):
+    for key in BLOCK_KEYS:
+        assert run["off"][key] == run["on"][key], key
+    assert run["off"]["blocks.fallback"] == 0
+
+
+WINDOW_CASES = {"spans_host_only": _window_spans_host_only,
+                "residual_seconds_only_profiled": _residual_seconds_only_profiled,
+                "block_counters_either_way": _block_counters_either_way}
+
+
+@pytest.mark.parametrize("case", list(WINDOW_CASES))
+def test_window_loop_spans_and_counters(windowed, case):
+    """The multi-window block stage: ``engine.window`` and
+    ``engine.window_wait`` host spans, the ``blocks.residual`` device span
+    settled into ``blocks.residual_s`` only while the profiler runs, and
+    the block counters kept with it off and on."""
+    WINDOW_CASES[case](windowed)
 
 
 def test_profiler_off_enters_no_profiler_range(movie, cell_route, monkeypatch):
@@ -356,7 +420,49 @@ def test_layout_span_on_the_card(cuda, monkeypatch):
     # timeline, where the device's busy time is read
     device = {e.name() for e in prof.profiler.kineto_results.events()
               if e.device_type() == torch.autograd.DeviceType.CUDA}
-    assert not {n for n in device if n.startswith(("localmd.", "loader.", "vreg."))}
+    assert not {n for n in device if n.startswith(SPAN_PREFIXES)}
     assert "vreg.layout_s" not in plain.pipeline_cache
     assert 0 < pmd.pipeline_cache["vreg.layout_s"] < pmd.pipeline_timings["v_regression"]
+    assert profiled <= unprofiled
+
+
+@pytest.mark.gpu
+def test_window_spans_on_the_card(cuda, monkeypatch):
+    """A profiled call of a 256²×4000 float32 movie in four 1000-frame init
+    windows on the card: the residual windows' device seconds lie inside
+    the block stage's, the window spans are host events only and add no
+    ``torch.cuda.synchronize``."""
+    g = torch.Generator(cuda).manual_seed(1)
+    t, d = 4000, 256 * 256
+    low = torch.randn(d, 3, generator=g, device=cuda) @ torch.randn(3, t, generator=g, device=cuda)
+    movie = (low.T * 30 + 500 + 10 * torch.randn(t, d, generator=g, device=cuda)).reshape(
+        t, 256, 256)
+    settings = dict(SETTINGS, block_sizes=(32, 32), frame_range=4000, window_chunks=1000,
+                    max_components=10)
+    syncs = []
+    real = torch.cuda.synchronize
+
+    def counting(*args, **kwargs):
+        syncs.append(1)
+        return real(*args, **kwargs)
+
+    localmd_decomposition(movie, device=cuda, **settings)       # builds and warms
+    monkeypatch.setattr(torch.cuda, "synchronize", counting)
+    plain = localmd_decomposition(movie, device=cuda, **settings)
+    unprofiled = len(syncs)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        del syncs[:]
+        pmd = localmd_decomposition(movie, device=cuda, **settings)
+        profiled = len(syncs)
+    events = list(prof.profiler.kineto_results.events())
+    device = {e.name() for e in events if e.device_type() == torch.autograd.DeviceType.CUDA}
+    assert not {n for n in device if n.startswith(SPAN_PREFIXES)}
+    host = {e.name() for e in events if e.device_type() == torch.autograd.DeviceType.CPU}
+    assert {"engine.window", "engine.window_wait", "blocks.residual"} <= host
+    cache = pmd.pipeline_cache
+    assert "blocks.residual_s" not in plain.pipeline_cache
+    assert cache["blocks.windows_run"] > cache["blocks.batches"]
+    assert 0 < cache["blocks.residual_s"] < pmd.pipeline_timings["block_decomposition"]
+    for key in BLOCK_KEYS:
+        assert cache[key] == plain.pipeline_cache[key], key
     assert profiled <= unprofiled

@@ -3,12 +3,14 @@
 
 Slicing (``pmd[frames, rows, cols]``) follows the reference semantics. While
 the device factors are live it runs on their device (``_getitem_device``,
-pmd_array.py:364-499): only the blocks that meet the requested ROI are
-touched -- a batched ``torch.bmm`` of their panels and temporal slices,
-placed by ``index_put_(accumulate=True)`` with rows and columns outside the
-ROI dropped -- and the frame axis is cut into chunks whose buffers fit the
-device's transient budget. Arrays built from host factors (.npz, scipy)
-or closed ones slice through the host CSR path (pmd_array.py:532-589).
+pmd_array.py:364-499) from one plan per request (``_plan``; a box key's
+comes from its slices' arithmetic): only the blocks that meet the
+requested ROI are touched -- a batched ``torch.bmm`` of their panels and
+temporal slices, placed by ``index_put_(accumulate=True)`` with rows and
+columns outside the ROI dropped -- and the frame axis is cut into chunks
+whose buffers fit the device's transient budget. Arrays built from host
+factors (.npz, scipy) or closed ones slice through the host CSR path
+(pmd_array.py:532-589).
 ``reconstruct_frames`` runs K3 chunk by chunk and never builds the full-T
 (R s) V product; ``export_tiff`` streams it into a TIFF.
 
@@ -23,7 +25,8 @@ again on the host: ``__getitem__`` returns float32 as it comes.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+import math
+from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import scipy.sparse
@@ -76,6 +79,43 @@ def _roi_reconstruct(panels_sub, t_sub, starts_rel, bg_rows, bg_t, b1, b2, h, w)
     return (canvas[: h * w] + bg_rows @ bg_t).reshape(h, w, f)
 
 
+class _SlicePlan(NamedTuple):
+    """One slicing request, worked out once (``PMDArray._plan``) and
+    passed to each of its chunks. An empty selection keeps only ``shape``
+    and ``frames``."""
+
+    shape: tuple                               # numpy's shape of row_indices[k1, k2]
+    frames: np.ndarray                         # the frame ids
+    r0: int = 0                                # the ROI box: origin (r0, c0), size (h, w)
+    c0: int = 0
+    h: int = 0
+    w: int = 0
+    hit: Optional[torch.Tensor] = None         # ids of the blocks that meet the box
+    starts_rel: Optional[torch.Tensor] = None  # their origins relative to (r0, c0)
+    ids: Optional[torch.Tensor] = None         # the box's dense-basis rows, row-major
+    rel: Optional[torch.Tensor] = None         # the selection in the box; None: the box
+    mean: Optional[torch.Tensor] = None        # (*shape, 1) on the factors' device
+    std: Optional[torch.Tensor] = None
+
+    @property
+    def empty(self) -> bool:
+        return self.hit is None
+
+
+def _box_extent(k, n: int):
+    """(start, length) of an index that is an int or a step-1 slice over an
+    axis of n, else None. Only for a selection numpy has made and found
+    not empty: an int is then within the axis, a slice's stop past its
+    start."""
+    if isinstance(k, (int, np.integer)):
+        return int(k) % n, 1
+    if isinstance(k, slice):
+        start, stop, step = k.indices(n)
+        if step == 1:
+            return start, stop - start
+    return None
+
+
 def _host(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
@@ -85,8 +125,14 @@ def _host(x) -> np.ndarray:
 class PMDArray:
     """The compressed movie ``[U R] s Vt`` as a lazy (T, d1, d2) array.
 
-    ``slice_counters`` counts the device slicing of ``__getitem__``:
+    ``slice_counters`` counts the device slicing of ``__getitem__`` (and
+    ``slice_device``, for the plan's keys):
 
+    - ``slice.box``, ``slice.gather``: requests per plan route -- a box key
+      (ints and step-1 slices) sliced out of device copies, or any other
+      key gathered from its bounding box (``_plan``);
+    - ``slice.plan_s``: host seconds of the ``pmd.plan`` span, the key's
+      selection and the plan's set-up, before any chunk is launched;
     - ``slice.pinned``: requests whose result was copied into page-locked
       host memory (factors on the card, result within the device's
       transient budget);
@@ -175,6 +221,7 @@ class PMDArray:
         self._recon_plan = None
         self._csr_device = None if device is None else resolve_device(device)
         self._csr_dev = None
+        self._slice_dev = None
         self.row_indices = np.arange(self.fov_dim1 * self.fov_dim2).reshape(
             (self.fov_dim1, self.fov_dim2), order=self.order
         )
@@ -429,73 +476,100 @@ class PMDArray:
             return used_rows % self.fov_dim1, used_rows // self.fov_dim1
         return used_rows // self.fov_dim2, used_rows % self.fov_dim2
 
-    def _roi_blocks(self, used_rows: np.ndarray):
-        """The ROI bounding box (r0, c0, h, w) of the selected pixels and
-        the ids of the blocks that meet it."""
-        r, c = self._pixel_coords(used_rows)
-        r0, r1 = int(r.min()), int(r.max()) + 1
-        c0, c1 = int(c.min()), int(c.max()) + 1
-        b1, b2 = self._blocksparse.block_shape
-        st = np.asarray(self._blocksparse.starts)
-        hit = np.nonzero(
-            (st[:, 0] < r1) & (st[:, 0] + b1 > r0) & (st[:, 1] < c1) & (st[:, 1] + b2 > c0)
-        )[0]
-        return r0, c0, r1 - r0, c1 - c0, hit
+    def _slice_images(self):
+        """(row_indices, mean, std) on the factors' device, made once:
+        a slicing plan cuts its box out of these."""
+        if self._slice_dev is None:
+            dev = self._blocksparse.panels.device
+            self._slice_dev = (
+                torch.as_tensor(np.ascontiguousarray(self.row_indices), device=dev),
+                torch.as_tensor(self._mean_src, dtype=torch.float32, device=dev),
+                torch.as_tensor(self._var_src, dtype=torch.float32, device=dev),
+            )
+        return self._slice_dev
 
-    def _slice_pixel_extent(self, used_rows: np.ndarray) -> int:
-        """Pixels of the ROI canvas a slicing chunk allocates: the bounding
-        box of the selection, however few of its pixels are selected
-        (pmd_array.py:390-408)."""
-        _, _, h, w, _ = self._roi_blocks(used_rows)
-        return h * w
+    def _plan(self, key) -> _SlicePlan:
+        """The slicing plan of a key, built once per request (the span
+        ``pmd.plan``). numpy indexes ``row_indices[k1, k2]`` once, so fancy
+        pairing, slices, negatives and bounds errors are its own, as on the
+        host path. A box key (k1 and k2 each an int or a step-1 slice) takes
+        its box from the slices' arithmetic and its dense-basis rows, mean
+        and std as slices of ``_slice_images``: no per-pixel host work and
+        no upload but the hit blocks' ids and origins (``slice.box``). Any
+        other key finds its bounding box from its pixels' coordinates and
+        gathers the selection from the box through ``rel``
+        (``slice.gather``)."""
+        counters = self.slice_counters
+        with span(counters, "slice.plan_s", "pmd.plan"):
+            frames, k1, k2 = self._normalize_key3(key)
+            used_rows = self.row_indices[self._parse_int_to_list(k1), self._parse_int_to_list(k2)]
+            frame_idx = np.atleast_1d(np.arange(self.num_frames)[self._parse_int_to_list(frames)])
+            shape = used_rows.shape
+            if used_rows.size == 0 or frame_idx.size == 0:
+                return _SlicePlan(shape, frame_idx)
+            u = self._blocksparse
+            dev = u.panels.device
+            rows_dev, mean_dev, std_dev = self._slice_images()
+            box_r, box_c = _box_extent(k1, self.fov_dim1), _box_extent(k2, self.fov_dim2)
+            if box_r is not None and box_c is not None:
+                (r0, h), (c0, w) = box_r, box_c
+                rel = None
+            else:
+                r, c = self._pixel_coords(np.asarray(used_rows))
+                r0, c0 = int(r.min()), int(c.min())
+                h, w = int(r.max()) + 1 - r0, int(c.max()) + 1 - c0
+                rel = torch.as_tensor(((r - r0) * w + (c - c0)).reshape(-1), device=dev)
+            count(counters, "slice.box" if rel is None else "slice.gather", 1)
+            b1, b2 = u.block_shape
+            st = np.asarray(u.starts, dtype=np.int64)
+            hit = np.nonzero(
+                (st[:, 0] < r0 + h) & (st[:, 0] + b1 > r0) & (st[:, 1] < c0 + w) & (st[:, 1] + b2 > c0)
+            )[0]
 
-    def _slice_frame_bytes(self, used_rows: np.ndarray) -> int:
+            def selected(img):
+                box = img[r0 : r0 + h, c0 : c0 + w]
+                if rel is not None:
+                    box = box.reshape(-1).index_select(0, rel)
+                return box.reshape(shape)[..., None]
+
+            return _SlicePlan(
+                shape, frame_idx, r0, c0, h, w,
+                hit=torch.as_tensor(hit, device=dev),
+                starts_rel=torch.as_tensor(st[hit] - np.array([r0, c0]), device=dev),
+                ids=rows_dev[r0 : r0 + h, c0 : c0 + w].reshape(-1),
+                rel=rel, mean=selected(mean_dev), std=selected(std_dev),
+            )
+
+    def _slice_frame_bytes(self, plan: _SlicePlan) -> int:
         """Device bytes one frame of a slicing chunk allocates: the ROI
-        canvas and its background product (``_slice_pixel_extent`` each),
-        the hit blocks' (k, b1*b2) product -- about four canvases at 50%
-        overlap, which a canvas-only budget (pmd_array.py:491-492) leaves
-        out -- and the temporal column."""
-        _, _, _, _, hit = self._roi_blocks(used_rows)
+        canvas and its background product (the plan's box, however few of
+        its pixels are selected; pmd_array.py:390-408), the hit blocks'
+        (k, b1*b2) product -- about four canvases at 50% overlap, which a
+        canvas-only budget (pmd_array.py:491-492) leaves out -- and the
+        temporal column."""
         u = self._blocksparse
         b1, b2 = u.block_shape
-        return 4 * (2 * self._slice_pixel_extent(used_rows) + len(hit) * b1 * b2 + 2 * u.shape[1])
+        return 4 * (2 * plan.h * plan.w + len(plan.hit) * b1 * b2 + 2 * u.shape[1])
 
-    def _slice_device_chunk(self, used_rows: np.ndarray, frame_idx) -> torch.Tensor:
-        """Standardized (no mean/std) device reconstruction of the pixels in
-        ``used_rows`` (host int array, any shape, global flat ids in
-        ``self.order``) for the frames ``frame_idx`` -> (*used_rows.shape, f)."""
+    def _slice_device_chunk(self, plan: _SlicePlan, frame_idx) -> torch.Tensor:
+        """The plan's pixels for the frames ``frame_idx``, reconstructed on
+        the factors' device and un-normalized (x std + mean), frames first:
+        (f, *plan.shape)."""
         u = self._blocksparse
-        dev = u.panels.device
         temporal = self._device_temporal(frame_idx)            # (R_padded, f)
         nb = u.n_block_cols
         f = temporal.shape[1]
         b1, b2 = u.block_shape
-        r0, c0, h, w, hit = self._roi_blocks(used_rows)
-        hit_t = torch.as_tensor(hit, device=dev)
         t_blocks = temporal[:nb].reshape(u.n_blocks, u.slots, f)
-        starts_rel = torch.as_tensor(
-            np.asarray(u.starts, dtype=np.int64)[hit] - np.array([r0, c0]), device=dev
-        )
-        ids = torch.as_tensor(self.row_indices[r0 : r0 + h, c0 : c0 + w].reshape(-1), device=dev)
         canvas = _roi_reconstruct(
-            u.panels.index_select(0, hit_t), t_blocks.index_select(0, hit_t), starts_rel,
-            u.dense_basis.index_select(0, ids), temporal[nb:], b1, b2, h, w,
-        )
-        r, c = self._pixel_coords(used_rows)
-        rel = torch.as_tensor(((r - r0) * w + (c - c0)).reshape(-1), device=dev)
-        return canvas.reshape(h * w, f).index_select(0, rel).reshape(used_rows.shape + (f,))
-
-    def _selection(self, key):
-        """(used_rows, mean_used, var_used, frame_idx) of a key, normalized
-        with numpy on the small ``row_indices`` grid, so fancy pairing,
-        slices, negatives and bounds errors are numpy's own, as on the
-        host path."""
-        frames, k1, k2 = self._normalize_key3(key)
-        k1 = self._parse_int_to_list(k1)
-        k2 = self._parse_int_to_list(k2)
-        used_rows = np.asarray(self.row_indices[k1, k2])
-        frame_idx = np.atleast_1d(np.arange(self.num_frames)[self._parse_int_to_list(frames)])
-        return used_rows, self.mean_img[k1, k2], self.var_img[k1, k2], frame_idx
+            u.panels.index_select(0, plan.hit), t_blocks.index_select(0, plan.hit),
+            plan.starts_rel, u.dense_basis.index_select(0, plan.ids), temporal[nb:],
+            b1, b2, plan.h, plan.w,
+        ).reshape(plan.h * plan.w, f)
+        if plan.rel is not None:
+            canvas = canvas.index_select(0, plan.rel)
+        std = canvas.reshape(plan.shape + (f,))
+        return torch.movedim(std * plan.std + plan.mean, -1, 0).contiguous()
 
     def _getitem_device(self, key) -> np.ndarray:
         """Reference slicing semantics run on the factors' device
@@ -506,19 +580,17 @@ class PMDArray:
         non-blocking copies and one wait on the stream, when the factors
         are on the card and the result fits ``transient_budget_bytes``;
         pageable otherwise (``PMDArray``'s docstring)."""
-        used_rows, mean_used, var_used, frame_idx = self._selection(key)
-        n_f = int(frame_idx.size)
-        shape = (n_f,) + used_rows.shape
-        if used_rows.size == 0 or n_f == 0:
+        plan = self._plan(key)
+        n_f = len(plan.frames)
+        shape = (n_f,) + plan.shape
+        if plan.empty:
             return np.zeros(shape, dtype=np.float32)
         dev = self._blocksparse.panels.device
-        per_chunk = max(1, _slice_canvas_budget(dev) // self._slice_frame_bytes(used_rows))
-        var_dev = torch.as_tensor(np.asarray(var_used, dtype=np.float32), device=dev)[..., None]
-        mean_dev = torch.as_tensor(np.asarray(mean_used, dtype=np.float32), device=dev)[..., None]
+        per_chunk = max(1, _slice_canvas_budget(dev) // self._slice_frame_bytes(plan))
         counters = self.slice_counters
         with span(counters, "slice.to_host_s", "pmd.to_host"):
             out = None
-            if dev.type == "cuda" and 4 * n_f * used_rows.size <= transient_budget_bytes(dev):
+            if dev.type == "cuda" and 4 * n_f * math.prod(plan.shape) <= transient_budget_bytes(dev):
                 try:
                     out = torch.empty(shape, dtype=torch.float32, pin_memory=True)
                 except RuntimeError:  # page-locked memory exhausted or refused
@@ -527,9 +599,9 @@ class PMDArray:
             if not pinned:
                 out = torch.empty(shape, dtype=torch.float32)
             for s in range(0, n_f, per_chunk):
-                std = self._slice_device_chunk(used_rows, frame_idx[s : s + per_chunk])
                 out[s : s + per_chunk].copy_(
-                    torch.movedim(std * var_dev + mean_dev, -1, 0).contiguous(), non_blocking=pinned
+                    self._slice_device_chunk(plan, plan.frames[s : s + per_chunk]),
+                    non_blocking=pinned,
                 )
             if pinned:
                 torch.cuda.current_stream(dev).synchronize()
@@ -547,14 +619,11 @@ class PMDArray:
                 "slice_device needs the device factors; this PMDArray was "
                 "built from host factors or already closed — use __getitem__"
             )
-        used_rows, mean_used, var_used, frame_idx = self._selection(key)
-        dev = self._blocksparse.panels.device
-        if used_rows.size == 0 or frame_idx.size == 0:
-            return torch.zeros((int(frame_idx.size),) + used_rows.shape, device=dev)
-        var_dev = torch.as_tensor(np.asarray(var_used, dtype=np.float32), device=dev)[..., None]
-        mean_dev = torch.as_tensor(np.asarray(mean_used, dtype=np.float32), device=dev)[..., None]
-        std = self._slice_device_chunk(used_rows, frame_idx)
-        return torch.movedim(std * var_dev + mean_dev, -1, 0).contiguous()
+        plan = self._plan(key)
+        if plan.empty:
+            return torch.zeros((len(plan.frames),) + plan.shape,
+                               device=self._blocksparse.panels.device)
+        return self._slice_device_chunk(plan, plan.frames)
 
     # -- host slicing (reference semantics) --------------------------------------
 
@@ -613,7 +682,8 @@ class PMDArray:
     def close(self, materialize: bool = True) -> None:
         """Release the device buffers of this array (pmd_array.py:593-647):
         the block panels, mixing matrix, V, and the port's own device
-        caches (R s, the C-order panels, K3's block lists).
+        caches (R s, the C-order panels, K3's block lists, the slicing
+        images).
 
         With ``materialize=True`` the host factors are made first, so
         slicing keeps working through the host CSR path. With
@@ -641,6 +711,7 @@ class PMDArray:
         self._panels_c = None
         self._recon_plan = None
         self._csr_dev = None
+        self._slice_dev = None
         self._r_padded = None
 
         def _survivor(src, host):

@@ -36,7 +36,19 @@ KEYS = {
     "rows_only": (slice(100, 120), slice(4, 9)),
     "ints_everywhere": (7, 3, 4),
     "frame_array": (np.array([4, 2, 9]), slice(0, 30), slice(0, 26)),
+    "reversed_rows": (slice(0, 40), slice(None, None, -1), slice(2, 20, 3)),
 }
+# keys whose spatial part is a box (ints and step-1 slices): the plan's box
+# route; every other key of KEYS gathers its pixels from its bounding box
+BOX_KEYS = {name: KEYS[name] for name in KEYS
+            if name not in ("strided", "fancy_pairs", "reversed_rows")}
+BOX_KEYS.update({
+    "border_box": (slice(0, 50), slice(D1 - 7, D1), slice(D2 - 5, None)),
+    "one_pixel_box": (slice(3, 60), slice(12, 13), slice(8, 9)),
+    "int_rows": (slice(0, 20), 4, slice(2, 19)),
+    "int_cols": (slice(0, 20), slice(5, 25), 11),
+    "negative_slices": (slice(-40, -3), slice(-20, -4), slice(-9, -1)),
+})
 EMPTY_KEYS = {
     "no_frames": ([], slice(0, 5), slice(0, 5)),
     "no_rows": (slice(0, 4), slice(5, 5), slice(None)),
@@ -73,6 +85,98 @@ def test_device_slicing_matches_jax(name, pair):
     assert rel_fro(got, want) <= 1e-5
     # the port's __getitem__ took the device path, not the host CSR
     assert port._blocksparse is not None and port._u_csr is None
+
+
+@pytest.fixture
+def one_thread():
+    """One CPU thread while a test compares bits: with several, two calls
+    of the same GEMM on the CPU may differ in their last bits."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _general_key(key):
+    """The same pixels as a box key, as broadcast index arrays: the plan's
+    gather route."""
+    k1 = key[1] if len(key) > 1 else slice(None)
+    k2 = key[2] if len(key) > 2 else slice(None)
+
+    def axis(k, n):
+        if isinstance(k, int):
+            return np.arange(k % n, k % n + 1)
+        start, stop, _ = k.indices(n)
+        return np.arange(start, stop)
+
+    return key[0], axis(k1, D1)[:, None], axis(k2, D2)[None, :]
+
+
+def _routed(port, key):
+    """(result, the plan route its request counted)."""
+    c = port.slice_counters
+    before = {k: c.get(k, 0) for k in ("slice.box", "slice.gather")}
+    out = port[key]
+    routes = [k for k in before if c.get(k, 0) > before[k]]
+    assert len(routes) == 1 and c[routes[0]] - before[routes[0]] == 1
+    return out, routes[0]
+
+
+@pytest.mark.parametrize("name", list(BOX_KEYS))
+def test_box_route_serves_the_gather_routes_bits(name, pair, one_thread):
+    """A box key's plan, sliced from device copies with no gather, serves
+    bit for bit what the gather route serves for the same pixels."""
+    jpmd, port = pair
+    key = BOX_KEYS[name]
+    box, route = _routed(port, key)
+    assert route == "slice.box"
+    general = _general_key(key)
+    gathered, route = _routed(port, general)
+    assert route == "slice.gather"
+    plan = port._plan(key)
+    rows, cols = general[1].ravel(), general[2].ravel()
+    assert (plan.r0, plan.c0, plan.h, plan.w) == (rows[0], cols[0], len(rows), len(cols))
+    assert box.dtype == gathered.dtype == np.float32
+    assert np.array_equal(box.view(np.uint32), gathered.reshape(box.shape).view(np.uint32))
+    assert rel_fro(box, jpmd[key]) <= 1e-5
+
+
+@pytest.mark.parametrize("name", list(KEYS))
+def test_plan_route_follows_the_key(name, pair):
+    """Box keys count ``slice.box`` and take no gather; strided, reversed
+    and fancy keys count ``slice.gather``; ``slice_device`` plans alike."""
+    _, port = pair
+    key = KEYS[name]
+    want = "slice.box" if name in BOX_KEYS else "slice.gather"
+    assert _routed(port, key)[1] == want
+    plan = port._plan(key)
+    assert (plan.rel is None) == (want == "slice.box")
+    assert plan.mean.shape == plan.std.shape == plan.shape + (1,)
+    assert len(plan.ids) == plan.h * plan.w
+    c = port.slice_counters
+    before = c[want]
+    port.slice_device(*key)
+    assert c[want] - before == 1
+
+
+def test_plan_span_lands_in_the_trace(pair):
+    """``pmd.plan`` is a host range of the profiler's trace, once per
+    request (empty ones too), ahead of ``pmd.to_host``; ``slice.plan_s``
+    adds its seconds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _, port = pair
+    before = port.slice_counters.get("slice.plan_s", 0)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for key in (KEYS["int_frame"], KEYS["strided"], EMPTY_KEYS["no_rows"]):
+            port[key]
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.name() in ("pmd.plan", "pmd.to_host")]
+    assert [e.name() for e in sorted(events, key=lambda e: e.start_ns())] == [
+        "pmd.plan", "pmd.to_host", "pmd.plan", "pmd.to_host", "pmd.plan"]
+    assert port.slice_counters["slice.plan_s"] > before
 
 
 @pytest.mark.parametrize("name", ["int_frame", "frame_slice_roi", "strided", "fancy_pairs",
@@ -162,10 +266,12 @@ def test_slice_budget_counts_the_block_product(pair, monkeypatch):
     canvas alone: at 50% overlap that product is about four canvases. The
     canvas is the bounding box, as the JAX package's extent is."""
     jpmd, port = pair
-    corners = np.asarray(port.row_indices[[0, D1 - 1], :][:, [0, D2 - 1]])
-    assert port._slice_pixel_extent(corners) == jpmd._slice_pixel_extent(corners) == D1 * D2
-    used = np.asarray(port.row_indices[:, :])
-    per_frame = port._slice_frame_bytes(used)
+    corner_key = (0, np.array([[0], [D1 - 1]]), np.array([[0, D2 - 1]]))
+    corners = np.asarray(port.row_indices[corner_key[1:]])
+    plan = port._plan(corner_key)
+    assert plan.rel is not None and plan.shape == (2, 2)
+    assert plan.h * plan.w == jpmd._slice_pixel_extent(corners) == D1 * D2
+    per_frame = port._slice_frame_bytes(port._plan((0,)))
     u = port._blocksparse
     assert per_frame >= 4 * (D1 * D2 + u.n_blocks * 100)
     assert u.n_blocks * 100 > 3 * D1 * D2

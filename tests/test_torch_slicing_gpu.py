@@ -3,7 +3,8 @@
 within the device's transient budget is copied into page-locked memory
 that the returned array owns; a larger one, or one whose page-locked
 allocation raises, into pageable memory. Both routes serve the same
-bits, the parent's arithmetic on the card.
+bits, the parent's arithmetic on the card, and so do the two plan routes:
+a box key's device slices and the gather of the same pixels.
 
 Marked ``gpu``; each test skips (in a fixture, not at import) unless
 ``torch.cuda.is_available()``. Run on a machine with the card:
@@ -31,6 +32,14 @@ KEYS = {
     "fancy": ([3, 17, T - 1], [5, 29], [7, 25]),
     "negative_rows": (slice(0, 9), slice(-12, -2), -3),
 }
+# spatial boxes (ints and step-1 slices), served by the plan's box route
+BOX_KEYS = {name: KEYS[name] for name in KEYS if name not in ("strided", "fancy")}
+BOX_KEYS.update({
+    "border_box": (slice(0, 64), slice(D1 - 7, D1), slice(D2 - 5, None)),
+    "one_pixel_box": (slice(5, 300), slice(12, 13), slice(8, 9)),
+    "int_cols": (slice(0, 20), slice(5, 25), 11),
+    "negative_slices": (slice(-40, -3), slice(-20, -4), slice(-9, -1)),
+})
 
 
 @pytest.fixture
@@ -113,6 +122,40 @@ def test_pinned_route_serves_the_pageable_routes_bits(name, pmd, budget, monkeyp
         assert np.array_equal(whole.view(np.uint32), pinned.view(np.uint32))
 
 
+def _general_key(key):
+    """The same pixels as a box key, as broadcast index arrays: the plan's
+    gather route."""
+    k1 = key[1] if len(key) > 1 else slice(None)
+    k2 = key[2] if len(key) > 2 else slice(None)
+
+    def axis(k, n):
+        if isinstance(k, int):
+            return np.arange(k % n, k % n + 1)
+        start, stop, _ = k.indices(n)
+        return np.arange(start, stop)
+
+    return key[0], axis(k1, D1)[:, None], axis(k2, D2)[None, :]
+
+
+@pytest.mark.parametrize("pinned", [True, False], ids=["pinned", "pageable"])
+@pytest.mark.parametrize("name", list(BOX_KEYS))
+def test_box_route_serves_the_gather_routes_bits(name, pinned, pmd, budget, monkeypatch):
+    """A box key's plan (device slices, no gather, no per-pixel upload)
+    serves bit for bit what the gather route serves for the same pixels,
+    on either route to the host."""
+    key = BOX_KEYS[name]
+    results = []
+    for k, plan_route in ((key, "slice.box"), (_general_key(key), "slice.gather")):
+        before = pmd.slice_counters.get(plan_route, 0)
+        out, route = _served(pmd, k) if pinned else _pageable(pmd, k, monkeypatch)
+        assert route == ("slice.pinned" if pinned else "slice.pageable")
+        assert pmd.slice_counters[plan_route] - before == 1
+        results.append(out)
+    box, gathered = results
+    assert box.dtype == gathered.dtype == np.float32
+    assert np.array_equal(box.view(np.uint32), gathered.reshape(box.shape).view(np.uint32))
+
+
 def test_a_held_result_is_not_overwritten(pmd, budget, monkeypatch):
     """Results of one size share a bin of the host cache: one the caller
     holds keeps its block; after ``del`` the reused block serves the next
@@ -162,18 +205,23 @@ def test_a_refused_pinned_allocation_falls_back(pmd, budget, monkeypatch):
 
 
 def test_counters_and_span(pmd, budget):
-    """Every request counts once, under its route; ``slice.to_host_s`` adds
-    the span's seconds, and the span is a range of the profiler's trace."""
+    """Every request counts once, under its route to the host and its plan
+    route; ``slice.to_host_s`` and ``slice.plan_s`` add their spans'
+    seconds, and both spans are ranges of the profiler's trace."""
     from torch.profiler import ProfilerActivity, profile
 
     c = pmd.slice_counters
-    before = {k: c.get(k, 0) for k in ("slice.pinned", "slice.to_host_s")}
+    keys = ("slice.pinned", "slice.to_host_s", "slice.plan_s", "slice.box", "slice.gather")
+    before = {k: c.get(k, 0) for k in keys}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for key in KEYS.values():
             pmd[key]
     assert c["slice.pinned"] - before["slice.pinned"] == len(KEYS)
     assert c["slice.to_host_s"] > before["slice.to_host_s"]
+    assert c["slice.plan_s"] > before["slice.plan_s"]
+    assert c["slice.box"] - before["slice.box"] == len(BOX_KEYS.keys() & KEYS.keys())
+    assert c["slice.gather"] - before["slice.gather"] == 2
     names = [e.name() for e in prof.profiler.kineto_results.events()]
-    assert names.count("pmd.to_host") == len(KEYS)
+    assert names.count("pmd.to_host") == names.count("pmd.plan") == len(KEYS)
     assert any("DtoH" in n and "Pinned" in n for n in names)
     assert not any("DtoH" in n and "Pageable" in n for n in names)

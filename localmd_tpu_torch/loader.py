@@ -51,6 +51,7 @@ import gc
 import math
 import queue
 import threading
+import time
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -844,20 +845,24 @@ class PMDLoader:
         it = self._iter_raw_chunks(eager=True, host_partition="frames", label="vreg")
         if not isinstance(it, _PrefetchIter):
             return False
-        self._v_prefetch = {"iter": it, "cache_frames": self._cache_frames}
+        self._v_prefetch = {"iter": it, "cache_frames": self._cache_frames,
+                            "started": time.perf_counter()}
         return True
 
     def _take_v_prefetch(self):
         """The pending stream, or None when there is none or the cache was
-        dropped after it started (loader.py:766-778)."""
+        dropped after it started (loader.py:766-778); sets the counters
+        ``vreg.prefetched`` and ``vreg.prefetch_lead_s``
+        (``pipeline_record``)."""
         h = self._v_prefetch
         self._v_prefetch = None
-        if h is None:
-            return None
-        if h["cache_frames"] != self._cache_frames:
+        if h is not None and h["cache_frames"] != self._cache_frames:
             h["iter"].close()
-            return None
-        return h["iter"]
+            h = None
+        self.transfers["vreg.prefetched"] = int(h is not None)
+        self.transfers["vreg.prefetch_lead_s"] = (
+            time.perf_counter() - h["started"] if h is not None else 0.0)
+        return h["iter"] if h is not None else None
 
     # -- statistics -----------------------------------------------------------
 
@@ -1091,6 +1096,13 @@ class PMDLoader:
           ``.host_read_split`` (those the dataset's ``read_threads`` split),
           ``.slot_wait_s`` (``loader.slot_wait``) and ``.chunk_wait_s``
           (``loader.chunk_wait``); chunks the card serves count nothing;
+        - ``vreg.streamed_frames``: frames the V regression read from the
+          dataset (0 where the cache or a device-resident movie served
+          them all); ``vreg.prefetched`` (1 where it took the stream
+          ``start_v_prefetch`` opened before the factorized SVD, 0 where it
+          opened its own or a cache drop closed that one) and
+          ``vreg.prefetch_lead_s`` (host seconds from that start to the
+          take; 0 without one);
         - ``vreg.k2_calls`` and ``vreg.cell_calls`` (chunks per route); on
           the K2 route ``vreg.k2_width`` (r') and ``vreg.k2_frames``; while
           the profiler runs, ``vreg.layout_s`` and ``vreg.k2_s``, the device
@@ -1098,9 +1110,13 @@ class PMDLoader:
         for spans in self._spans:
             spans.settle()
         self._spans.clear()
+        frame_bytes = self.n_pixels * torch.empty(0, dtype=self.stream_dtype).element_size()
         return {
             "cached_frames": int(self._cache_frames),
             "total_frames": int(self.shape[0]),
+            "vreg.prefetched": 0,
+            "vreg.prefetch_lead_s": 0.0,
             **self.transfers,
+            "vreg.streamed_frames": int(self.transfers.get("vreg.host_read_bytes", 0)) // frame_bytes,
             "stream_dtype": str(self.stream_dtype).removeprefix("torch."),
         }

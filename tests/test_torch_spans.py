@@ -4,8 +4,10 @@
 ``vreg.layout`` span and the K2 route's ``vreg.k2`` span in the torch
 profiler's trace, the route counters (``vreg.k2_calls``, ``vreg.cell_calls``,
 ``vreg.k2_width``, ``vreg.k2_frames``, ``fsvd.banded``,
-``blocks.remainder``), the multi-window block stage's ``engine.window``,
-``engine.window_wait`` and ``blocks.residual`` spans and its counters
+``blocks.remainder``), the V prefetch's counters (``vreg.prefetched``,
+``vreg.prefetch_lead_s``, ``vreg.streamed_frames``), the multi-window
+block stage's ``engine.window``, ``engine.window_wait`` and
+``blocks.residual`` spans and its counters
 (``blocks.batches``, ``blocks.windows_run``, ``blocks.fallback``,
 ``blocks.residual_s``), and no span or device counter with the profiler off.
 
@@ -164,6 +166,61 @@ def test_split_host_reads_are_counted(split_reads, movie, case):
     at 1; the bytes stay the movie's, and a subclass that counts in
     ``read_into`` through ``super()`` counts them once."""
     SPLIT_CASES[case](split_reads, movie)
+
+
+@pytest.fixture(scope="module")
+def prefetch_calls():
+    """Three calls on a 2600-frame movie: wholly cached, with the cache
+    planned to its first 2048 frames (the free bytes set to hold 80% of
+    it), and resident on the device."""
+    from localmd_tpu_torch import loader as port_loader
+
+    movie = _movie(t=2600)
+    with pytest.MonkeyPatch.context() as mp:
+        cached = _call(NumpyArray(movie), cache_movie=True).pipeline_cache
+        free = int(0.8 * movie.nbytes / port_loader.CACHE_FRACTION)
+        mp.setattr(port_loader, "device_free_bytes", lambda device, *a, **k: free)
+        prefix = _call(NumpyArray(movie), cache_movie=True).pipeline_cache
+    resident = _call(torch.from_numpy(movie)).pipeline_cache
+    return dict(cached=cached, prefix=prefix, resident=resident, movie=movie)
+
+
+def _prefetch_cached(runs):
+    cache = runs["cached"]
+    assert cache["cached_frames"] == cache["total_frames"] == 2600
+    assert cache["vreg.prefetched"] == 0 and cache["vreg.prefetch_lead_s"] == 0.0
+    assert cache["vreg.streamed_frames"] == 0
+
+
+def _prefetch_prefix(runs):
+    # on the CPU as on the card, start_v_prefetch opens the V pass's stream
+    # (a prefetch worker, no pinned ring) before the factorized SVD
+    cache, frame_bytes = runs["prefix"], runs["movie"][0].nbytes
+    assert cache["cached_frames"] == 2048
+    assert cache["vreg.streamed_frames"] == 2600 - 2048
+    assert cache["vreg.host_read_bytes"] == (2600 - 2048) * frame_bytes
+    assert cache["vreg.prefetched"] == 1 and cache["vreg.prefetch_lead_s"] > 0
+
+
+def _prefetch_resident(runs):
+    cache = runs["resident"]
+    assert cache["cached_frames"] == 0
+    assert cache["vreg.streamed_frames"] == 0 and cache["vreg.prefetched"] == 0
+    assert cache["vreg.prefetch_lead_s"] == 0.0
+
+
+PREFETCH_CASES = {"cached": _prefetch_cached, "prefix": _prefetch_prefix,
+                  "resident": _prefetch_resident}
+
+
+@pytest.mark.parametrize("case", list(PREFETCH_CASES))
+def test_v_prefetch_counters(prefetch_calls, case):
+    """``vreg.prefetched``, ``vreg.prefetch_lead_s`` and
+    ``vreg.streamed_frames``: nothing streamed where the cache or the
+    device holds every frame; the uncached tail streamed, through the
+    stream opened before the factorized SVD, where the cache holds a
+    prefix."""
+    PREFETCH_CASES[case](prefetch_calls)
 
 
 def _threads_by_span(events) -> dict:

@@ -243,3 +243,40 @@ def test_checkpoint_resume_and_planes_on_the_card(cuda, files, tmp_path):
     for a, b in zip(seq.planes, par.planes):
         assert a.pipeline_ranks == b.pipeline_ranks
         assert torch.equal(a.reconstruct_frames(frames[:4]), b.reconstruct_frames(frames[:4]))
+
+
+def test_int16_cache_prefix_equals_the_wholly_cached_call(cuda, monkeypatch):
+    """A 512²×4096 int16 movie with negative samples in host memory, the
+    movie cache planned to half of it (the free bytes set to the movie's,
+    at the default ``cache_fraction``), against the same call with the
+    movie wholly cached: the statistics pass reads the same chunks, so the
+    images are equal; the V pass takes 2048 frames from the cache and
+    streams the other 2048 through the stream opened before the factorized
+    SVD, and gives V within 1e-5 of the wholly cached call's."""
+    import localmd_tpu_torch.loader as port_loader
+    from localmd_tpu_torch import NumpyArray, localmd_decomposition
+
+    g = torch.Generator(cuda).manual_seed(2)
+    t, d = 4096, 512 * 512
+    low = torch.randn(d, 3, generator=g, device=cuda) @ torch.randn(3, t, generator=g, device=cuda)
+    noisy = low.T * 30 + 40 + 40 * torch.randn(t, d, generator=g, device=cuda)
+    movie = noisy.round().clamp(-32768, 32767).to(torch.int16).reshape(t, 512, 512).cpu().numpy()
+    del low, noisy
+    assert (movie < 0).mean() > 0.1
+    kw = dict(frame_range=2048, max_components=10, background_rank=1, sim_iters=10, seed=0,
+              num_workers=4, cache_movie=True, device=cuda)
+    whole = localmd_decomposition(NumpyArray(movie), (32, 32), **kw)
+    monkeypatch.setattr(port_loader, "device_free_bytes", lambda device, *a, **k: movie.nbytes)
+    half = localmd_decomposition(NumpyArray(movie), (32, 32), **kw)
+    assert whole.pipeline_cache["cached_frames"] == t
+    cache = half.pipeline_cache
+    assert (cache["cached_frames"], cache["stream_dtype"]) == (t // 2, "int16")
+    assert cache["vreg.streamed_frames"] == t // 2
+    assert cache["vreg.host_read_bytes"] == movie.nbytes // 2
+    assert cache["vreg.prefetched"] == 1 and cache["vreg.prefetch_lead_s"] > 0
+    assert whole.pipeline_cache["vreg.streamed_frames"] == 0
+    np.testing.assert_array_equal(np.asarray(half.mean_img), np.asarray(whole.mean_img))
+    np.testing.assert_array_equal(np.asarray(half.var_img), np.asarray(whole.var_img))
+    assert half.pipeline_ranks == whole.pipeline_ranks
+    v_half, v_whole = np.asarray(half.v), np.asarray(whole.v)
+    assert np.linalg.norm(v_half - v_whole) <= 1e-5 * np.linalg.norm(v_whole)
